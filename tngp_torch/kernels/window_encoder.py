@@ -1,0 +1,236 @@
+"""Binned window encoder, forward — the port of
+`tngp/kernels/window_encoder.py` (`bin_dest`, `bin_dest_pallas`,
+`_wob_local`, `window_encode_binned`'s forward `_binned_fwd`).
+
+Pipeline, as `_binned_fwd` does it:
+  1. bin: counting-sort the M samples into 64 spatial tiles, each tile's
+     region padded to whole blocks, so every block of `block` samples is
+     tile-pure (`bin_dest`, through the bin-rank kernel);
+  2. sort: scatter the (x, y, z, 1) payload rows to `dest` — unique indices,
+     so the scatter-add IS the sort, and padding slots stay zero, which is
+     the validity channel;
+  3. encode the sorted samples, each block with its tile's window per level
+     (the window-encoder forward kernel);
+  4. unsort with a gather on `dest`.
+
+Kernels (CUDA sources in `tngp_torch/csrc/`; each header says what bounds it):
+  `bin_ranks`          -> bin_rank.cu        (replaces `_make_bin_rank_kernel`)
+  `window_encode_fwd`  -> window_encoder.cu  (replaces `_make_fwd_kernel`)
+Each has its plain PyTorch version beside it (`*_plain`).  The backward
+(`_make_bwd_kernel`) comes with training.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..ops.window_table import (
+    N_TILES,
+    WIN_HI,
+    WIN_LANES,
+    WIN_ROWS,
+    WindowSpec,
+    _bf16_round,
+    _corner_rows,
+    sample_tiles,
+)
+from . import _lib
+from .scatter import scatter_add
+
+DEFAULT_BLOCK = 512
+RANK_BS = 512  # keys per bin-rank block (fixed in bin_rank.cu)
+
+BIN_RANK = _lib.register(
+    "bin_ranks", "bin_rank.cu", "tngp/kernels/window_encoder.py:131"
+)
+WINDOW_FWD = _lib.register(
+    "window_encode_fwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:336"
+)
+
+
+def padded_size(M: int, block: int) -> int:
+    """Static upper bound on the tile-padded sample count."""
+    return -(-(M + N_TILES * (block - 1)) // block) * block
+
+
+# ---------------------------------------------------------------------------
+# binning
+# ---------------------------------------------------------------------------
+
+
+def _padded_keys(key: torch.Tensor) -> torch.Tensor:
+    """[M] tile keys -> [NBk * RANK_BS] int32, padded with -1 (no tile)."""
+    padm = (-key.shape[0]) % RANK_BS
+    keyp = key.to(torch.int32)
+    if padm:
+        keyp = torch.cat([keyp, keyp.new_full((padm,), -1)])
+    return keyp.contiguous()
+
+
+def bin_ranks_plain(keyp: torch.Tensor):
+    """Plain version of the bin-rank kernel: per block of RANK_BS keys, each
+    key's stable rank within its tile (-1 for padding) and the block's tile
+    histogram.  keyp [NBk * RANK_BS] int32 -> (rank [NBk * RANK_BS] int32,
+    tot [NBk, 64] int32)."""
+    NBk = keyp.shape[0] // RANK_BS
+    tiles = torch.arange(N_TILES, dtype=torch.int32, device=keyp.device)
+    onehot = (keyp.reshape(NBk, RANK_BS, 1) == tiles).to(torch.int32)  # [NBk, BS, 64]
+    cum = torch.cumsum(onehot, dim=1)
+    own = (cum * onehot).sum(dim=2)  # own rank + 1, 0 for padding
+    return (own - 1).to(torch.int32).reshape(-1), cum[:, -1, :].to(torch.int32)
+
+
+def bin_ranks(keyp: torch.Tensor):
+    """Per-block stable tile ranks and histograms (see `bin_ranks_plain`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if _lib.use_plain(keyp):
+        return bin_ranks_plain(keyp)
+    n = keyp.shape[0]
+    if n % RANK_BS:
+        raise ValueError(f"keys length {n} is not a multiple of {RANK_BS}")
+    _lib.check(keyp, "keyp", torch.int32, (n,))
+    NBk = n // RANK_BS
+    rank = torch.empty((n,), dtype=torch.int32, device=keyp.device)
+    tot = torch.empty((NBk, N_TILES), dtype=torch.int32, device=keyp.device)
+    _lib.launch(
+        BIN_RANK, "tngp_bin_ranks", keyp.device,
+        keyp.data_ptr(), rank.data_ptr(), tot.data_ptr(), NBk,
+    )
+    return rank, tot
+
+
+def _dest_from_ranks(key, rank, tot, M: int, block: int):
+    """Counting-sort destinations from per-block ranks and histograms (the
+    host-side half of `bin_dest_pallas`).  All integer, exact."""
+    M_pad = padded_size(M, block)
+    NB = M_pad // block
+    tot = tot.long()
+    blk_base = torch.cumsum(tot, dim=0) - tot  # exclusive [NBk, 64]
+    counts = tot.sum(dim=0)  # [64]
+    padded = (counts + block - 1) // block * block
+    starts = torch.cat([padded.new_zeros(1), torch.cumsum(padded, 0)[:-1]])
+    sidx = torch.arange(M, device=key.device)
+    base_s = blk_base.reshape(-1)[(sidx // RANK_BS) * N_TILES + key]
+    dest = starts[key] + base_s + rank[:M].long()
+    b_start = torch.arange(NB, device=key.device) * block
+    tob = (starts[None, :] <= b_start[:, None]).sum(dim=1) - 1  # [NB]
+    return dest, tob
+
+
+def bin_dest_ref(x01_cf: torch.Tensor, block: int = DEFAULT_BLOCK):
+    """Plain port of the JAX `bin_dest`: the within-tile ranks from a
+    one-hot cumulative sum.  Returns (dest [M] int64, an injection into
+    [0, M_pad), tob [NB] int64 tile of each block)."""
+    key = sample_tiles(x01_cf)
+    return _dest_from_ranks(key, *bin_ranks_plain(_padded_keys(key)),
+                            x01_cf.shape[1], block)
+
+
+def bin_dest(x01_cf: torch.Tensor, block: int = DEFAULT_BLOCK):
+    """`bin_dest` through the bin-rank kernel (the counterpart of
+    `bin_dest_pallas`); same contract as `bin_dest_ref`."""
+    key = sample_tiles(x01_cf)
+    return _dest_from_ranks(key, *bin_ranks(_padded_keys(key)),
+                            x01_cf.shape[1], block)
+
+
+# ---------------------------------------------------------------------------
+# encoder forward
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _level_consts(spec: WindowSpec, device: str):
+    """(scales f32 [L], iconst int32 [3, L] = side, dense, window offset,
+    twin int64 [L, 64]) on `device`."""
+    scales, sides, dense, twin, woff = spec.const_tables()
+    iconst = torch.stack([torch.as_tensor(a) for a in (sides, dense, woff)])
+    return (
+        torch.as_tensor(scales).to(device),
+        iconst.to(torch.int32).contiguous().to(device),
+        torch.as_tensor(twin).long().to(device),
+    )
+
+
+def _wob_local(spec: WindowSpec, tob: torch.Tensor) -> torch.Tensor:
+    """[L, NB] int32 within-level window index of each block."""
+    twin = _level_consts(spec, str(tob.device))[2]  # [L, 64]
+    return twin[:, tob].to(torch.int32).contiguous()
+
+
+def window_encode_fwd_plain(xyz4, wob, table_win, spec: WindowSpec, block: int):
+    """Plain version of the encoder-forward kernel.
+
+    xyz4 [M_pad, 4] f32 (x01, y01, z01, valid) in tile-pure blocks; wob
+    [L, NB] int32; table_win [NW, C, 128, 64] f32.  Returns [L*C, M_pad] f32
+    with bf16-rounded corner values and weights, f32 sums."""
+    M_pad = xyz4.shape[0]
+    C = spec.level_dim
+    x01 = xyz4[:, :3].T
+    valid = xyz4[:, 3]
+    blk = torch.arange(M_pad, device=xyz4.device) // block
+    flat = table_win.float().reshape(-1)
+    woff = spec.win_offsets
+    outs = []
+    for l in range(spec.num_levels):
+        rows, ws = _corner_rows(spec, l, x01)  # [8, M_pad]
+        rows = rows.clamp(0, WIN_ROWS - 1)
+        ws = _bf16_round(ws * valid)
+        win = woff[l] + wob[l].long()[blk]  # [M_pad]
+        off = (rows & (WIN_LANES - 1)) * WIN_HI + (rows >> 7)  # [8, M_pad]
+        base = win * (C * WIN_ROWS)
+        for c in range(C):
+            vals = _bf16_round(flat[base + c * WIN_ROWS + off])
+            outs.append(torch.sum(ws * vals, dim=0))
+    return torch.stack(outs)
+
+
+def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
+    """Encoder forward over tile-sorted samples (see
+    `window_encode_fwd_plain`).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if _lib.use_plain(xyz4):
+        return window_encode_fwd_plain(xyz4, wob, table_win, spec, block)
+    L, C = spec.num_levels, spec.level_dim
+    M_pad = xyz4.shape[0]
+    if M_pad % block:
+        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
+    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
+    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
+    _lib.check(table_win, "table_win", torch.float32,
+               (spec.n_windows, C, WIN_LANES, WIN_HI))
+    scales, iconst, _ = _level_consts(spec, str(xyz4.device))
+    out = torch.empty((L * C, M_pad), dtype=torch.float32, device=xyz4.device)
+    _lib.launch(
+        WINDOW_FWD, "tngp_window_encode_fwd", xyz4.device,
+        xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(),
+        scales.data_ptr(), iconst.data_ptr(), out.data_ptr(),
+        M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
+    )
+    return out
+
+
+def window_encode_binned(
+    x01_cf: torch.Tensor,
+    table_win: torch.Tensor,
+    spec: WindowSpec,
+    block: int = DEFAULT_BLOCK,
+) -> torch.Tensor:
+    """Windowed grid encode through the binned path (forward only).
+
+    x01_cf: [3, M] in [0,1]; table_win: [NW, C, 128, 64].  Returns [L*C, M]
+    f32, level-major, with the bf16 corner numerics of the TPU default."""
+    M = x01_cf.shape[1]
+    dest, tob = bin_dest(x01_cf, block=block)
+    M_pad = padded_size(M, block)
+    payload = torch.cat(
+        [x01_cf.float(), x01_cf.new_ones((1, M), dtype=torch.float32)]
+    ).T.contiguous()  # [M, 4]
+    xyz4 = scatter_add(dest, payload, M_pad)  # [M_pad, 4]
+    wob = _wob_local(spec, tob)  # [L, NB]
+    feats_sorted = window_encode_fwd(
+        xyz4, wob, table_win.float().contiguous(), spec, block
+    )  # [LC, M_pad]
+    return feats_sorted.index_select(1, dest)  # [LC, M] unsort

@@ -1,0 +1,30 @@
+"""Ray/AABB intersection — the port of `tngp/ops/rays.py`
+`near_far_from_aabb` (slab test, min_near clamp, miss -> +big)."""
+
+from __future__ import annotations
+
+import torch
+
+_BIG = 3.4e38
+
+
+def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb,
+                       min_near: float = 0.05):
+    """rays_o/rays_d [..., 3], aabb [6] = (xmin, ymin, zmin, xmax, ymax, zmax).
+    Returns (nears, fars) [...]; rays that miss get near = far = 3.4e38."""
+    o = rays_o.float()
+    d = rays_d.float()
+    box = torch.as_tensor(aabb, dtype=torch.float32, device=o.device)
+    inv_d = 1.0 / d  # +-inf for axis-parallel rays, as IEEE and the CUDA code
+    t0 = (box[:3] - o) * inv_d
+    t1 = (box[3:] - o) * inv_d
+    tmin = torch.minimum(t0, t1)
+    tmax = torch.maximum(t0, t1)
+    near = tmin.amax(dim=-1)
+    far = tmax.amin(dim=-1)
+    miss = near > far
+    near = torch.clamp(near, min=min_near)
+    big = torch.full_like(near, _BIG)
+    near = torch.where(miss, big, near)
+    far = torch.where(miss, big, far)
+    return near.to(rays_o.dtype), far.to(rays_o.dtype)
