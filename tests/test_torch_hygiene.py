@@ -45,7 +45,8 @@ def test_every_kernel_is_registered_with_its_source():
         importlib.import_module(m.name)
     from tngp_torch.kernels import KERNELS
 
-    assert set(KERNELS) == {"scatter_add", "bin_ranks", "window_encode_fwd"}
+    assert set(KERNELS) == {"scatter_add", "bin_ranks", "window_encode_fwd",
+                            "window_encode_bwd"}
     for info in KERNELS.values():
         assert (ROOT / info.source).is_file()
         path, line = info.replaces.split(":")
@@ -63,11 +64,14 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
         raise AssertionError("plain version reached with a CUDA tensor")
 
     for mod, name in ((scatter, "scatter_add_plain"), (window_encoder, "bin_ranks_plain"),
-                      (window_encoder, "window_encode_fwd_plain")):
+                      (window_encoder, "window_encode_fwd_plain"),
+                      (window_encoder, "window_encode_bwd_plain")):
         monkeypatch.setattr(mod, name, boom)
     spec = WindowSpec.create(num_levels=2, log2_hashmap_size=15)
     x = torch.rand(3, 1000, device="cuda")
-    table = spec.init_table_win(device="cuda")
+    table = spec.init_table_win(device="cuda").requires_grad_(True)
     out = window_encoder.window_encode_binned(x, table, spec)
     assert out.shape == (4, 1000) and out.is_cuda
+    out.sum().backward()
+    assert table.grad.shape == table.shape and table.grad.is_cuda
     torch.cuda.synchronize()

@@ -52,6 +52,86 @@ def test_window_encoder_matches_plain(cuda, interpolation):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])
+@pytest.mark.parametrize("crowd", [False, True])
+def test_window_encoder_backward_matches_plain(cuda, interpolation, crowd):
+    """The backward kernel through autograd against its sorted plain version
+    and the canonical-layout oracle: the same bf16-rounded terms, summed by
+    atomics in another order, within (n - 1) 2^-24 sum|term| per entry (n at
+    most 8 corners x M samples).  `crowd` puts every sample in one tile."""
+    spec = wt.WindowSpec.create(**SPEC_KW, interpolation=interpolation)
+    rng = np.random.default_rng(5)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(0, 1, (3, M)).astype(np.float32)).to(cuda)
+    if crowd:
+        x = x * 0.24
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    win = torch.from_numpy(rng.normal(
+        size=(spec.n_windows, spec.level_dim, 128, 64)).astype(np.float32)).to(cuda)
+    win.requires_grad_(True)
+    (kw.window_encode_binned(x, win, spec) * g.T.contiguous().T).sum().backward()
+    got = win.grad
+    dest, tob = kw.bin_dest(x)
+    M_pad = kw.padded_size(M, kw.DEFAULT_BLOCK)
+    payload = torch.cat([x, torch.ones((1, M), device=cuda)]).T.contiguous()
+    xyz4 = ks.scatter_add(dest, payload, M_pad)
+    g_sorted = ks.scatter_add(dest, g.T.contiguous(), M_pad)
+    wob = kw._wob_local(spec, tob)
+    plain = kw.window_encode_bwd_plain(xyz4, wob, g_sorted, spec, kw.DEFAULT_BLOCK)
+    oracle = wt.window_view(wt.window_table_grad_ref(x, g, spec, emulate_bf16=True), spec)
+    sabs = wt.window_view(wt.window_table_grad_ref(x, g.abs(), spec), spec)
+    tol = 8 * M * 2.0**-24 * sabs + 1e-30
+    assert bool(((got - plain).abs() <= tol).all()) and bool(((got - oracle).abs() <= tol).all())
+    assert bool(((got == 0) == (plain == 0)).all()) and float(got.abs().max()) > 0.1
+    # a level range adds only those levels' windows
+    part = kw.window_encode_bwd(xyz4, wob, g_sorted, spec, kw.DEFAULT_BLOCK, levels=(1, 2))
+    lo, hi = spec.win_offsets[1], spec.win_offsets[2]
+    assert float(part[:lo].abs().max()) == 0 and float(part[hi:].abs().max()) == 0
+    assert bool(((part[lo:hi] - plain[lo:hi]).abs() <= tol[lo:hi]).all())
+
+
+@pytest.mark.gpu
+def test_train_step_gradients_through_kernels_match_plain_path(cuda):
+    """One small training render + backward through the kernels and inside
+    `plain_versions()`: same loss to 1e-5, every gradient to 1e-3 of its
+    norm (f32 MLPs; only summation order differs)."""
+    from tngp_torch.data import make_blob_field, orbit_poses, sample_rays
+    from tngp_torch.kernels import plain_versions
+    from tngp_torch.models import NGPNetwork
+    from tngp_torch.ops.grid_utils import packbits
+    from tngp_torch.render import FieldFns, RenderConfig, cell_centers_cf, render_rays_train
+
+    cfg = RenderConfig(bound=1.0, grid_size=32, max_steps=64, K=16, min_near=0.05,
+                       compact_fraction=0.25, density_thresh=1.0, march_dense=True)
+    model = NGPNetwork(num_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12,
+                       device=cuda)
+    with torch.no_grad():
+        model.encoder.embeddings.normal_(0, 0.3)
+    dens = make_blob_field(0, device=cuda).density(None, cell_centers_cf(0, 1.0, 32, cuda))
+    bitfield = packbits(dens, 1.0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    intr = torch.tensor([28.8, 28.8, 16.0, 16.0], device=cuda)
+    r = sample_rays(torch.from_numpy(orbit_poses(4)[1]).to(cuda), intr, 32, 32, 512,
+                    generator=gen)
+    noise = torch.rand(512, generator=gen, device=cuda)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out = render_rays_train(FieldFns.from_model(model), None, r["rays_o"], r["rays_d"],
+                                bitfield, cfg, noise=noise)
+        loss = ((out["image"] - 0.5) ** 2).mean()
+        loss.backward()
+        return float(loss), [p.grad.clone() for p in model.parameters()]
+
+    loss_k, g_k = grads()
+    with plain_versions():
+        loss_p, g_p = grads()
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for a, b in zip(g_k, g_p):
+        assert float((a - b).norm()) <= 1e-3 * float(b.norm()) and float(b.norm()) > 0
+
+
+@pytest.mark.gpu
 def test_scatter_add_matches_plain(cuda):
     """Unique indices exact; repeated indices within f32 reordering."""
     rng = np.random.default_rng(1)

@@ -7,7 +7,8 @@ kernel on a ported path is a hand-written CUDA kernel (`csrc/`), each with a
 plain PyTorch version beside it: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.
 
-Ported so far: the instant-NGP eval render (`render.render_rays_eval`).
+Ported so far: the instant-NGP eval render (`render.render_rays_eval`) and
+training step (`render.render_rays_train`, `train.Trainer`).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,8 @@
-from .rays import full_image_rays
-from .synthetic import make_blob_field, orbit_poses
+from .provider import NeRFDataset
+from .rays import full_image_rays, sample_rays
+from .synthetic import make_blob_field, make_synthetic_dataset, orbit_poses, render_gt_images
 
-__all__ = ["full_image_rays", "make_blob_field", "orbit_poses"]
+__all__ = [
+    "NeRFDataset", "full_image_rays", "sample_rays", "make_blob_field",
+    "make_synthetic_dataset", "orbit_poses", "render_gt_images",
+]

@@ -1,13 +1,17 @@
-"""Synthetic analytic scene — the port of `orbit_poses` and the blob field
-of `tngp/data/synthetic.py` `make_blob_field` (gaussian blobs with per-blob
-albedo; the same numpy draws as the JAX package for one seed)."""
+"""Synthetic analytic scene — the port of `tngp/data/synthetic.py`
+`make_blob_field` (gaussian blobs with per-blob albedo; the same numpy draws
+as the JAX package for one seed), `orbit_poses`, `render_gt_images` and
+`make_synthetic_dataset`.  Ground truth comes from dense uniform quadrature
+through the analytic field, independent of the occupancy-grid march."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..render.renderer import FieldFns
+from ..render.renderer import FieldFns, RenderConfig, render_rays_uniform
+from .provider import NeRFDataset
+from .rays import full_image_rays
 
 
 def make_blob_field(seed: int = 0, n_blobs: int = 6, sigma_scale: float = 60.0,
@@ -60,3 +64,52 @@ def orbit_poses(n: int, radius: float = 2.2, elevation: float = 0.45) -> np.ndar
         pose[:3, 3] = c
         poses.append(pose)
     return np.stack(poses)
+
+
+@torch.no_grad()
+def render_gt_images(
+    field: FieldFns,
+    poses: np.ndarray,
+    intrinsics: np.ndarray,
+    H: int,
+    W: int,
+    bound: float = 1.0,
+    num_steps: int = 512,
+    chunk: int = 8192,
+    device="cuda",
+) -> np.ndarray:
+    """[B, H, W, 3] float32 views of `field` by uniform quadrature
+    (`render_rays_uniform`, no upsampling), rendered on `device`."""
+    cfg = RenderConfig(bound=bound, min_near=0.05)
+    images = []
+    for pose in poses:
+        o, d = full_image_rays(pose, intrinsics, H, W, device=device)
+        pieces = [
+            render_rays_uniform(field, None, o[s:s + chunk], d[s:s + chunk], cfg,
+                                num_steps=num_steps, upsample_steps=0)["image"]
+            for s in range(0, o.shape[0], chunk)
+        ]
+        images.append(torch.cat(pieces).reshape(H, W, 3))
+    return torch.stack(images).cpu().numpy()
+
+
+def make_synthetic_dataset(
+    n_frames: int = 20,
+    H: int = 128,
+    W: int = 128,
+    seed: int = 0,
+    bound: float = 1.0,
+    num_steps: int = 512,
+    device="cuda",
+) -> NeRFDataset:
+    """`n_frames` orbit views of the blob scene of `seed`, rendered on
+    `device`; the dataset itself is host numpy, as the JAX package's."""
+    field = make_blob_field(seed, device=device)
+    poses = orbit_poses(n_frames)
+    focal = 0.9 * W
+    intrinsics = np.array([focal, focal, W / 2, H / 2], np.float32)
+    images = render_gt_images(field, poses, intrinsics, H, W, bound, num_steps,
+                              device=device)
+    return NeRFDataset(
+        poses=poses, intrinsics=intrinsics, H=H, W=W, images=images.astype(np.float32)
+    )

@@ -1,5 +1,5 @@
 """Encoder modules and the `get_encoder` factory — the port of the names of
-`tngp/encoders/modules.py` that the NGP eval path uses: `hashgrid_window`
+`tngp/encoders/modules.py` that the NGP paths use: `hashgrid_window`
 (the windowed grid encoder) and the spherical-harmonics direction encoder.
 """
 
@@ -17,8 +17,9 @@ from ..ops.window_table import WindowSpec
 
 class WindowGridEncoder(nn.Module):
     """Multiresolution grid encoder over the windowed table layout.  The
-    parameter `embeddings` is the window layout [n_windows, C, 128, 64];
-    `cf` runs the binned path (kernels on the card, plain versions on CPU)."""
+    trainable parameter `embeddings` is the window layout [n_windows, C,
+    128, 64]; `cf` runs the binned path (kernels on the card, plain versions
+    on CPU), whose backward gives the table gradient and none for positions."""
 
     def __init__(self, spec: WindowSpec, block: int = DEFAULT_BLOCK, device="cuda",
                  generator: torch.Generator | None = None):

@@ -11,7 +11,8 @@ Dispatch rule for every wrapper: a CPU tensor goes to the kernel's plain
 PyTorch version; a CUDA tensor launches the kernel or raises.  The one
 exception is `plain_versions()`, a scope in which CUDA tensors also take the
 plain versions — it exists so that `chip_smoke.py` can hold a whole render
-chunk against the plain path on the card; the main path never enters it.
+chunk or train step against the plain path on the card; the main path never
+enters it.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ _SIGNATURES = {
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
           _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_float,
           _c.c_int, _c.c_void_p]),
+        ("tngp_window_encode_bwd", _c.c_int,
+         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+          _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+          _c.c_int, _c.c_float, _c.c_int, _c.c_void_p]),
     ],
 }
 SOURCES = tuple(_SIGNATURES)

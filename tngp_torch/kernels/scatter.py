@@ -1,10 +1,12 @@
 """Scatter-add `out[idx[j], :] += vals[j, :]` in f32 — the port of
 `tngp/kernels/scatter.py` `scatter_add`.
 
-On the eval path it has two callers: the payload sort around the window
-encoder (unique indices, `kernels/window_encoder.py`) and the per-ray
-reduction of the stream compositor (nondecreasing indices,
-`ops/composite.py`).  The CUDA kernel is `tngp_torch/csrc/scatter.cu`; see
+Its callers: the payload sort around the window encoder and, in training,
+the cotangent sort of its backward (unique indices,
+`kernels/window_encoder.py`), the per-ray reduction of the stream compositor
+(nondecreasing indices, `ops/composite.py`) and the eval render's per-round
+state update.  It is not differentiable by itself: callers that need a
+gradient wrap it in a `torch.autograd.Function`.  The CUDA kernel is `tngp_torch/csrc/scatter.cu`; see
 its header for the design and what bounds it.
 """
 

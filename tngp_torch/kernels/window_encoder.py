@@ -1,8 +1,8 @@
-"""Binned window encoder, forward — the port of
-`tngp/kernels/window_encoder.py` (`bin_dest`, `bin_dest_pallas`,
-`_wob_local`, `window_encode_binned`'s forward `_binned_fwd`).
+"""Binned window encoder — the port of `tngp/kernels/window_encoder.py`
+(`bin_dest`, `bin_dest_pallas`, `_wob_local`, and `window_encode_binned` with
+its forward `_binned_fwd` and its table-gradient backward `_binned_bwd`).
 
-Pipeline, as `_binned_fwd` does it:
+Forward pipeline, as `_binned_fwd` does it:
   1. bin: counting-sort the M samples into 64 spatial tiles, each tile's
      region padded to whole blocks, so every block of `block` samples is
      tile-pure (`bin_dest`, through the bin-rank kernel);
@@ -13,11 +13,16 @@ Pipeline, as `_binned_fwd` does it:
      (the window-encoder forward kernel);
   4. unsort with a gather on `dest`.
 
+Backward, as `_binned_bwd` with `input_grads=False` (the NGP default): sort
+the cotangent rows to `dest` with the same scatter-add, then add every
+corner's `bf16(w * g)` into the table gradient (the window-encoder backward
+kernel).  Positions get no gradient.
+
 Kernels (CUDA sources in `tngp_torch/csrc/`; each header says what bounds it):
   `bin_ranks`          -> bin_rank.cu        (replaces `_make_bin_rank_kernel`)
   `window_encode_fwd`  -> window_encoder.cu  (replaces `_make_fwd_kernel`)
-Each has its plain PyTorch version beside it (`*_plain`).  The backward
-(`_make_bwd_kernel`) comes with training.
+  `window_encode_bwd`  -> window_encoder.cu  (replaces `_make_bwd_kernel`)
+Each has its plain PyTorch version beside it (`*_plain`).
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ BIN_RANK = _lib.register(
 )
 WINDOW_FWD = _lib.register(
     "window_encode_fwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:336"
+)
+WINDOW_BWD = _lib.register(
+    "window_encode_bwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:396"
 )
 
 
@@ -160,29 +168,33 @@ def _wob_local(spec: WindowSpec, tob: torch.Tensor) -> torch.Tensor:
     return twin[:, tob].to(torch.int32).contiguous()
 
 
+def sorted_corner_addresses(xyz4, wob, spec: WindowSpec, block: int, level: int):
+    """Where the 8 corners of every tile-sorted sample live at `level`:
+    (addr [8, M_pad] int64 flat index of channel 0 into the window-layout
+    table, channel c is `addr + c * 8192`; w [8, M_pad] f32 interpolation
+    weights with the validity channel folded in)."""
+    M_pad = xyz4.shape[0]
+    rows, ws = _corner_rows(spec, level, xyz4[:, :3].T)  # [8, M_pad]
+    rows = rows.clamp(0, WIN_ROWS - 1)
+    blk = torch.arange(M_pad, device=xyz4.device) // block
+    win = spec.win_offsets[level] + wob[level].long()[blk]  # [M_pad]
+    off = (rows & (WIN_LANES - 1)) * WIN_HI + (rows >> 7)  # [8, M_pad]
+    return win * (spec.level_dim * WIN_ROWS) + off, ws * xyz4[:, 3]
+
+
 def window_encode_fwd_plain(xyz4, wob, table_win, spec: WindowSpec, block: int):
     """Plain version of the encoder-forward kernel.
 
     xyz4 [M_pad, 4] f32 (x01, y01, z01, valid) in tile-pure blocks; wob
     [L, NB] int32; table_win [NW, C, 128, 64] f32.  Returns [L*C, M_pad] f32
     with bf16-rounded corner values and weights, f32 sums."""
-    M_pad = xyz4.shape[0]
-    C = spec.level_dim
-    x01 = xyz4[:, :3].T
-    valid = xyz4[:, 3]
-    blk = torch.arange(M_pad, device=xyz4.device) // block
     flat = table_win.float().reshape(-1)
-    woff = spec.win_offsets
     outs = []
     for l in range(spec.num_levels):
-        rows, ws = _corner_rows(spec, l, x01)  # [8, M_pad]
-        rows = rows.clamp(0, WIN_ROWS - 1)
-        ws = _bf16_round(ws * valid)
-        win = woff[l] + wob[l].long()[blk]  # [M_pad]
-        off = (rows & (WIN_LANES - 1)) * WIN_HI + (rows >> 7)  # [8, M_pad]
-        base = win * (C * WIN_ROWS)
-        for c in range(C):
-            vals = _bf16_round(flat[base + c * WIN_ROWS + off])
+        addr, ws = sorted_corner_addresses(xyz4, wob, spec, block, l)
+        ws = _bf16_round(ws)
+        for c in range(spec.level_dim):
+            vals = _bf16_round(flat[addr + c * WIN_ROWS])
             outs.append(torch.sum(ws * vals, dim=0))
     return torch.stack(outs)
 
@@ -212,25 +224,101 @@ def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
     return out
 
 
+def window_encode_bwd_plain(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
+    """Plain version of the encoder-backward kernel.
+
+    xyz4 [M_pad, 4] f32 and wob [L, NB] int32 as the forward; g_sorted
+    [M_pad, L*C] f32 cotangent rows in the sorted order.  Returns the table
+    gradient [NW, C, 128, 64] f32: each corner adds `bf16(w * valid * g)`,
+    one rounding of the product, summed in f32; windows no block visits and
+    rows no sample touches are zero."""
+    M_pad = xyz4.shape[0]
+    L, C = spec.num_levels, spec.level_dim
+    out = torch.zeros((spec.n_windows * C * WIN_ROWS,), dtype=torch.float32,
+                      device=xyz4.device)
+    g = g_sorted.float().reshape(M_pad, L, C)
+    for l in range(L):
+        addr, ws = sorted_corner_addresses(xyz4, wob, spec, block, l)
+        for c in range(C):
+            contrib = _bf16_round(ws * g[:, l, c])  # [8, M_pad]
+            out.index_add_(0, (addr + c * WIN_ROWS).reshape(-1), contrib.reshape(-1))
+    return out.reshape(spec.n_windows, C, WIN_LANES, WIN_HI)
+
+
+def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int, levels=None):
+    """Table gradient over tile-sorted samples (see
+    `window_encode_bwd_plain`).  CPU tensors take the plain version; CUDA
+    tensors zero-fill the gradient and launch the kernel, which adds
+    atomically: each entry matches the ordered sum to f32 reordering error.
+    `levels=(l0, l1)` restricts the kernel to a level range (for timing
+    single levels); the plain version has no such option."""
+    if _lib.use_plain(xyz4):
+        if levels is not None:
+            raise ValueError("levels= is an option of the kernel only")
+        return window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block)
+    L, C = spec.num_levels, spec.level_dim
+    M_pad = xyz4.shape[0]
+    if M_pad % block:
+        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
+    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
+    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
+    _lib.check(g_sorted, "g_sorted", torch.float32, (M_pad, L * C))
+    l0, l1 = (0, L) if levels is None else levels
+    scales, iconst, _ = _level_consts(spec, str(xyz4.device))
+    gtab = torch.zeros((spec.n_windows, C, WIN_LANES, WIN_HI), dtype=torch.float32,
+                       device=xyz4.device)
+    _lib.launch(
+        WINDOW_BWD, "tngp_window_encode_bwd", xyz4.device,
+        xyz4.data_ptr(), wob.data_ptr(), g_sorted.data_ptr(),
+        scales.data_ptr(), iconst.data_ptr(), gtab.data_ptr(),
+        M_pad, block, L, C, l0, l1, spec.shift,
+        int(spec.interpolation == "smoothstep"),
+    )
+    return gtab
+
+
+class _WindowEncodeBinned(torch.autograd.Function):
+    """`window_encode_binned` with the table gradient of `_binned_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x01_cf, table_win, spec, block):
+        M = x01_cf.shape[1]
+        dest, tob = bin_dest(x01_cf, block=block)
+        M_pad = padded_size(M, block)
+        payload = torch.cat(
+            [x01_cf.float(), x01_cf.new_ones((1, M), dtype=torch.float32)]
+        ).T.contiguous()  # [M, 4]
+        xyz4 = scatter_add(dest, payload, M_pad)  # [M_pad, 4]
+        wob = _wob_local(spec, tob)  # [L, NB]
+        feats_sorted = window_encode_fwd(
+            xyz4, wob, table_win.float().contiguous(), spec, block
+        )  # [LC, M_pad]
+        ctx.save_for_backward(xyz4, dest, wob)
+        ctx.spec, ctx.block = spec, block
+        return feats_sorted.index_select(1, dest)  # [LC, M] unsort
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None, None
+        xyz4, dest, wob = ctx.saved_tensors
+        # sort the cotangents the way the inputs were sorted: rows [M, LC]
+        # (g may arrive non-contiguous) -> [M_pad, LC], unique indices
+        g_sorted = scatter_add(dest, g.float().T.contiguous(), xyz4.shape[0])
+        gtab = window_encode_bwd(xyz4, wob, g_sorted, ctx.spec, ctx.block)
+        return None, gtab, None, None
+
+
 def window_encode_binned(
     x01_cf: torch.Tensor,
     table_win: torch.Tensor,
     spec: WindowSpec,
     block: int = DEFAULT_BLOCK,
 ) -> torch.Tensor:
-    """Windowed grid encode through the binned path (forward only).
+    """Windowed grid encode through the binned path.
 
     x01_cf: [3, M] in [0,1]; table_win: [NW, C, 128, 64].  Returns [L*C, M]
-    f32, level-major, with the bf16 corner numerics of the TPU default."""
-    M = x01_cf.shape[1]
-    dest, tob = bin_dest(x01_cf, block=block)
-    M_pad = padded_size(M, block)
-    payload = torch.cat(
-        [x01_cf.float(), x01_cf.new_ones((1, M), dtype=torch.float32)]
-    ).T.contiguous()  # [M, 4]
-    xyz4 = scatter_add(dest, payload, M_pad)  # [M_pad, 4]
-    wob = _wob_local(spec, tob)  # [L, NB]
-    feats_sorted = window_encode_fwd(
-        xyz4, wob, table_win.float().contiguous(), spec, block
-    )  # [LC, M_pad]
-    return feats_sorted.index_select(1, dest)  # [LC, M] unsort
+    f32, level-major, with the bf16 corner numerics of the TPU default.
+    Table gradients flow (in the window layout); positions get none, as the
+    JAX package's default `input_grads=False`."""
+    return _WindowEncodeBinned.apply(x01_cf, table_win, spec, block)

@@ -1,1 +1,1 @@
-"""Plain tensor ops of the eval path (counterparts of `tngp/ops/`)."""
+"""Plain tensor ops of the render and training paths (counterparts of `tngp/ops/`)."""

@@ -1,10 +1,23 @@
-"""`trunc_exp` — the port of `tngp/ops/activation.py` (forward only on the
-eval path: exp(x); the clamped backward comes with training)."""
+"""`trunc_exp` — the port of `tngp/ops/activation.py`: forward `exp(x)`,
+backward `g * exp(clamp(x, -15, 15))`, so that bf16 training does not
+overflow through the density head."""
 
 from __future__ import annotations
 
 import torch
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    return torch.exp(x)
+    return _TruncExp.apply(x)

@@ -13,8 +13,8 @@ def packbits(grid: torch.Tensor, thresh) -> torch.Tensor:
     bit i of byte b is set iff grid[b*8 + i] > thresh."""
     occ = (grid > thresh).to(torch.uint8)
     occ = occ.reshape(*grid.shape[:-1], grid.shape[-1] // 8, 8)
-    weights = torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
-                           device=grid.device)
+    # built on the device: an upload would make the host wait for the stream
+    weights = (2 ** torch.arange(8, device=grid.device)).to(torch.uint8)
     return (occ * weights).sum(dim=-1, dtype=torch.uint8)
 
 

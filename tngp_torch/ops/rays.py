@@ -3,9 +3,19 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _BIG = 3.4e38
+
+
+@functools.lru_cache(maxsize=None)
+def _box(aabb: tuple, device: str) -> torch.Tensor:
+    """The box as a tensor on `device`, uploaded once: a host-to-device copy
+    per call would make the host wait for the stream in every train step."""
+    return torch.tensor(aabb, dtype=torch.float32, device=device)
+
 
 
 def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb,
@@ -14,7 +24,7 @@ def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb,
     Returns (nears, fars) [...]; rays that miss get near = far = 3.4e38."""
     o = rays_o.float()
     d = rays_d.float()
-    box = torch.as_tensor(aabb, dtype=torch.float32, device=o.device)
+    box = _box(tuple(float(v) for v in aabb), str(o.device))
     inv_d = 1.0 / d  # +-inf for axis-parallel rays, as IEEE and the CUDA code
     t0 = (box[:3] - o) * inv_d
     t1 = (box[3:] - o) * inv_d

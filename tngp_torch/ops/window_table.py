@@ -9,7 +9,9 @@ larger levels hash with the XOR-prime `fast_hash` masked to the window.
 
 The parameter lives in the transposed window layout `[n_windows, C, 128, 64]`
 (`window_view` of the canonical `[total_rows, C]`).  `window_encode_ref` is the
-plain version of the encoder over the canonical layout.
+plain version of the encoder over the canonical layout, and
+`window_table_grad_ref` the plain table gradient over the same layout (the
+oracle of the backward kernel and its sorted plain version).
 """
 
 from __future__ import annotations
@@ -214,3 +216,36 @@ def window_encode_ref(
             ws = _bf16_round(ws)
         outs.append(torch.sum(ws[None] * vals, dim=1))  # [C, B]
     return torch.cat(outs, dim=0).to(table.dtype)
+
+
+def window_table_grad_ref(
+    x01_cf: torch.Tensor,
+    g: torch.Tensor,
+    spec: WindowSpec,
+    emulate_bf16: bool = False,
+) -> torch.Tensor:
+    """Plain table gradient of the windowed encoding.
+
+    x01_cf: [3, B] in [0,1]; g: [L*C, B] cotangents of the features.
+    Returns [total_rows, C] f32 (canonical layout): every corner's
+    `w * g` added into its row; rows no sample touches are zero.
+    emulate_bf16=True rounds each PRODUCT `w * g` to bf16 once and sums in
+    f32 — the numerics of the backward kernel (the JAX package's default
+    MXU pass rounds the product, unlike the forward, which rounds the weight
+    and the table value separately)."""
+    L, C = spec.num_levels, spec.level_dim
+    B = x01_cf.shape[1]
+    tile = sample_tiles(x01_cf)
+    g = g.float().reshape(L, C, 1, B)
+    out = torch.zeros((spec.total_rows * C,), dtype=torch.float32, device=x01_cf.device)
+    chan = torch.arange(C, device=x01_cf.device)[:, None, None]
+    for level in range(L):
+        rows, ws = _corner_rows(spec, level, x01_cf)  # [8, B]
+        twin = torch.as_tensor(spec.tile_window(level), device=x01_cf.device).long()
+        w_id = spec.win_offsets[level] + twin[tile]  # [B]
+        grow = w_id[None, :] * WIN_ROWS + rows  # [8, B]
+        contrib = ws[None] * g[level]  # [C, 8, B]
+        if emulate_bf16:
+            contrib = _bf16_round(contrib)
+        out.index_add_(0, (grow[None] * C + chan).reshape(-1), contrib.reshape(-1))
+    return out.reshape(spec.total_rows, C)

@@ -1,6 +1,13 @@
-"""Volume renderer, eval path — the port of `tngp/render/renderer.py`
+"""Volume renderer — the port of `tngp/render/renderer.py`
 (`RenderConfig`, `FieldFns`, `dilated_chunk_grid`, `_resolve_bg`,
-`_eval_stream_pass`, `_bucketed_stream_query`, `render_rays_eval`).
+`render_rays_train`, `render_rays_uniform`, `_eval_stream_pass`,
+`_bucketed_stream_query`, `render_rays_eval`).
+
+`render_rays_train` is the single-march budgeted training render (the
+`march_dense` chunked branch): the sample budget is static per call, the
+selection is padded to it and masked, so the step needs no host sync.
+`render_rays_uniform` is the grid-free path that renders the synthetic
+ground truth.
 
 `render_rays_eval` takes the chunked stream path: one budgeted first pass
 (chunked march -> field query of the selected sample prefix -> stream
@@ -29,14 +36,17 @@ from ..ops.march import (
     nonzero_static,
 )
 from ..ops.rays import near_far_from_aabb
+from ..ops.sampling import sample_pdf
 
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """Same fields and defaults as the JAX package's RenderConfig; the eval
+    """Same fields and defaults as the JAX package's RenderConfig.  The eval
     path reads bound, cascades, grid_size, min_near, density_scale,
     dt_gamma, max_steps, K, K_eval, T_thresh, bg_radius, eval_stream,
-    eval_budget, march_chunk, eval_cb_mult and eval_ray_chunk_cap."""
+    eval_budget, march_chunk, eval_cb_mult and eval_ray_chunk_cap; the
+    train path adds march_dense and compact_fraction, the uniform path
+    num_steps and upsample_steps, the grid update density_thresh."""
 
     bound: float = 1.0
     cascades: int = 1
@@ -121,6 +131,138 @@ def _resolve_bg(field: FieldFns, params, rays_o, rays_d, cfg: RenderConfig, bg_c
     if bg_color is None:
         return torch.ones((), dtype=torch.float32, device=rays_o.device)
     return torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)
+
+
+def train_sample_budget(n_rays: int, cfg: RenderConfig) -> int:
+    """The static sample budget M of one `render_rays_train` call."""
+    return min(
+        n_rays * cfg.max_steps,
+        max(128, -(-int(n_rays * cfg.K * cfg.compact_fraction) // 128) * 128),
+    )
+
+
+def render_rays_train(
+    field: FieldFns,
+    params,
+    rays_o: torch.Tensor,  # [N, 3]
+    rays_d: torch.Tensor,  # [N, 3]
+    bitfield: torch.Tensor,
+    cfg: RenderConfig,
+    noise: torch.Tensor | None = None,  # [N] in [0, 1): None -> no perturb
+    bg_color=None,  # None -> 1.0, or [N, 3] / [3]
+    dilated_grid=None,  # dilated_chunk_grid(bitfield, cfg), hoisted by trainers
+):
+    """Single-march budgeted training render.  Returns dict(image [N, 3],
+    depth [N], weights_sum [N], num_points [], ray_mask [N]); gradients flow
+    to the field's weights.  Where the JAX function takes a key, this one
+    takes the per-ray `noise` itself."""
+    N = rays_o.shape[0]
+    if not cfg.march_dense:
+        raise NotImplementedError("only the march_dense training render is ported")
+    if cfg.compact_fraction >= 1.0:
+        raise ValueError("march_dense requires compact_fraction < 1")
+    if not _use_chunk(cfg):
+        raise NotImplementedError(
+            "only the chunked training march is ported (march_chunk > 0 dividing max_steps)")
+    nears, fars = near_far_from_aabb(rays_o, rays_d, cfg.aabb, cfg.min_near)
+    bg = _resolve_bg(field, params, rays_o, rays_d, cfg, bg_color)
+    with torch.no_grad():  # the march is integer selection: nothing to differentiate
+        cm = march_rays_chunked(
+            rays_o, rays_d, nears, fars, bitfield,
+            bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
+            dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
+            M_budget=train_sample_budget(N, cfg), G=cfg.march_chunk, noise=noise,
+            dilated_grid=dilated_grid,
+        )
+        ray_id, x_c, d_c, dt_c, t_rel = ladder_samples(
+            cm.sel, rays_o, rays_d, cm.t0,
+            bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
+            dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
+        )
+    out = field.sigma_rgb(params, x_c, d_c)
+    if len(out) != 2:
+        raise NotImplementedError("auxiliary field outputs are not ported yet")
+    sig_c, rgb_c = out
+    ws, depth_raw, image = composite_stream(
+        sig_c.float() * cfg.density_scale, rgb_c, dt_c, None, ray_id, cm.sel_valid,
+        N, cfg.T_thresh, t_cum=t_rel,
+    )
+    image = image + (1.0 - ws)[:, None] * bg
+    depth = torch.clamp(depth_raw - nears, min=0.0) / torch.clamp(fars - nears, min=1e-6)
+    return {
+        "image": image,
+        "depth": depth,
+        "weights_sum": ws,
+        "num_points": cm.num_points,
+        "ray_mask": cm.ray_mask,
+    }
+
+
+def _alpha_weights(deltas: torch.Tensor, sigmas: torch.Tensor) -> torch.Tensor:
+    """alpha_i * prod_{j<i} (1 - alpha_j + 1e-15) over [N, S]."""
+    alphas = 1.0 - torch.exp(-deltas * sigmas)
+    shifted = torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-15], dim=-1)
+    return alphas * torch.cumprod(shifted, dim=-1)[:, :-1]
+
+
+def render_rays_uniform(
+    field: FieldFns,
+    params,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    cfg: RenderConfig,
+    num_steps: int = 128,
+    upsample_steps: int = 128,
+    perturb: torch.Tensor | None = None,  # [N, num_steps] in [0, 1): z jitter
+    u: torch.Tensor | None = None,  # [N, upsample_steps] in [0, 1): pdf draws
+    bg_color=None,
+):
+    """Grid-free path: uniform sampling in [near, far] plus one round of
+    inverse-CDF importance upsampling.  With `perturb` and `u` both None it
+    is deterministic (the JAX function with `key=None`); where the JAX
+    function takes a key, this one takes the two sets of uniforms."""
+    N = rays_o.shape[0]
+    nears, fars = near_far_from_aabb(rays_o, rays_d, cfg.aabb, cfg.min_near)
+    nears = torch.where(nears > 1e30, torch.full_like(nears, 0.05), nears)  # missed rays
+    fars = torch.where(fars > 1e30, torch.full_like(fars, 0.06), fars)
+    bg = _resolve_bg(field, params, rays_o, rays_d, cfg, bg_color)
+
+    z = torch.linspace(0.0, 1.0, num_steps, dtype=torch.float32, device=rays_o.device)
+    z_vals = nears[:, None] + (fars - nears)[:, None] * z[None, :]  # [N, S]
+    sample_dist = (fars - nears) / num_steps
+    if perturb is not None:
+        z_vals = z_vals + (perturb - 0.5) * sample_dist[:, None]
+
+    def points_cf(zv):
+        comps = [
+            torch.clamp(rays_o[:, c:c + 1] + rays_d[:, c:c + 1] * zv, -cfg.bound, cfg.bound)
+            for c in range(3)
+        ]
+        return torch.stack([c.reshape(-1) for c in comps], dim=0)
+
+    def deltas_of(zv):
+        return torch.cat([zv[:, 1:] - zv[:, :-1], sample_dist[:, None]], dim=-1)
+
+    if upsample_steps > 0:
+        with torch.no_grad():
+            sigmas = field.density(params, points_cf(z_vals)).reshape(z_vals.shape)
+            weights = _alpha_weights(cfg.density_scale * deltas_of(z_vals), sigmas.float())
+            z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+            new_z = sample_pdf(z_mid, weights[:, 1:-1], upsample_steps, det=(u is None), u=u)
+            z_vals = torch.sort(torch.cat([z_vals, new_z], dim=-1), dim=-1).values
+
+    S = z_vals.shape[-1]
+    dirs_cf = rays_d.T[:, :, None].expand(3, N, S).reshape(3, -1)
+    sigmas, rgbs_cf = field.sigma_rgb(params, points_cf(z_vals), dirs_cf)
+    sigmas = sigmas.reshape(N, S).float() * cfg.density_scale
+    rgbs_cf = rgbs_cf.reshape(3, N, S).float()
+    weights = _alpha_weights(deltas_of(z_vals), sigmas)  # [N, S]
+    ws = weights.sum(dim=-1)
+    depth_raw = (weights * z_vals).sum(dim=-1)
+    image = (weights[None] * rgbs_cf).sum(dim=-1).T
+    image = image + (1.0 - ws)[:, None] * bg
+    depth = torch.clamp(depth_raw - nears, min=0.0) / torch.clamp(fars - nears, min=1e-6)
+    return {"image": image, "depth": depth, "weights_sum": ws}
 
 
 def _bucket_ladder(M_total: int) -> list[int]:
