@@ -301,9 +301,9 @@ def main() -> int:
     grid0 = trainer.grid
     blob = make_blob_field(0, device=dev)
     density = blob.density(None, cell_centers_cf(0, cfg.bound, cfg.grid_size, device=dev))[None]
-    trainer.grid = OccupancyGrid(
+    trainer.set_grid(OccupancyGrid(
         density_grid=density, bitfield=packbits(density, cfg.density_thresh).reshape(-1),
-        mean_density=density.mean(), iter_density=torch.zeros((), dtype=torch.int64, device=dev))
+        mean_density=density.mean(), iter_density=torch.zeros((), dtype=torch.int64, device=dev)))
     bitfield = trainer.grid.bitfield
     occ_frac = float((density > cfg.density_thresh).float().mean().item())
     dgrid = dilated_chunk_grid(bitfield, cfg)
@@ -362,8 +362,7 @@ def main() -> int:
                        "one 800x800 eval frame, random weights", dt_rand)
 
     # ---- 4. training path ---------------------------------------------------
-    trainer.grid = grid0
-    trainer._dgrid = dilated_chunk_grid(grid0.bitfield, cfg)
+    trainer.set_grid(grid0)
     torch.cuda.synchronize()
     t0 = time.time()
     loss_w, pts_w, kept_w = trainer.run_steps(WARM_STEPS)
@@ -536,20 +535,24 @@ def main() -> int:
         launches_train=launches_train["scatter_add"],
         call="compositor per-ray reduction (nondecreasing indices)",
         shape=f"[{M}, 5] -> [{N_RAYS}, 5]")
-    row("scatter_add_cotangent_sort", "scatter_add", launches_train["scatter_add"], err_gsort,
+    # one cotangent sort per backward: this caller's share of the scatter-add launches
+    row("scatter_add_cotangent_sort", "scatter_add", launches_train["window_encode_bwd"],
+        err_gsort,
         lambda: ks.scatter_add(dest_t, g_rows_t, Mt_pad),
         lambda: ks.scatter_add_plain(dest_t, g_rows_t, Mt_pad),
         lambda: torch.zeros((Mt_pad, L * C), device=dev).index_add_(0, dest_t, g_rows_t),
         Mt * 8 + Mt * L * C * 4 + Mt_pad * L * C * 4, Mt * L * C, F32_OPS_PER_S, path="train",
-        call="encoder backward: cotangent sort (unique indices), one per step of the "
-             f"{launches_train['scatter_add']} scatter-add launches in the timed steps",
+        call="encoder backward: cotangent sort (unique indices), one per backward, of the "
+             f"{launches_train['scatter_add']} scatter-add launches of all callers in the "
+             "timed steps",
         shape=f"[{Mt}, {L * C}] -> [{Mt_pad}, {L * C}]")
 
     # the backward kernel, on the inputs a training step gave it (captured
-    # above) and on uniform samples at the top tier.  Bytes: samples and
-    # cotangents in, the zero-fill and one write of the whole gradient table.
+    # above) and on uniform samples at the top tier.  Bytes: samples, cotangents
+    # and block windows in, the whole gradient table written once (the
+    # zero-fill is that write; the atomics touch only the visited rows).
     def bwd_bytes(m_pad):
-        return m_pad * 16 + m_pad * L * C * 4 + L * (m_pad // BLOCK) * 4 + 2 * table.numel() * 4
+        return m_pad * 16 + m_pad * L * C * 4 + L * (m_pad // BLOCK) * 4 + table.numel() * 4
 
     def bwd_library(xyz4_b, wob_b, g_sorted_b):
         """The nearest single library call: `index_add_` of precomputed flat
@@ -565,8 +568,6 @@ def main() -> int:
         return lambda: torch.zeros(table.numel(), device=dev).index_add_(0, idx, vals)
 
     lib_real = bwd_library(xyz4_r, wob_r, g_sorted_r)
-    per_level = [cuda_time_ms(lambda l=l: kw.window_encode_bwd(
-        xyz4_r, wob_r, g_sorted_r, spec, BLOCK, levels=(l, l + 1)), reps=10) for l in range(L)]
     zero_ms = cuda_time_ms(lambda: torch.zeros_like(table), reps=10)
     ms_uniform = cuda_time_ms(lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK))
     n_live = int((xyz4_r[:, 3] > 0).sum())
@@ -578,12 +579,11 @@ def main() -> int:
         lib_real, bwd_bytes(Mr_pad), Mr_pad * L * (10 + 8 * (3 + 2 * C)), F32_OPS_PER_S,
         path="train", library_call="index_add_ of precomputed rows and values (nearest call, "
         "not the same function)", ms_uniform_top_tier=ms_uniform, max_abs_err_uniform=err_bwd,
-        per_level_ms=per_level, zero_fill_ms=zero_ms,
+        zero_fill_ms=zero_ms,
         shape=f"xyz4 [{Mr_pad}, 4] ({n_live} samples, {n_grad} with a nonzero cotangent), "
               f"g_sorted [{Mr_pad}, {L * C}] -> [749, 2, 128, 64]")
-    log("[time] window_encode_bwd per level (each launch includes the 49.1 MB zero-fill, "
-        f"{zero_ms:.4f} ms): " + " ".join(f"{t - zero_ms:.4f}" for t in per_level)
-        + f" ms; uniform samples at the top tier: {ms_uniform:.4f} ms")
+    log(f"[time] window_encode_bwd includes the 49.1 MB zero-fill, {zero_ms:.4f} ms alone; "
+        f"uniform samples at the top tier: {ms_uniform:.4f} ms")
 
     # ---- 7. report ---------------------------------------------------------
     smi = subprocess.run(

@@ -1,7 +1,7 @@
 """Port parity: `composite_stream` forward and all four gradients (`sigmas`,
 `rgbs_cf`, `dts`, `t_cum`) of `tngp_torch`'s closed-form backward against
 the JAX package under `jax.vjp`, and against the port's own autodiff twin
-`composite_stream_ref`; the slab compositor; `trunc_exp`'s clamped backward.
+`composite_stream_ref`; `trunc_exp`'s clamped backward.
 
 Tolerance of the gradients: both packages evaluate the same closed form,
 but the JAX segmented associative scan and the port's float64 cumsum round
@@ -22,14 +22,9 @@ import pytest
 import torch
 
 from tngp.ops.activation import trunc_exp as jax_trunc_exp
-from tngp.ops.composite import composite_rays_cf as jax_composite_rays_cf
 from tngp.ops.composite import composite_stream as jax_composite
 from tngp_torch.ops.activation import trunc_exp
-from tngp_torch.ops.composite import (
-    composite_rays_cf,
-    composite_stream,
-    composite_stream_ref,
-)
+from tngp_torch.ops.composite import composite_stream, composite_stream_ref
 
 
 def _stream(seed, n_rays, M, density, pad_tail=True, skip_rays=False):
@@ -119,21 +114,6 @@ def test_composite_stream_gaps_path_is_differentiable():
     for a, b in zip(*grads):
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=_atol(a))
         assert np.abs(a).max() > 1e-3
-
-
-def test_composite_rays_cf_matches_jax():
-    """The slab compositor, forward: same cumsum formulation, f32 rounding."""
-    rng = np.random.default_rng(4)
-    N, K = 24, 40
-    sig = (rng.uniform(size=(N, K)) * 300).astype(np.float32)
-    rgb = rng.uniform(size=(3, N, K)).astype(np.float32)
-    dt = rng.uniform(0.002, 0.02, size=(N, K)).astype(np.float32)
-    gaps = rng.uniform(0.002, 0.05, size=(N, K)).astype(np.float32)
-    mask = rng.uniform(size=(N, K)) < 0.8
-    want = jax_composite_rays_cf(*(jnp.asarray(a) for a in (sig, rgb, dt, gaps, mask)))
-    got = composite_rays_cf(*(torch.from_numpy(a) for a in (sig, rgb, dt, gaps, mask)))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
 
 
 def test_trunc_exp_backward_is_clamped():

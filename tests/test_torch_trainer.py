@@ -196,3 +196,31 @@ def test_trainer_trains_and_a_step_reads_nothing_back(monkeypatch):
     assert any(float((e - p).abs().max()) > 0 for e, p in zip(tr.ema_params, tr.params))
     psnr = tr.evaluate(ds)
     assert np.isfinite(psnr) and tr.last_render_stats["chunks"] == 1
+
+
+def test_set_grid_installs_the_grid_and_rebuilds_the_dilated_grid():
+    """`Trainer.set_grid` is the one place the march's dilated grid is built:
+    after it the trainer marches through the grid it was given (here the blob
+    scene's analytic occupancy instead of the all-untrained start), and a
+    step's loss on it is finite."""
+    from tngp_torch.data import make_blob_field
+    from tngp_torch.ops.grid_utils import packbits
+    from tngp_torch.render import OccupancyGrid, cell_centers_cf, dilated_chunk_grid
+
+    ds = make_synthetic_dataset(n_frames=2, H=16, W=16, seed=0, num_steps=32, device="cpu")
+    model = NGPNetwork(compute_dtype=torch.float32, device="cpu", **NET_KW)
+    cfg = RenderConfig(**CFG_KW)
+    tr = Trainer(model, ds, cfg, TrainConfig(num_rays=N_RAYS, iters=1000), device="cpu")
+    before = tr._dgrid.clone()
+    dens = make_blob_field(0, device="cpu").density(
+        None, cell_centers_cf(0, cfg.bound, cfg.grid_size, device="cpu"))[None]
+    grid = OccupancyGrid(density_grid=dens,
+                         bitfield=packbits(dens, cfg.density_thresh).reshape(-1),
+                         mean_density=dens.mean(),
+                         iter_density=torch.zeros((), dtype=torch.int64))
+    tr.set_grid(grid)
+    assert tr.grid is grid
+    assert torch.equal(tr._dgrid, dilated_chunk_grid(grid.bitfield, cfg))
+    assert not torch.equal(tr._dgrid, before)
+    loss, npts, kept = tr.loss_on_batch(tr.sample_batch())
+    assert torch.isfinite(loss) and int(npts) > 0 and int(kept) > 0

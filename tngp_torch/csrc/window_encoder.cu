@@ -42,8 +42,9 @@
 //
 // Bound on the H100: bytes, both ways.  Forward: 16 B in and 4*L*C B out per
 // sample plus one read of each table window the samples visit.  Backward:
-// 16 B + 4*L*C B in per sample plus the zero-fill and one write of the whole
-// gradient table.  In practice the backward is limited by atomic contention
+// 16 B + 4*L*C B in per sample plus one write of the whole gradient table
+// (the zero-fill is that write; the atomics touch only the visited rows and
+// add no second pass over the table).  In practice the backward is limited by atomic contention
 // on the coarse levels (a few thousand rows take every sample's 8 adds); the
 // blocks are tile-pure, so a block-private accumulation of one 64 KB window
 // per level in shared memory before one pass of global atomics is the
@@ -141,9 +142,9 @@ __global__ void window_bwd_kernel(const float4* __restrict__ xyz4,
                                   const float* __restrict__ scales,
                                   const int32_t* __restrict__ iconst,
                                   float* __restrict__ gtab, int M_pad, int block,
-                                  int L, int l0, float shift, int smooth) {
+                                  int L, float shift, int smooth) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = l0 + blockIdx.y;
+  const int l = blockIdx.y;
   if (m >= M_pad) return;
   const float4 p = xyz4[m];
   if (p.w == 0.0f) return;  // padding slot: every contribution is bf16(0 * g) = 0
@@ -197,22 +198,20 @@ extern "C" int tngp_window_encode_fwd(const float* xyz4, const int32_t* wob,
 }
 
 // As above, with g_sorted [M_pad, L * C] f32 and gtab [n_windows, C, 128, 64]
-// f32, which must be zero on entry.  Levels [l0, l1) are processed (all of
-// them for l0 = 0, l1 = L; a sub-range exists for timing single levels).
+// f32, which must be zero on entry.
 extern "C" int tngp_window_encode_bwd(const float* xyz4, const int32_t* wob,
                                       const float* g_sorted,
                                       const float* scales,
                                       const int32_t* iconst, float* gtab,
                                       int M_pad, int block, int L, int C,
-                                      int l0, int l1, float shift, int smooth,
+                                      float shift, int smooth,
                                       cudaStream_t stream) {
-  if (l0 < 0 || l1 > L || l0 > l1) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  dim3 grid((M_pad + threads - 1) / threads, l1 - l0);
+  dim3 grid((M_pad + threads - 1) / threads, L);
   const float4* x4 = reinterpret_cast<const float4*>(xyz4);
-  if (M_pad > 0 && l1 > l0) {
+  if (M_pad > 0 && L > 0) {
     DISPATCH_C(window_bwd_kernel, x4, wob, g_sorted, scales, iconst, gtab,
-               M_pad, block, L, l0, shift, smooth)
+               M_pad, block, L, shift, smooth)
   }
   return (int)cudaGetLastError();
 }

@@ -57,8 +57,8 @@ _SIGNATURES = {
           _c.c_int, _c.c_void_p]),
         ("tngp_window_encode_bwd", _c.c_int,
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-          _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-          _c.c_int, _c.c_float, _c.c_int, _c.c_void_p]),
+          _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+          _c.c_float, _c.c_int, _c.c_void_p]),
     ],
 }
 SOURCES = tuple(_SIGNATURES)

@@ -245,16 +245,12 @@ def window_encode_bwd_plain(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     return out.reshape(spec.n_windows, C, WIN_LANES, WIN_HI)
 
 
-def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int, levels=None):
+def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     """Table gradient over tile-sorted samples (see
     `window_encode_bwd_plain`).  CPU tensors take the plain version; CUDA
     tensors zero-fill the gradient and launch the kernel, which adds
-    atomically: each entry matches the ordered sum to f32 reordering error.
-    `levels=(l0, l1)` restricts the kernel to a level range (for timing
-    single levels); the plain version has no such option."""
+    atomically: each entry matches the ordered sum to f32 reordering error."""
     if _lib.use_plain(xyz4):
-        if levels is not None:
-            raise ValueError("levels= is an option of the kernel only")
         return window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block)
     L, C = spec.num_levels, spec.level_dim
     M_pad = xyz4.shape[0]
@@ -263,7 +259,6 @@ def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int, levels=
     _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
     _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
     _lib.check(g_sorted, "g_sorted", torch.float32, (M_pad, L * C))
-    l0, l1 = (0, L) if levels is None else levels
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     gtab = torch.zeros((spec.n_windows, C, WIN_LANES, WIN_HI), dtype=torch.float32,
                        device=xyz4.device)
@@ -271,8 +266,7 @@ def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int, levels=
         WINDOW_BWD, "tngp_window_encode_bwd", xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), g_sorted.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), gtab.data_ptr(),
-        M_pad, block, L, C, l0, l1, spec.shift,
-        int(spec.interpolation == "smoothstep"),
+        M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
     )
     return gtab
 

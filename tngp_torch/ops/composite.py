@@ -1,7 +1,7 @@
 """Transmittance compositing — the port of `tngp/ops/composite.py`:
-`composite_weights` / `composite_rays_cf` over `[N, K]` slabs and
 `composite_stream` over globally compacted samples, with its closed-form
-backward (`_composite_stream_core_bwd`).
+backward (`_composite_stream_core_bwd`).  The `[N, K]` slab compositors
+(`composite_weights`, `composite_rays_cf`) come with the slab render branch.
 
 Per ray segment of the ray-major sample stream:
 
@@ -26,31 +26,6 @@ from __future__ import annotations
 import torch
 
 from ..kernels.scatter import scatter_add
-
-
-def composite_weights(sigmas: torch.Tensor, dts: torch.Tensor, mask: torch.Tensor,
-                      T_thresh: float = 1e-4) -> torch.Tensor:
-    """Per-sample weights `T_i * alpha_i` over [N, K] slabs with the
-    early-stop mask (the first sample past the threshold stays)."""
-    m = mask.float()
-    tau = sigmas.float() * dts.float() * m
-    acc = torch.cumsum(tau, dim=-1)
-    T_before = torch.exp(-(acc - tau))
-    alpha = -torch.expm1(-tau)
-    weights = T_before * alpha * m
-    stop = (torch.exp(-acc) < T_thresh).float()
-    alive = (torch.cumsum(stop, dim=-1) - stop) < 0.5
-    return weights * alive.float()
-
-
-def composite_rays_cf(sigmas, rgbs_cf, dts, gaps, mask, T_thresh: float = 1e-4):
-    """sigmas/dts/gaps/mask [N, K], rgbs_cf [3, N, K] -> (weights_sum [N],
-    depth [N], image [N, 3], weights [N, K]); depth accumulates
-    `w_i * sum_{j<=i} gap_j`."""
-    weights = composite_weights(sigmas, dts, mask, T_thresh)
-    t_cum = torch.cumsum(gaps.float() * mask.float(), dim=-1)
-    image = (weights[None] * rgbs_cf.float()).sum(dim=-1).T
-    return weights.sum(dim=-1), (weights * t_cum).sum(dim=-1), image, weights
 
 
 def _segment_heads(is_start: torch.Tensor) -> torch.Tensor:

@@ -110,14 +110,11 @@ class Trainer:
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer, self.scheduler = make_optimizer(self.params, tc, constant_lr)
         self.ema_params = ema_init(self.params)
-        self.grid = mark_untrained_grid(
+        self._grid_updates = 0  # host copy of grid.iter_density
+        self.set_grid(mark_untrained_grid(
             create_grid(cfg.cascades, cfg.grid_size, device=self.device),
             self.poses, self.intrinsics, bound=cfg.bound, grid_size=cfg.grid_size,
-        )
-        self._grid_updates = 0  # host copy of grid.iter_density
-        # the dilated chunk grid changes only with the bitfield: built here
-        # and after every grid update, never inside a step
-        self._dgrid = dilated_chunk_grid(self.grid.bitfield, cfg)
+        ))
 
         self.epoch = 0
         self.global_step = 0
@@ -205,18 +202,24 @@ class Trainer:
         self.log(f"[adaptive_budget] step {self.global_step}: tier -> "
                  f"M={self._tier_M[t]} (demand {int(demand)}, kept {kept_frac:.3f})")
 
-    def maybe_update_grid(self):
-        if self.global_step % self.tc.update_extra_interval != 0:
-            return
+    def set_grid(self, grid):
+        """Install an occupancy grid.  The dilated chunk grid of the training
+        march changes only with the bitfield: it is rebuilt here and nowhere
+        else, never inside a step."""
+        self.grid = grid
+        self._dgrid = dilated_chunk_grid(grid.bitfield, self.cfg)
+
+    def update_grid(self):
+        """One density-grid update from the live field (`run_steps` calls it
+        every `update_extra_interval` steps)."""
         cfg = self.cfg
-        self.grid = update_density_grid(
+        self.set_grid(update_density_grid(
             self.grid, None, self.gen, density_fn=self.field.density, bound=cfg.bound,
             grid_size=cfg.grid_size, density_thresh=cfg.density_thresh,
             full=self._grid_updates < self.full_grid_updates,
             density_scale=cfg.density_scale,
-        )
+        ))
         self._grid_updates += 1
-        self._dgrid = dilated_chunk_grid(self.grid.bitfield, cfg)
 
     def run_steps(self, steps: int):
         """`steps` train steps with the grid update and the tier read at
@@ -231,7 +234,7 @@ class Trainer:
                     demand, kept = torch.stack([pts[-1].float(), kepts[-1]]).tolist()
                     self.host_reads += 1
                     self._adapt_tier(demand, kept / self.tc.num_rays)
-                self.maybe_update_grid()
+                self.update_grid()
             loss, npts, kept = self.train_step()
             losses.append(loss)
             pts.append(npts)
