@@ -6,11 +6,16 @@
 Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel from `tngp_torch/csrc/`;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the two paths give it: the eval render (encoder forward
+     shapes the paths give it: the eval render (encoder forward
      M = 393,216 samples of the flagship spec, bin ranks, scatter-add for the
-     encoder's payload sort and the compositor's per-ray reduction) and the
+     encoder's payload sort and the compositor's per-ray reduction), the
      training step (encoder backward and the cotangent sort at the top
-     budget tier, M = 131,072);
+     budget tier, M = 131,072), and samples with x01 in [-0.06, 1.06], as
+     D-NeRF's x + dx gives them (forward, table gradient and the
+     input-gradient kernel);
+  2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
+     (the int-mul probe exact, the encoder kernels against independent plain
+     versions);
   3. eval path, random weights from --seed: one warm-up and one timed
      800x800 frame of the flagship-width instant-NGP network through
      `Trainer.render_image` on bench.py's blob-scene occupancy grid; show
@@ -19,14 +24,22 @@ Phases (any failure exits non-zero and prints no result line):
   4. training path: the same network trained on 12 views of 128x128 of the
      blob scene (rendered here, on the card) with bench.py's loop: 4096
      rays/step, lr 1e-2, grid update and budget-tier read every 16 steps;
-     200 untimed and 100 timed steps; show that all four kernels launched in
+     200 untimed and 100 timed steps; show that its four kernels launched in
      the timed steps, that the loss fell and everything stayed finite, and
-     (over 32 further steps) that no step made a host sync; hold one step's gradients through the kernels
-     against the same step through the plain versions;
+     (over 32 further steps) that no step made a host sync; hold one step's
+     gradients through the kernels against the same step through the plain
+     versions;
   5. eval path again with the trained EMA weights: one timed 800x800 frame;
-  6. time each kernel, its plain version and the nearest single PyTorch call
+  6. D-NeRF training at full width with scripts/bench_dnerf_step.py's
+     config (`dnerf_phase`): the pinned NGP step, then D-NeRF on 12 views of
+     128x128 of the dynamic blob scene, 64 untimed and 100 timed steps each;
+     rays/s, ms/step, their ratio, the time-grid update's wall, the loss
+     halving, no host sync in a step, the input-gradient kernel once per
+     backward, one step through the kernels against the plain versions, and
+     the EMA PSNR over the 12 views at their own times;
+  7. time each kernel, its plain version and the nearest single PyTorch call
      at the paths' shapes, beside the least time the card could take;
-  7. print the card's name and power limit, the kernel table as one JSON
+  8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
 `--profile` adds a profiled eval frame and ten profiled training steps with
@@ -53,6 +66,8 @@ import torch
 RES = 800  # frame side, the reference's test resolution
 WARM_STEPS, TIMED_STEPS = 200, 100  # training: untimed, then timed
 SYNC_STEPS = 32  # further steps under the host-sync log
+DNERF_WARM, DNERF_TIMED = 64, 100  # D-NeRF and pinned NGP: untimed, then timed
+DNERF_SYNC_STEPS = 16
 N_RAYS = 4096  # rays per training step and per eval chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -140,6 +155,210 @@ def profile_device(fn, label: str, wall_off: float) -> None:
         log(f"[profile]   {t / 1e3:10.3f} ms  {100 * t / 1e6 / busy:5.1f}%  x{c:<7d} {k[:96]}")
 
 
+@torch.no_grad()
+def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
+    """The input-gradient kernel against its plain version.  Both form, per
+    sample and dimension, the same L*C f32 products g * d (d bit for bit: the
+    same bf16 roundings of derivative weights and table values, the 8
+    corners summed in order); the kernel adds them in (level, channel)
+    order, the plain version in torch's.  Any order of n terms is within
+    (n - 1) 2^-24 sum|term| of the exact sum, so the two are within
+    2 (L*C) 2^-24 sum|g * d| of each other.  Returns (max |err|, worst
+    err / bound)."""
+    from tngp_torch.kernels import window_encoder as kw
+
+    got = kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block)
+    plain = kw.window_encode_dx_plain(xyz4, wob, table, g_sorted, spec, block)
+    d = kw.dx_features(xyz4, wob, table, spec, block)
+    tol = 2 * spec.output_dim * 2.0**-24 * (g_sorted.T[None].abs() * d.abs()).sum(1).double()
+    err = (got.double() - plain.double()).abs()
+    if not bool((err <= tol).all()):
+        raise SystemExit(f"window_encode_dx ({what}) beyond the reordering bound: "
+                         f"{float(err.max())}")
+    if not bool((got[:, xyz4[:, 3] == 0] == 0).all()):
+        raise SystemExit(f"window_encode_dx ({what}): a padding slot is not zero")
+    return float(err.max()), float((err / tol.clamp(min=1e-30)).max())
+
+
+def dnerf_phase(dev, ds, seed: int, n_frames=12, res=128, grid_size=128,
+                time_size=16, warm=None, timed=None, sync_steps=None, **net_kw) -> dict:
+    """D-NeRF training at full width, as scripts/bench_dnerf_step.py drives
+    it: the flagship encoder with position gradients, a 5x128 bf16 deform
+    MLP, 4096 rays/step, bench.py's render config, a time grid of 16 slices
+    updated every 16 steps, no budget tiers; the NGP step under the same
+    pinned config on the static scene `ds` is its yardstick (JAX's bar:
+    <= 2x).  Shows that every kernel of the path launched and the
+    input-gradient kernel once per backward, that the loss halves, that a
+    step makes no host sync, and one step through the kernels against the
+    plain versions; reports rays/s, ms/step, the ratio, the time-grid
+    update's wall and the EMA PSNR over the views at their own times.  The
+    keyword sizes exist for a rehearsal on the CPU at a tiny size."""
+    from tngp_torch import kernels
+    from tngp_torch.data import make_synthetic_dynamic_dataset
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.models import DNeRFNetwork, NGPNetwork
+    from tngp_torch.render import RenderConfig
+    from tngp_torch.train import DNeRFTrainer, Trainer
+    from tngp_torch.utils import TrainConfig
+
+    warm = DNERF_WARM if warm is None else warm
+    timed = DNERF_TIMED if timed is None else timed
+    sync_steps = DNERF_SYNC_STEPS if sync_steps is None else sync_steps
+    info = kernels.KERNELS
+    n_rays = N_RAYS if dev.type == "cuda" else 256
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.time()
+    dds = make_synthetic_dynamic_dataset(n_frames=n_frames, H=res, W=res, seed=0, device=dev)
+    log(f"[dnerf] {n_frames} x {res} x {res} views of the dynamic blob scene (times 0..1) "
+        f"rendered in {time.time() - t0:.2f} s (mean {dds.images.mean():.4f})")
+    cfg_p = RenderConfig(bound=1.0, grid_size=grid_size, max_steps=512, K=128, min_near=0.05,
+                         compact_fraction=0.25, density_thresh=1.0, march_dense=True)
+    pinned = TrainConfig(num_rays=n_rays, iters=100_000, adaptive_budget=False, seed=seed)
+
+    def pinned_run(tr, label):
+        """`warm` untimed then `timed` timed steps (grid updates included, as
+        bench_dnerf_step.py times them).  Returns (losses of all steps,
+        timed wall, launches in the timed steps)."""
+        sync()
+        t0 = time.time()
+        lw, _, _ = tr.run_steps(warm)
+        sync()
+        log(f"[dnerf] {label}: {warm} untimed steps {time.time() - t0:.2f} s")
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        lt, pts, kept = tr.run_steps(timed)
+        sync()
+        dt = time.time() - t0
+        counts = {name: k.launches for name, k in info.items()}
+        log(f"[dnerf] {label}: {timed} timed steps {dt:.3f} s, {1e3 * dt / timed:.2f} ms/step, "
+            f"{timed * n_rays / dt:,.1f} train rays/s; demand {float(pts.float().mean()):,.0f} "
+            f"rungs/step, {float(kept.mean()):,.0f} of {n_rays} rays kept (M = {tr.tier_M}); "
+            f"launches {counts}")
+        return torch.cat([lw, lt]), dt, counts
+
+    ngp_p = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed,
+                               **net_kw), ds, cfg_p, pinned, device=dev)
+    _, dt_ngp, _ = pinned_run(ngp_p, "NGP, pinned config")
+    del ngp_p
+    dmodel = DNeRFNetwork(bound=1.0, encoding="hashgrid_window", compute_dtype=torch.bfloat16,
+                          device=dev, seed=seed, **net_kw)
+    dtr = DNeRFTrainer(dmodel, dds, cfg_p, pinned, time_size=time_size, update_interval=16,
+                       device=dev)
+    grid_walls = []
+    update_grid = dtr.update_grid
+
+    def timed_update_grid():
+        sync()
+        t0 = time.time()
+        full = dtr._grid_updates < dtr.full_grid_updates
+        update_grid()
+        sync()
+        grid_walls.append((time.time() - t0, full))
+
+    dtr.update_grid = timed_update_grid
+    losses_d, dt_dnerf, launches_dnerf = pinned_run(dtr, "D-NeRF")
+    ratio = dt_dnerf / dt_ngp
+    n_full = sum(f for _, f in grid_walls)
+    walls = [w for w, _ in grid_walls]
+    log(f"[dnerf] time-grid updates: {len(walls)} over {dtr.global_step} steps, {n_full} full "
+        f"({time_size} slices x {grid_size}^3 cells each), wall {statistics.mean(walls):.3f} s "
+        f"mean, {min(walls):.3f}-{max(walls):.3f} s, {sum(walls):.3f} s in all")
+    log(f"[dnerf] D-NeRF / NGP step time under the same pinned config: {ratio:.3f}x "
+        f"(JAX's bar in scripts/bench_dnerf_step.py: <= 2)")
+    for name in ("bin_ranks", "scatter_add", "window_encode_fwd", "window_encode_bwd",
+                 "window_encode_dx"):
+        if dev.type == "cuda" and launches_dnerf[name] <= 0:
+            raise SystemExit(f"a kernel of the D-NeRF path never launched: {launches_dnerf}")
+    if launches_dnerf["window_encode_dx"] != launches_dnerf["window_encode_bwd"]:
+        raise SystemExit(f"window_encode_dx did not run once per backward: {launches_dnerf}")
+    if dev.type == "cuda" and launches_dnerf["window_encode_dx"] != timed:
+        raise SystemExit(f"window_encode_dx did not run once per step: {launches_dnerf}")
+    first16, last16 = float(losses_d[:16].mean()), float(losses_d[-16:].mean())
+    log(f"[dnerf] loss first 16 steps {first16:.6f}, last 16 {last16:.6f}")
+    if not (np.isfinite(first16) and last16 < 0.5 * first16):
+        raise SystemExit(f"D-NeRF: the loss did not fall below half: {first16} -> {last16}")
+    if not all(bool(torch.isfinite(p).all()) for p in dtr.params + dtr.ema_params):
+        raise SystemExit("D-NeRF: a parameter is not finite after training")
+
+    if dev.type == "cuda":
+        step_syncs = []
+        with host_sync_log() as caught:
+            plain_step = dtr.train_step
+
+            def counted_dstep():
+                before = n_syncs(caught)
+                out = plain_step()
+                step_syncs.append(n_syncs(caught) - before)
+                return out
+
+            dtr.train_step = counted_dstep
+            dtr.run_steps(sync_steps)
+            dtr.train_step = plain_step
+        log(f"[dnerf] host syncs over {sync_steps} further steps: inside train_step "
+            f"{sum(step_syncs)} ({max(step_syncs)} max per step)")
+        if sum(step_syncs) != 0:
+            raise SystemExit(f"D-NeRF train_step made host syncs: {step_syncs}")
+
+    # one D-NeRF step's gradients: through the kernels, and through the plain
+    # versions; the input-gradient kernel on that step's own inputs
+    dbatch = dtr.sample_batch()
+    captured_dx = {}
+    real_dx = kw.window_encode_dx
+
+    def capturing_dx(*a, **k):
+        captured_dx["args"] = a[:4]
+        return real_dx(*a, **k)
+
+    def dstep_grads():
+        dtr.optimizer.zero_grad(set_to_none=True)
+        loss, _, _ = dtr.loss_on_batch(dbatch)
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in dtr.params]
+
+    kw.window_encode_dx = capturing_dx
+    try:
+        dloss_k, dgrads_k = dstep_grads()
+    finally:
+        kw.window_encode_dx = real_dx
+    with kernels.plain_versions():
+        dloss_p, dgrads_p = dstep_grads()
+    dtr.optimizer.zero_grad(set_to_none=True)
+    dnames = [n for n, p in dmodel.named_parameters() if p.requires_grad]
+    drels = {n: rel_err(a, b) for n, a, b in zip(dnames, dgrads_k, dgrads_p)}
+    deform_max = max(float(g.abs().max()) for n, g in zip(dnames, dgrads_k)
+                     if n.startswith("deform_net"))
+    # tolerances as the NGP step: the loss to 1e-5 relative, every gradient
+    # to the bf16 limit 3e-2 norm-relative
+    if not all(bool(torch.isfinite(g).all()) for g in dgrads_k) or not deform_max > 0:
+        raise SystemExit(f"D-NeRF step: a gradient is not finite or the deform net got none "
+                         f"(max |grad| {deform_max})")
+    if not abs(dloss_k - dloss_p) <= 1e-5 * abs(dloss_p):
+        raise SystemExit(f"D-NeRF step, kernels vs plain: loss {dloss_k} vs {dloss_p}")
+    if not max(drels.values()) <= 3e-2:
+        raise SystemExit(f"D-NeRF step, kernels vs plain: gradient errors {drels}")
+    dx_args = tuple(a.detach() for a in captured_dx["args"])
+    err_dx, worst_dx = check_dx(*dx_args, dmodel.encoder.spec, dmodel.encoder.block,
+                                "a D-NeRF step's inputs")
+    log(f"[dnerf] one step, kernels vs plain path: loss {dloss_k:.8f} vs {dloss_p:.8f}; "
+        f"gradient norm-relative errors " + ", ".join(f"{n} {v:.2e}" for n, v in drels.items())
+        + f" (<= 3e-2); deform-net max |grad| {deform_max:.3e}; window_encode_dx on this step's "
+        f"inputs (M_pad = {dx_args[0].shape[0]}) max|err| {err_dx:.3g}, worst err/bound "
+        f"{worst_dx:.3f}")
+
+    t0 = time.time()
+    psnr_d = dtr.evaluate(dds)
+    log(f"[dnerf] PSNR with the EMA weights over the {n_frames} views at their own times after "
+        f"{dtr.global_step} steps: {psnr_d:.2f} dB ({time.time() - t0:.2f} s)")
+    if not np.isfinite(psnr_d):
+        raise SystemExit("D-NeRF: the evaluation PSNR is not finite")
+    return dict(dt_dnerf=dt_dnerf, dt_ngp=dt_ngp, ratio=ratio, rays_s=timed * n_rays / dt_dnerf,
+                psnr=psnr_d, launches=launches_dnerf, dx_args=dx_args, err_dx=err_dx)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -154,8 +373,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tngp_torch import kernels
     from tngp_torch.data import full_image_rays, make_blob_field, make_synthetic_dataset, orbit_poses
+    from tngp_torch.diagnostics import device_parity
     from tngp_torch.kernels import scatter as ks
     from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.kernels import int_mul
     from tngp_torch.models import NGPNetwork
     from tngp_torch.ops.grid_utils import packbits
     from tngp_torch.ops.window_table import WindowSpec, sample_tiles
@@ -283,6 +504,35 @@ def main() -> int:
         f"[{Mt}, {L * C}] -> [{Mt_pad}, {L * C}] exact, window_encode_bwd max|err| "
         f"{err_bwd:.3g} (each entry <= 2 (n-1) 2^-24 sum|term|, n up to {n_max:.0f})")
 
+    # samples outside the unit cube, as D-NeRF's x + dx gives them: dense
+    # corner rows outside the window contribute nothing in all three kernels
+    x01_o = (torch.rand((3, Mt), generator=gen) * 1.12 - 0.06).to(dev)
+    g_o = torch.randn((L * C, Mt), generator=gen).to(dev)
+    xyz4_o, wob_o, _, _, g_sorted_o = sorted_inputs(x01_o, g_o)
+    err_enc_o = max_abs(kw.window_encode_fwd(xyz4_o, wob_o, table, spec, BLOCK),
+                        kw.window_encode_fwd_plain(xyz4_o, wob_o, table, spec, BLOCK))
+    if not err_enc_o <= 6e-6:
+        raise SystemExit(f"window_encode_fwd (x01 in [-0.06, 1.06]) vs plain: {err_enc_o}")
+    err_bwd_o, _ = check_bwd(xyz4_o, wob_o, g_sorted_o, "x01 in [-0.06, 1.06]")
+    err_dx_o, worst_dx_o = check_dx(xyz4_o, wob_o, table, g_sorted_o, spec, BLOCK,
+                                    "x01 in [-0.06, 1.06]")
+    outside = float(((x01_o < 0) | (x01_o > 1)).any(dim=0).float().mean())
+    log(f"[check] x01 uniform in [-0.06, 1.06] (M = {Mt}, {outside:.3f} outside the cube): "
+        f"window_encode_fwd max|err| {err_enc_o:.3g} (<= 6e-6), window_encode_bwd max|err| "
+        f"{err_bwd_o:.3g} (reordering bound), window_encode_dx max|err| {err_dx_o:.3g}, "
+        f"worst err/bound {worst_dx_o:.3f} (<= 2 (L*C) 2^-24 sum|g d| per sample and dimension)")
+
+    # ---- 2b. the device-parity entry (int-mul probe and encoder probes) ------
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    if device_parity.main() != 0:
+        raise SystemExit("device parity failed")
+    launches_parity = {name: k.launches for name, k in info.items()}
+    log(f"[parity] python -m tngp_torch.diagnostics.device_parity passed in "
+        f"{time.time() - t0:.1f} s; launches {launches_parity}")
+    if min(launches_parity.values()) <= 0:
+        raise SystemExit(f"a kernel of the parity path never launched: {launches_parity}")
+
     # ---- 3. eval path, random weights: 800x800 frames ----------------------
     model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
     cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
@@ -388,7 +638,8 @@ def main() -> int:
         f"{float(kept_t.mean()):,.0f} of {N_RAYS} rays kept; loss first 16 steps "
         f"{first16:.6f}, last 16 {last16:.6f}; occupancy at the end {occ_end:.4f}; "
         f"launches {launches_train}")
-    if min(launches_train.values()) <= 0:
+    if min(launches_train[n] for n in ("scatter_add", "bin_ranks", "window_encode_fwd",
+                                       "window_encode_bwd")) <= 0:
         raise SystemExit(f"a kernel of the training path never launched: {launches_train}")
 
     # host syncs, counted over two further grid-update intervals (outside the
@@ -488,7 +739,14 @@ def main() -> int:
     log(f"[eval] 800x800 rays/s: random weights {R * R / dt_rand:,.1f}, trained weights "
         f"{R * R / dt_trained:,.1f} (the trained occupancy grid, {occ_end:.4f} occupied)")
 
-    # ---- 6. timing at the paths' shapes ------------------------------------
+    # ---- 6. D-NeRF training at full width (scripts/bench_dnerf_step.py) -----
+    dn = dnerf_phase(dev, ds, args.seed)
+    dt_dnerf, dt_ngp, ratio = dn["dt_dnerf"], dn["dt_ngp"], dn["ratio"]
+    dnerf_rays_s, psnr_d, launches_dnerf = dn["rays_s"], dn["psnr"], dn["launches"]
+    xyz4_x, wob_x, table_x, g_sorted_x = dn["dx_args"]
+    err_dx_real = dn["err_dx"]
+
+    # ---- 7. timing at the paths' shapes ------------------------------------
     table_win = model.encoder.embeddings.detach()
     visited = sum(int(torch.unique(wob[l]).numel()) for l in range(L))
     enc_bytes = M_pad * 16 + wob.numel() * 4 + L * C * M_pad * 4 + visited * C * 8192 * 4
@@ -585,7 +843,39 @@ def main() -> int:
     log(f"[time] window_encode_bwd includes the 49.1 MB zero-fill, {zero_ms:.4f} ms alone; "
         f"uniform samples at the top tier: {ms_uniform:.4f} ms")
 
-    # ---- 7. report ---------------------------------------------------------
+    # the input-gradient kernel, on the inputs a D-NeRF step gave it and on
+    # the uniform samples above.  Bytes: per sample xyz4 (16 B) and its
+    # cotangent row (4 L C B) in and 12 B out, plus one read of each table
+    # window the blocks visit.  Operations: per sample and level positions
+    # (12), 3 derivative weights per corner (4 each) and per channel 8
+    # rounded loads and 3 x 8 multiply-adds and 3 contractions.
+    def dx_cost(xyz4_b, wob_b):
+        m_pad = xyz4_b.shape[0]
+        vis = sum(int(torch.unique(wob_b[l]).numel()) for l in range(L))
+        nbytes = m_pad * (16 + 4 * L * C + 12) + wob_b.numel() * 4 + vis * C * 8192 * 4
+        return nbytes, m_pad * L * (12 + 8 * 3 * 4 + C * (8 + 3 * 8 * 2 + 3 * 2)), vis
+
+    dx_bytes, dx_ops, dx_vis = dx_cost(xyz4_x, wob_x)
+    ms_dx_uniform = cuda_time_ms(
+        lambda: kw.window_encode_dx(xyz4_o, wob_o, table, g_sorted_o, spec, BLOCK))
+    n_live_x = int((xyz4_x[:, 3] > 0).sum())
+    row("window_encode_dx", "window_encode_dx", launches_dnerf["window_encode_dx"], err_dx_real,
+        lambda: kw.window_encode_dx(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK),
+        lambda: kw.window_encode_dx_plain(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK),
+        None, dx_bytes, dx_ops, F32_OPS_PER_S, path="dnerf",
+        library_call="none: no single PyTorch call computes the derivative-weight encode "
+        "and its contraction", ms_uniform_oor=ms_dx_uniform, max_abs_err_uniform_oor=err_dx_o,
+        bytes=dx_bytes, windows_visited=dx_vis,
+        shape=f"xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples), g_sorted "
+              f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
+              f"{xyz4_x.shape[0]}]")
+    xi = torch.arange(1 << 13, dtype=torch.int32, device=dev).reshape(8, -1)
+    row("int_mul_probe", "int_mul_probe", launches_parity["int_mul_probe"], 0.0,
+        lambda: int_mul.int_mul_hash(xi), lambda: int_mul.int_mul_hash_plain(xi), None,
+        xi.numel() * 8, xi.numel() * 3, INT32_OPS_PER_S, path="device parity",
+        shape="int32 [8, 1024] -> int32 [8, 1024] (exact)")
+
+    # ---- 8. report ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -593,7 +883,10 @@ def main() -> int:
     log(f"[result] train {train_rays_s:,.1f} rays/s (tier M {trainer.tier_M}, PSNR {psnr:.2f} dB "
         f"after {psnr_steps} steps); eval 800x800 {R * R / dt_rand:,.1f} rays/s "
         f"random weights, {R * R / dt_trained:,.1f} rays/s trained weights "
-        f"({st2['valid_samples'] / (R * R):.1f} samples per ray, {st2['rounds']} residual rounds)")
+        f"({st2['valid_samples'] / (R * R):.1f} samples per ray, {st2['rounds']} residual rounds); "
+        f"D-NeRF {dnerf_rays_s:,.1f} train rays/s ({1e3 * dt_dnerf / DNERF_TIMED:.2f} ms/step, "
+        f"{ratio:.3f}x the pinned NGP step of {1e3 * dt_ngp / DNERF_TIMED:.2f} ms), PSNR "
+        f"{psnr_d:.2f} dB over 12 views")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,7 @@ import torch
 
 from tngp.ops.composite import composite_stream as jax_composite
 from tngp_torch.ops.composite import _segmented_cumsum, composite_stream
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _stream(seed, n_rays, M, density):

@@ -25,6 +25,7 @@ from tngp.ops.activation import trunc_exp as jax_trunc_exp
 from tngp.ops.composite import composite_stream as jax_composite
 from tngp_torch.ops.activation import trunc_exp
 from tngp_torch.ops.composite import composite_stream, composite_stream_ref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _stream(seed, n_rays, M, density, pad_tail=True, skip_rays=False):

@@ -16,6 +16,7 @@ from tngp.render import render_rays_uniform as jax_render_rays_uniform
 from tngp_torch.data import make_blob_field, make_synthetic_dataset, sample_rays
 from tngp_torch.ops.sampling import sample_pdf
 from tngp_torch.render import RenderConfig, render_rays_uniform
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H, W = 48, 40
 INTR = np.array([0.9 * W, 0.9 * W, W / 2, H / 2], np.float32)

@@ -16,6 +16,7 @@ _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|tngp)(?:[.\s,]|$)", 
 
 
 def test_importing_every_module_loads_no_jax():
+    """Every module of `tngp_torch`, `tngp_torch.diagnostics` included."""
     code = (
         "import importlib, pkgutil, sys, tngp_torch\n"
         "for m in pkgutil.walk_packages(tngp_torch.__path__, 'tngp_torch.'):\n"
@@ -32,6 +33,7 @@ def test_importing_every_module_loads_no_jax():
 def test_no_source_imports_jax_or_tngp():
     files = sorted((ROOT / "tngp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert any(f.parent.name == "diagnostics" for f in files)
     offenders = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
     assert _FORBIDDEN.search("from tngp.ops import x\n")
@@ -46,7 +48,7 @@ def test_every_kernel_is_registered_with_its_source():
     from tngp_torch.kernels import KERNELS
 
     assert set(KERNELS) == {"scatter_add", "bin_ranks", "window_encode_fwd",
-                            "window_encode_bwd"}
+                            "window_encode_bwd", "window_encode_dx", "int_mul_probe"}
     for info in KERNELS.values():
         assert (ROOT / info.source).is_file()
         path, line = info.replaces.split(":")
@@ -63,15 +65,21 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version reached with a CUDA tensor")
 
+    from tngp_torch.kernels import int_mul
+
     for mod, name in ((scatter, "scatter_add_plain"), (window_encoder, "bin_ranks_plain"),
                       (window_encoder, "window_encode_fwd_plain"),
-                      (window_encoder, "window_encode_bwd_plain")):
+                      (window_encoder, "window_encode_bwd_plain"),
+                      (window_encoder, "window_encode_dx_plain"),
+                      (int_mul, "int_mul_hash_plain")):
         monkeypatch.setattr(mod, name, boom)
     spec = WindowSpec.create(num_levels=2, log2_hashmap_size=15)
-    x = torch.rand(3, 1000, device="cuda")
+    x = torch.rand(3, 1000, device="cuda").requires_grad_(True)
     table = spec.init_table_win(device="cuda").requires_grad_(True)
-    out = window_encoder.window_encode_binned(x, table, spec)
+    out = window_encoder.window_encode_binned(x, table, spec, input_grads=True)
     assert out.shape == (4, 1000) and out.is_cuda
     out.sum().backward()
     assert table.grad.shape == table.shape and table.grad.is_cuda
+    assert x.grad.shape == x.shape and x.grad.is_cuda
+    assert int_mul.int_mul_hash(torch.arange(64, dtype=torch.int32, device="cuda")).is_cuda
     torch.cuda.synchronize()

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+bin ranks, the encoder forward, table gradient and input gradient (inside
+and outside the unit cube), scatter-add, the hash-product probe, and a small
+train step through the kernels against the plain path.
 
 This file imports no JAX, so it runs on a machine with a card and without
 JAX:  python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -95,6 +98,91 @@ def test_window_encoder_backward_matches_plain(cuda, interpolation, crowd):
     assert bool(((got.double() - plain.double()).abs() <= tol).all())
     assert bool(((got.double() - oracle.double()).abs() <= tol).all())
     assert bool(((got == 0) == (plain == 0)).all()) and float(got.abs().max()) > 0.1
+
+
+def _sorted_inputs(x, g, spec, cuda):
+    """(xyz4, wob, dest, g_sorted) as `window_encode_binned` makes them."""
+    M = x.shape[1]
+    dest, tob = kw.bin_dest(x)
+    M_pad = kw.padded_size(M, kw.DEFAULT_BLOCK)
+    payload = torch.cat([x, torch.ones((1, M), device=cuda)]).T.contiguous()
+    return (ks.scatter_add(dest, payload, M_pad), kw._wob_local(spec, tob), dest,
+            ks.scatter_add(dest, g.T.contiguous(), M_pad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.06, 1.06)])
+def test_input_gradient_kernel_matches_plain(cuda, interpolation, lo, hi):
+    """Through autograd (`input_grads=True`) against the plain version on
+    the same sorted inputs.  Both form the same L*C f32 products g * d per
+    sample and dimension (d bit for bit: the same bf16 roundings, corners
+    summed in order); the kernel adds them in (level, channel) order, the
+    plain version in torch's, so each entry is within 2 (L*C) 2^-24
+    sum|g * d|.  x01 in [-0.06, 1.06] puts dense corners outside the window."""
+    spec = wt.WindowSpec.create(**SPEC_KW, interpolation=interpolation)
+    rng = np.random.default_rng(7)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(lo, hi, (3, M)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    win = torch.from_numpy(rng.normal(
+        size=(spec.n_windows, spec.level_dim, 128, 64)).astype(np.float32)).to(cuda)
+    xg = x.clone().requires_grad_(True)
+    (kw.window_encode_binned(xg, win, spec, input_grads=True) * g).sum().backward()
+    xyz4, wob, dest, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    plain = kw.window_encode_dx_plain(xyz4, wob, win, g_sorted, spec, kw.DEFAULT_BLOCK)
+    d = kw.dx_features(xyz4, wob, win, spec, kw.DEFAULT_BLOCK)
+    sabs = (g_sorted.T[None].abs() * d.abs()).sum(1)
+    tol = 2 * spec.output_dim * 2.0**-24 * sabs.double()
+    err = (xg.grad.double() - plain[:, dest].double()).abs()
+    assert bool((err <= tol[:, dest]).all()), float(err.max())
+    assert float(plain.abs().max()) > 1.0
+    # padding slots of the kernel's sorted output are zero
+    gx_sorted = kw.window_encode_dx(xyz4, wob, win, g_sorted, spec, kw.DEFAULT_BLOCK)
+    pad = xyz4[:, 3] == 0
+    assert bool(pad.any()) and bool((gx_sorted[:, pad] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])
+def test_out_of_range_samples_forward_and_backward_match_plain(cuda, interpolation):
+    """Samples with x01 in [-0.06, 1.06]: dense corners outside the window
+    contribute nothing in the kernels as in the plain versions (forward to
+    the corner-sum order, the table gradient to twice the reordering bound;
+    the canonical oracle too, which applies the same rule)."""
+    spec = wt.WindowSpec.create(**SPEC_KW, interpolation=interpolation)
+    rng = np.random.default_rng(11)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(-0.06, 1.06, (3, M)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(
+        rng.normal(size=(spec.total_rows, spec.level_dim)).astype(np.float32)).to(cuda)
+    win = wt.window_view(table, spec).contiguous().requires_grad_(True)
+    out = kw.window_encode_binned(x, win, spec)
+    want = wt.window_encode_ref(x, table, spec, emulate_bf16=True)
+    torch.testing.assert_close(out.detach(), want, rtol=1e-5, atol=5e-6)
+    (out * g).sum().backward()
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    plain = kw.window_encode_bwd_plain(xyz4, wob, g_sorted, spec, kw.DEFAULT_BLOCK)
+    sabs = kw.window_encode_bwd_plain(xyz4, wob, g_sorted.abs(), spec, kw.DEFAULT_BLOCK)
+    n = torch.zeros(plain.numel(), device=cuda)
+    for l in range(spec.num_levels):
+        addr = kw.sorted_corner_addresses(xyz4, wob, spec, kw.DEFAULT_BLOCK, l)[0]
+        n.index_add_(0, addr.reshape(-1), (xyz4[:, 3] > 0).expand(8, -1).reshape(-1).float())
+    n = n.reshape(spec.n_windows, spec.level_dim, -1)[:, :1].expand(
+        -1, spec.level_dim, -1).reshape(plain.shape)
+    tol = 2.0 * torch.clamp(n - 1, min=0).double() * 2.0**-24 * sabs.double()
+    assert bool(((win.grad.double() - plain.double()).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_int_mul_probe_exact(cuda):
+    from tngp_torch.kernels.int_mul import int_mul_hash, int_mul_hash_plain
+
+    x = torch.arange(1 << 13, dtype=torch.int32, device=cuda).reshape(8, -1)
+    x = torch.cat([x, torch.tensor([[-1, -5000, 2**31 - 1, -(2**31)] * 256],
+                                   dtype=torch.int32, device=cuda)])
+    assert torch.equal(int_mul_hash(x), int_mul_hash_plain(x))
 
 
 @pytest.mark.gpu

@@ -19,6 +19,7 @@ from tngp_torch.data.synthetic import orbit_poses
 from tngp_torch.ops import grid_utils as tgu
 from tngp_torch.ops import march as tm
 from tngp_torch.ops.rays import near_far_from_aabb
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H = 32
 AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)

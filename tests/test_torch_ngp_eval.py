@@ -20,6 +20,7 @@ from tngp.render import render_rays_eval as jax_render_rays_eval
 from tngp_torch.convert import ngp_state_dict_from_flax
 from tngp_torch.models import NGPNetwork
 from tngp_torch.render import FieldFns, RenderConfig, render_rays_eval
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NET_KW = dict(num_levels=4, log2_hashmap_size=15, base_resolution=16)
 

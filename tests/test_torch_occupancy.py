@@ -17,6 +17,7 @@ from tngp.render import occupancy as jocc
 from tngp_torch.convert import occupancy_grid_from_arrays
 from tngp_torch.data.synthetic import make_blob_field
 from tngp_torch.render import occupancy as tocc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H = 32
 H3 = H**3

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from tngp_torch.kernels.scatter import scatter_add, scatter_add_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _jax_scatter(idx, vals, rows):

@@ -35,6 +35,7 @@ from torch_train_helpers import (
     scene_inputs,
     torch_loss,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

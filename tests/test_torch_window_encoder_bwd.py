@@ -24,6 +24,7 @@ from tngp.kernels.window_encoder import window_encode_binned as jax_binned
 from tngp.ops.window_table import WindowSpec as JaxWindowSpec
 from tngp_torch.kernels import window_encoder as wk
 from tngp_torch.ops import window_table as wt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPEC_KW = dict(num_levels=4, level_dim=2, base_resolution=4, per_level_scale=2.0,
                log2_hashmap_size=15)

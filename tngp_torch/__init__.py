@@ -8,7 +8,10 @@ plain PyTorch version beside it: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.
 
 Ported so far: the instant-NGP eval render (`render.render_rays_eval`) and
-training step (`render.render_rays_train`, `train.Trainer`).
+training step (`render.render_rays_train`, `train.Trainer`), and D-NeRF
+training on the window encoder (`models.DNeRFNetwork`,
+`train.DNeRFTrainer`); `diagnostics.device_parity` holds the kernels against
+independent plain versions on the card.
 """
 
 __version__ = "0.1.0"

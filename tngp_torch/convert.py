@@ -10,28 +10,26 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .render.occupancy import OccupancyGrid
+from .render.occupancy import OccupancyGrid, TimeOccupancyGrid
 
 
 def ngp_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """{'params': {'encoder': {'embeddings': [NW, C, 128, 64]},
     'sigma_net': {'dense_i': [in, out]}, 'color_net': {...}}} (the outer
-    'params' level is optional) -> {'encoder.embeddings': ..., ...}."""
+    'params' level is optional) -> {'encoder.embeddings': ..., ...}.  Every
+    MLP of the tree maps the same way, so D-NeRF's `deform_net` comes along
+    (`DNeRFNetwork` has the NGP names plus `deform_net.dense_i`)."""
     tree = params.get("params", params)
-    out = {
-        "encoder.embeddings": torch.from_numpy(
-            np.array(tree["encoder"]["embeddings"], dtype=np.float32)
-        )
-    }
-    for net in ("sigma_net", "color_net"):
-        for name, kernel in tree[net].items():
-            out[f"{net}.{name}"] = torch.from_numpy(np.array(kernel, dtype=np.float32))
+    out = {}
+    for net, leaves in tree.items():
+        for name, value in leaves.items():
+            out[f"{net}.{name}"] = torch.from_numpy(np.array(value, dtype=np.float32))
     return out
 
 
 def flax_params_from_ngp_state_dict(state_dict: Mapping) -> dict:
-    """The inverse of `ngp_state_dict_from_flax`: {'params': {...}} with
-    numpy leaves."""
+    """The inverse of `ngp_state_dict_from_flax` (NGP and D-NeRF names):
+    {'params': {...}} with numpy leaves."""
     tree: dict = {}
     for key, value in state_dict.items():
         net, name = key.split(".")
@@ -65,3 +63,11 @@ def occupancy_grid_from_arrays(density_grid, bitfield, mean_density, iter_densit
         mean_density=torch.as_tensor(np.array(mean_density, np.float32), device=device),
         iter_density=torch.as_tensor(np.array(iter_density, np.int64), device=device),
     )
+
+
+def time_occupancy_grid_from_arrays(density_grid, bitfield, mean_density, iter_density,
+                                    device="cuda") -> TimeOccupancyGrid:
+    """A `TimeOccupancyGrid` of the JAX package, given as numpy arrays, as
+    the port's."""
+    return TimeOccupancyGrid(**vars(occupancy_grid_from_arrays(
+        density_grid, bitfield, mean_density, iter_density, device)))

@@ -1,8 +1,16 @@
 from .provider import NeRFDataset
 from .rays import full_image_rays, sample_rays
-from .synthetic import make_blob_field, make_synthetic_dataset, orbit_poses, render_gt_images
+from .synthetic import (
+    make_blob_field,
+    make_synthetic_dataset,
+    make_synthetic_dynamic_dataset,
+    make_time_blob_field,
+    orbit_poses,
+    render_gt_images,
+)
 
 __all__ = [
     "NeRFDataset", "full_image_rays", "sample_rays", "make_blob_field",
-    "make_synthetic_dataset", "orbit_poses", "render_gt_images",
+    "make_synthetic_dataset", "make_synthetic_dynamic_dataset", "make_time_blob_field",
+    "orbit_poses", "render_gt_images",
 ]

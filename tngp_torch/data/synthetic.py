@@ -1,8 +1,10 @@
 """Synthetic analytic scene — the port of `tngp/data/synthetic.py`
 `make_blob_field` (gaussian blobs with per-blob albedo; the same numpy draws
-as the JAX package for one seed), `orbit_poses`, `render_gt_images` and
-`make_synthetic_dataset`.  Ground truth comes from dense uniform quadrature
-through the analytic field, independent of the occupancy-grid march."""
+as the JAX package for one seed), `orbit_poses`, `render_gt_images`,
+`make_synthetic_dataset`, and the dynamic scene of D-NeRF
+(`make_time_blob_field`, `make_synthetic_dynamic_dataset`).  Ground truth
+comes from dense uniform quadrature through the analytic field, independent
+of the occupancy-grid march."""
 
 from __future__ import annotations
 
@@ -112,4 +114,51 @@ def make_synthetic_dataset(
                               device=device)
     return NeRFDataset(
         poses=poses, intrinsics=intrinsics, H=H, W=W, images=images.astype(np.float32)
+    )
+
+
+def make_time_blob_field(t: float, seed: int = 0, n_blobs: int = 4, device="cuda") -> FieldFns:
+    """Analytic dynamic scene: the blobs of `seed` rotated about the y axis
+    by 0.6 t radians (the field is evaluated at rot @ x)."""
+    base = make_blob_field(seed, n_blobs, device=device)
+    ang = 0.6 * float(t)
+    c, s = np.cos(ang), np.sin(ang)
+    rot = torch.tensor([[c, 0, -s], [0, 1, 0], [s, 0, c]], dtype=torch.float32, device=device)
+
+    def rotate(x_cf):
+        # written out: no TF32 matmul on the positions
+        return rot[:, 0:1] * x_cf[0] + rot[:, 1:2] * x_cf[1] + rot[:, 2:3] * x_cf[2]
+
+    def density(params, x_cf):
+        return base.density(params, rotate(x_cf))
+
+    def sigma_rgb(params, x_cf, d_cf):
+        return base.sigma_rgb(params, rotate(x_cf), d_cf)
+
+    return FieldFns(sigma_rgb=sigma_rgb, density=density)
+
+
+def make_synthetic_dynamic_dataset(
+    n_frames: int = 12,
+    H: int = 64,
+    W: int = 64,
+    seed: int = 0,
+    bound: float = 1.0,
+    num_steps: int = 256,
+    device="cuda",
+) -> NeRFDataset:
+    """Orbit views of the dynamic blob scene, frame i at time
+    linspace(0, 1, n_frames)[i], rendered on `device`; `times` [B] float32."""
+    poses = orbit_poses(n_frames)
+    times = np.linspace(0.0, 1.0, n_frames).astype(np.float32)
+    focal = 0.9 * W
+    intrinsics = np.array([focal, focal, W / 2, H / 2], np.float32)
+    images = [
+        render_gt_images(make_time_blob_field(float(t), seed, device=device), pose[None],
+                         intrinsics, H, W, bound, num_steps, device=device)[0]
+        for pose, t in zip(poses, times)
+    ]
+    return NeRFDataset(
+        poses=poses, intrinsics=intrinsics, H=H, W=W,
+        images=np.stack(images).astype(np.float32), times=times,
     )

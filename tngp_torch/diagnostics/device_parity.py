@@ -1,0 +1,171 @@
+"""Device parity of the window encoder's kernels — the port of
+`scripts/check_device_parity.py`.
+
+    python -m tngp_torch.diagnostics.device_parity [--seed 0]
+
+Runs on the card (the CPU only with `main(device="cpu")`, where every
+wrapper takes its plain version) and holds each kernel against an
+independent plain computation on the flagship window spec (16 levels, 2^19
+rows, desired resolution 2048) with 65,536 uniform samples plus 1,024 that
+straddle a tile boundary:
+
+  int-mul    the hash-product kernel on arange(8192) as [8, 1024]: exact;
+  forward    the encoder-forward kernel (through `window_encode_binned`) on
+             an N(0, 1e-2) table against `window_encode_ref(emulate_bf16)`;
+  row map    the same on a value-coded table (channel 0 holds the lane,
+             channel 1 the hi row of every window), so a wrong row shows as
+             a wrong code;
+  bwd grad   the table-gradient kernel against `window_table_grad_ref`;
+  input grad the input-gradient kernel against its plain version.
+
+Each tolerance is the f32 reordering bound of the sum it checks: two sums of
+the same n terms in two orders differ by at most 2 (n - 1) 2^-24 sum|term|
+(n = 8 corners for the forward; the terms of each table entry for the
+table gradient; the L*C (level, channel) terms of each sample and dimension
+for the input gradient, which the kernel adds in order and the plain
+version in torch's order).  A probe that fails makes `main` return 1; an
+error raises.  The JAX script also checks a trained hard-scene table from
+its msgpack checkpoints; that branch waits for the checkpoint port (ROADMAP
+item 8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from ..kernels import _lib
+from ..kernels import window_encoder as kw
+from ..kernels.int_mul import int_mul_hash, int_mul_hash_plain
+from ..ops import window_table as wt
+
+U = 2.0**-24  # f32 unit roundoff
+
+
+def _report(tag: str, err: torch.Tensor, tol: torch.Tensor) -> bool:
+    bad = int((err > tol).sum())
+    print(f"[{tag}] max|err| {float(err.max()):.3e}, worst err/bound "
+          f"{float((err / tol.clamp(min=1e-30)).max()):.3f}, over the bound {bad}/{err.numel()}",
+          flush=True)
+    return bad == 0
+
+
+def int_mul_probe(device) -> bool:
+    x = torch.arange(1 << 13, dtype=torch.int32, device=device).reshape(8, -1)
+    got, want = int_mul_hash(x), int_mul_hash_plain(x)
+    bad = int((got != want).sum())
+    print(f"[int-mul probe] mismatches: {bad}/{x.numel()}", flush=True)
+    return bad == 0
+
+
+def forward_probe(spec, table_win, x01, tag="forward") -> bool:
+    """Kernel forward vs the canonical plain encoder: each output is a sum of
+    8 bf16-exact corner products, so two orders are within 14 2^-24 of the
+    sum of their magnitudes (the encode of |table|: weights are >= 0)."""
+    canon = wt.window_unview(table_win, spec)
+    got = kw.window_encode_binned(x01, table_win, spec)
+    want = wt.window_encode_ref(x01, canon, spec, emulate_bf16=True)
+    sabs = wt.window_encode_ref(x01, canon.abs(), spec, emulate_bf16=True)
+    return _report(tag, (got - want).abs(), 14 * U * sabs)
+
+
+def row_mapping_probe(spec, x01) -> bool:
+    """Value-coded windows: channel 0 of row (lo, hi) holds lo, channel 1
+    holds hi (both exact in bf16), in every window."""
+    lane = torch.arange(128, dtype=torch.float32, device=x01.device)[:, None].expand(128, 64)
+    hi = torch.arange(64, dtype=torch.float32, device=x01.device)[None, :].expand(128, 64)
+    code = torch.stack([lane, hi])  # [2, 128, 64]
+    tab = code[None].expand(spec.n_windows, 2, 128, 64).contiguous()
+    return forward_probe(spec, tab, x01, "row map")
+
+
+def _term_counts(x01, spec) -> torch.Tensor:
+    """Number of corner contributions to each table entry (window layout)."""
+    n = torch.zeros(spec.total_rows, device=x01.device)
+    tile = wt.sample_tiles(x01)
+    for level in range(spec.num_levels):
+        rows, _ = wt._corner_rows(spec, level, x01)
+        twin = torch.as_tensor(spec.tile_window(level), device=x01.device).long()
+        w_id = spec.win_offsets[level] + twin[tile]
+        n.index_add_(0, (w_id[None] * wt.WIN_ROWS + rows).reshape(-1),
+                     torch.ones(rows.numel(), device=x01.device))
+    return wt.window_view(n[:, None].expand(-1, spec.level_dim), spec)
+
+
+def _cotangent(spec, M, mod, device):
+    c = torch.arange(M * spec.output_dim, dtype=torch.float32, device=device)
+    return (c.reshape(spec.output_dim, M) % mod) - (mod // 2)
+
+
+def bwd_probe(spec, table_win, x01) -> bool:
+    """Table gradient through the kernel vs the canonical plain gradient:
+    the same bf16-rounded terms per entry in another order."""
+    g = _cotangent(spec, x01.shape[1], 7, x01.device)
+    tab = table_win.clone().requires_grad_(True)
+    (kw.window_encode_binned(x01, tab, spec) * g).sum().backward()
+    want = wt.window_view(wt.window_table_grad_ref(x01, g, spec, emulate_bf16=True), spec)
+    sabs = wt.window_view(wt.window_table_grad_ref(x01, g.abs(), spec, emulate_bf16=True), spec)
+    n = _term_counts(x01, spec)
+    return _report("bwd grad", (tab.grad - want).abs(),
+                   2 * (n - 1).clamp(min=0) * U * sabs)
+
+
+def input_grad_probe(spec, table_win, x01, block: int = kw.DEFAULT_BLOCK) -> bool:
+    """Input gradient through the kernel vs its plain version on the same
+    sorted inputs: per sample and dimension the same L*C f32 products
+    g * d, summed in two orders."""
+    g = _cotangent(spec, x01.shape[1], 5, x01.device)
+    x = x01.clone().requires_grad_(True)
+    (kw.window_encode_binned(x, table_win, spec, block, input_grads=True) * g).sum().backward()
+    dest, tob = kw.bin_dest(x01, block)
+    M, M_pad = x01.shape[1], kw.padded_size(x01.shape[1], block)
+    xyz4 = kw.scatter_add(dest, torch.cat([x01, torch.ones_like(x01[:1])]).T.contiguous(),
+                          M_pad)
+    wob = kw._wob_local(spec, tob)
+    g_sorted = kw.scatter_add(dest, g.T.contiguous(), M_pad)
+    with _lib.plain_versions():
+        want = kw.window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block)
+        d = kw.dx_features(xyz4, wob, table_win, spec, block)
+    sabs = (g_sorted.T[None].abs() * d.abs()).sum(1)
+    tol = 2 * spec.output_dim * U * sabs
+    return _report("input grad", (x.grad - want[:, dest]).abs(), tol[:, dest])
+
+
+def probe_inputs(spec, n: int, seed: int, device):
+    """N(0, 1e-2) table in the window layout and n uniform samples plus n/64
+    that straddle the tile boundary x = 1/4, from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn((spec.n_windows, spec.level_dim, 128, 64), generator=gen) * 1e-2
+    x01 = torch.rand((3, n), generator=gen)
+    xb = torch.linspace(0.249999, 0.250001, max(n // 64, 2))
+    x01 = torch.cat([x01, torch.stack([xb, torch.full_like(xb, 0.6),
+                                       torch.full_like(xb, 0.3)])], dim=1)
+    return table.to(device), x01.to(device)
+
+
+def run_probes(spec, n: int = 65536, seed: int = 0, device="cuda") -> bool:
+    table, x01 = probe_inputs(spec, n, seed, device)
+    ok = [int_mul_probe(device), forward_probe(spec, table, x01),
+          row_mapping_probe(spec, x01), bwd_probe(spec, table, x01),
+          input_grad_probe(spec, table, x01)]
+    return all(ok)
+
+
+def main(device="cuda", seed: int = 0) -> int:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device parity needs a CUDA card")
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"# device: {name}", flush=True)
+    spec = wt.WindowSpec.create(desired_resolution=2048)  # the flagship encoder
+    ok = run_probes(spec, seed=seed, device=device)
+    print(f"# PARITY {'OK' if ok else 'FAIL'}", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    sys.exit(main(seed=ap.parse_args().seed))

@@ -1,3 +1,3 @@
-from .modules import SHEncoder, WindowGridEncoder, get_encoder
+from .modules import FreqEncoder, SHEncoder, WindowGridEncoder, get_encoder
 
-__all__ = ["SHEncoder", "WindowGridEncoder", "get_encoder"]
+__all__ = ["FreqEncoder", "SHEncoder", "WindowGridEncoder", "get_encoder"]

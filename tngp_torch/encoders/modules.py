@@ -1,6 +1,9 @@
 """Encoder modules and the `get_encoder` factory — the port of the names of
-`tngp/encoders/modules.py` that the NGP paths use: `hashgrid_window`
-(the windowed grid encoder) and the spherical-harmonics direction encoder.
+`tngp/encoders/modules.py` that the NGP and D-NeRF paths use:
+`hashgrid_window` (the windowed grid encoder, with position gradients on
+request), the spherical-harmonics direction encoder and the frequency
+encoder.  `hashgrid` / `tiledgrid` (the golden hash grid) wait for ROADMAP
+item 11.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ import torch
 from torch import nn
 
 from ..kernels.window_encoder import DEFAULT_BLOCK, window_encode_binned
+from ..ops.freq import freq_encode_cf, freq_output_dim
 from ..ops.sh import sh_encode_cf
 from ..ops.window_table import WindowSpec
 
@@ -19,13 +23,16 @@ class WindowGridEncoder(nn.Module):
     """Multiresolution grid encoder over the windowed table layout.  The
     trainable parameter `embeddings` is the window layout [n_windows, C,
     128, 64]; `cf` runs the binned path (kernels on the card, plain versions
-    on CPU), whose backward gives the table gradient and none for positions."""
+    on CPU), whose backward gives the table gradient and, with
+    `input_grads=True` (an encoder whose input is itself a network output,
+    as D-NeRF's canonical encode at x + dx), the positions' gradient."""
 
     def __init__(self, spec: WindowSpec, block: int = DEFAULT_BLOCK, device="cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, input_grads: bool = False):
         super().__init__()
         self.spec = spec
         self.block = block
+        self.input_grads = input_grads
         self.embeddings = nn.Parameter(spec.init_table_win(generator, device))
 
     @property
@@ -35,7 +42,8 @@ class WindowGridEncoder(nn.Module):
     def cf(self, x_cf: torch.Tensor, bound: float = 1.0) -> torch.Tensor:
         """[3, B] in [-bound, bound] -> [L*C, B]."""
         x01 = (x_cf + bound) / (2.0 * bound)
-        return window_encode_binned(x01, self.embeddings, self.spec, self.block)
+        return window_encode_binned(x01, self.embeddings, self.spec, self.block,
+                                    self.input_grads)
 
 
 class SHEncoder(nn.Module):
@@ -51,9 +59,27 @@ class SHEncoder(nn.Module):
         return sh_encode_cf(d_cf, self.degree)
 
 
+class FreqEncoder(nn.Module):
+    """Frequency encoding with `degree` octaves (bands 2^0 .. 2^(degree-1))."""
+
+    def __init__(self, degree: int = 6, input_dim: int = 3):
+        super().__init__()
+        self.degree = degree
+        self.input_dim = input_dim
+
+    @property
+    def output_dim(self) -> int:
+        return freq_output_dim(self.input_dim, self.degree)
+
+    def cf(self, x_cf: torch.Tensor) -> torch.Tensor:
+        """[D, B] -> [D * (1 + 2 * degree), B]."""
+        return freq_encode_cf(x_cf, self.degree)
+
+
 def get_encoder(
     encoding: str,
     input_dim: int = 3,
+    multires: int = 6,
     degree: int = 4,
     num_levels: int = 16,
     level_dim: int = 2,
@@ -64,8 +90,13 @@ def get_encoder(
     interpolation: str = "linear",
     device="cuda",
     generator: torch.Generator | None = None,
+    input_grads: bool = False,
 ) -> Tuple[nn.Module, int]:
-    """Name -> (module, output_dim) for the encoders this port has."""
+    """Name -> (module, output_dim) for the encoders this port has.
+    `input_grads` asks the window encoder for position gradients."""
+    if encoding == "frequency":
+        enc = FreqEncoder(degree=multires, input_dim=input_dim)
+        return enc, enc.output_dim
     if encoding in ("sphere_harmonics", "spherical_harmonics", "sh"):
         enc = SHEncoder(degree=degree)
         return enc, enc.output_dim
@@ -81,6 +112,11 @@ def get_encoder(
             align_corners=align_corners,
             interpolation=interpolation,
         )
-        enc = WindowGridEncoder(spec, device=device, generator=generator)
+        enc = WindowGridEncoder(spec, device=device, generator=generator,
+                                input_grads=input_grads)
         return enc, spec.output_dim
+    if encoding in ("hashgrid", "tiledgrid"):
+        raise NotImplementedError(
+            f"encoder '{encoding}' (the golden hash grid) is not ported yet: ROADMAP item 11; "
+            "use 'hashgrid_window'")
     raise NotImplementedError(f"encoder '{encoding}' is not ported yet")

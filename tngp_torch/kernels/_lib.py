@@ -59,6 +59,14 @@ _SIGNATURES = {
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
           _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
           _c.c_float, _c.c_int, _c.c_void_p]),
+        ("tngp_window_encode_dx", _c.c_int,
+         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+          _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+          _c.c_float, _c.c_int, _c.c_void_p]),
+    ],
+    "int_mul_probe.cu": [
+        ("tngp_int_mul_probe", _c.c_int,
+         [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p]),
     ],
 }
 SOURCES = tuple(_SIGNATURES)

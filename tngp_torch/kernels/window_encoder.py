@@ -13,15 +13,25 @@ Forward pipeline, as `_binned_fwd` does it:
      (the window-encoder forward kernel);
   4. unsort with a gather on `dest`.
 
-Backward, as `_binned_bwd` with `input_grads=False` (the NGP default): sort
-the cotangent rows to `dest` with the same scatter-add, then add every
-corner's `bf16(w * g)` into the table gradient (the window-encoder backward
-kernel).  Positions get no gradient.
+Backward, as `_binned_bwd`: sort the cotangent rows to `dest` with the same
+scatter-add, then add every corner's `bf16(w * g)` into the table gradient
+(the window-encoder backward kernel).  With `input_grads=True` (D-NeRF, whose
+canonical encode happens at x + dx) positions get their gradient too: per
+sorted sample the derivative-weight encode contracted with its cotangents
+(the input-gradient kernel, which replaces the JAX package's three
+`deriv=0,1,2` forward passes and their contraction), then unsorted.  Without
+it positions get none, as the JAX package's default.
+
+A dense level's corner row outside the window (a sample outside the unit
+cube) contributes nothing in all three passes, as in the TPU kernels
+(`ops/window_table.py` `_corner_rows`).
 
 Kernels (CUDA sources in `tngp_torch/csrc/`; each header says what bounds it):
   `bin_ranks`          -> bin_rank.cu        (replaces `_make_bin_rank_kernel`)
   `window_encode_fwd`  -> window_encoder.cu  (replaces `_make_fwd_kernel`)
   `window_encode_bwd`  -> window_encoder.cu  (replaces `_make_bwd_kernel`)
+  `window_encode_dx`   -> window_encoder.cu  (replaces `_make_fwd_kernel`
+                          with `deriv=0,1,2` and the contraction after it)
 Each has its plain PyTorch version beside it (`*_plain`).
 """
 
@@ -55,6 +65,9 @@ WINDOW_FWD = _lib.register(
 )
 WINDOW_BWD = _lib.register(
     "window_encode_bwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:396"
+)
+WINDOW_DX = _lib.register(
+    "window_encode_dx", "window_encoder.cu", "tngp/kernels/window_encoder.py:633"
 )
 
 
@@ -168,18 +181,21 @@ def _wob_local(spec: WindowSpec, tob: torch.Tensor) -> torch.Tensor:
     return twin[:, tob].to(torch.int32).contiguous()
 
 
-def sorted_corner_addresses(xyz4, wob, spec: WindowSpec, block: int, level: int):
+def sorted_corner_addresses(xyz4, wob, spec: WindowSpec, block: int, level: int,
+                            deriv: bool = False):
     """Where the 8 corners of every tile-sorted sample live at `level`:
     (addr [8, M_pad] int64 flat index of channel 0 into the window-layout
     table, channel c is `addr + c * 8192`; w [8, M_pad] f32 interpolation
-    weights with the validity channel folded in)."""
+    weights with the validity channel folded in) and, with `deriv`, the
+    derivative weights [3, 8, M_pad] (validity folded in) as a third entry."""
     M_pad = xyz4.shape[0]
-    rows, ws = _corner_rows(spec, level, xyz4[:, :3].T)  # [8, M_pad]
-    rows = rows.clamp(0, WIN_ROWS - 1)
+    geo = _corner_rows(spec, level, xyz4[:, :3].T, deriv=deriv)
+    rows, valid = geo[0], xyz4[:, 3]
     blk = torch.arange(M_pad, device=xyz4.device) // block
     win = spec.win_offsets[level] + wob[level].long()[blk]  # [M_pad]
     off = (rows & (WIN_LANES - 1)) * WIN_HI + (rows >> 7)  # [8, M_pad]
-    return win * (spec.level_dim * WIN_ROWS) + off, ws * xyz4[:, 3]
+    addr = win * (spec.level_dim * WIN_ROWS) + off
+    return (addr, *(w * valid for w in geo[1:]))
 
 
 def window_encode_fwd_plain(xyz4, wob, table_win, spec: WindowSpec, block: int):
@@ -271,11 +287,69 @@ def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     return gtab
 
 
+def dx_features(xyz4, wob, table_win, spec: WindowSpec, block: int) -> torch.Tensor:
+    """The derivative-weight encode of tile-sorted samples: d [3, L*C, M_pad]
+    f32, d[j] = d features / d x01_j with each corner's table value and
+    derivative weight rounded to bf16 and the 8 products summed in corner
+    order in f32 (the TPU kernel's `deriv=j` value)."""
+    flat = table_win.float().reshape(-1)
+    L, C = spec.num_levels, spec.level_dim
+    d = [[], [], []]
+    for l in range(L):
+        addr, _, dws = sorted_corner_addresses(xyz4, wob, spec, block, l, deriv=True)
+        dws = _bf16_round(dws)  # [3, 8, M_pad]
+        for c in range(C):
+            vals = _bf16_round(flat[addr + c * WIN_ROWS])  # [8, M_pad]
+            for j in range(3):
+                acc = dws[j, 0] * vals[0]
+                for k in range(1, 8):
+                    acc = acc + dws[j, k] * vals[k]
+                d[j].append(acc)
+    return torch.stack([torch.stack(dj) for dj in d])
+
+
+def window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int):
+    """Plain version of the input-gradient kernel.
+
+    xyz4, wob and table_win as the forward; g_sorted [M_pad, L*C] f32 as the
+    backward.  Returns gx [3, M_pad] f32: gx_j = `(g_sorted.T * d[j]).sum(0)`
+    with d = `dx_features(...)`, the JAX package's contraction."""
+    d = dx_features(xyz4, wob, table_win, spec, block)
+    return (g_sorted.float().T[None] * d).sum(1)
+
+
+def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int):
+    """Input gradient over tile-sorted samples (see `window_encode_dx_plain`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    adds each sample's L*C terms in (level, channel) order."""
+    if _lib.use_plain(xyz4):
+        return window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block)
+    L, C = spec.num_levels, spec.level_dim
+    M_pad = xyz4.shape[0]
+    if M_pad % block:
+        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
+    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
+    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
+    _lib.check(table_win, "table_win", torch.float32,
+               (spec.n_windows, C, WIN_LANES, WIN_HI))
+    _lib.check(g_sorted, "g_sorted", torch.float32, (M_pad, L * C))
+    scales, iconst, _ = _level_consts(spec, str(xyz4.device))
+    gx = torch.empty((3, M_pad), dtype=torch.float32, device=xyz4.device)
+    _lib.launch(
+        WINDOW_DX, "tngp_window_encode_dx", xyz4.device,
+        xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(), g_sorted.data_ptr(),
+        scales.data_ptr(), iconst.data_ptr(), gx.data_ptr(),
+        M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
+    )
+    return gx
+
+
 class _WindowEncodeBinned(torch.autograd.Function):
-    """`window_encode_binned` with the table gradient of `_binned_bwd`."""
+    """`window_encode_binned` with the table gradient of `_binned_bwd` and,
+    with `input_grads`, the positions' gradient."""
 
     @staticmethod
-    def forward(ctx, x01_cf, table_win, spec, block):
+    def forward(ctx, x01_cf, table_win, spec, block, input_grads):
         M = x01_cf.shape[1]
         dest, tob = bin_dest(x01_cf, block=block)
         M_pad = padded_size(M, block)
@@ -284,23 +358,29 @@ class _WindowEncodeBinned(torch.autograd.Function):
         ).T.contiguous()  # [M, 4]
         xyz4 = scatter_add(dest, payload, M_pad)  # [M_pad, 4]
         wob = _wob_local(spec, tob)  # [L, NB]
-        feats_sorted = window_encode_fwd(
-            xyz4, wob, table_win.float().contiguous(), spec, block
-        )  # [LC, M_pad]
-        ctx.save_for_backward(xyz4, dest, wob)
-        ctx.spec, ctx.block = spec, block
+        table = table_win.float().contiguous()
+        feats_sorted = window_encode_fwd(xyz4, wob, table, spec, block)  # [LC, M_pad]
+        # the table is kept only for the input gradient
+        ctx.save_for_backward(xyz4, dest, wob, table if input_grads else None)
+        ctx.spec, ctx.block, ctx.input_grads = spec, block, input_grads
         return feats_sorted.index_select(1, dest)  # [LC, M] unsort
 
     @staticmethod
     def backward(ctx, g):
-        if not ctx.needs_input_grad[1]:
-            return None, None, None, None
-        xyz4, dest, wob = ctx.saved_tensors
+        want_x = ctx.input_grads and ctx.needs_input_grad[0]
+        if not (want_x or ctx.needs_input_grad[1]):
+            return None, None, None, None, None
+        xyz4, dest, wob, table = ctx.saved_tensors
         # sort the cotangents the way the inputs were sorted: rows [M, LC]
         # (g may arrive non-contiguous) -> [M_pad, LC], unique indices
         g_sorted = scatter_add(dest, g.float().T.contiguous(), xyz4.shape[0])
-        gtab = window_encode_bwd(xyz4, wob, g_sorted, ctx.spec, ctx.block)
-        return None, gtab, None, None
+        gtab = gx = None
+        if ctx.needs_input_grad[1]:
+            gtab = window_encode_bwd(xyz4, wob, g_sorted, ctx.spec, ctx.block)
+        if want_x:
+            gx_sorted = window_encode_dx(xyz4, wob, table, g_sorted, ctx.spec, ctx.block)
+            gx = gx_sorted.index_select(1, dest)  # [3, M] unsort
+        return gx, gtab, None, None, None
 
 
 def window_encode_binned(
@@ -308,11 +388,13 @@ def window_encode_binned(
     table_win: torch.Tensor,
     spec: WindowSpec,
     block: int = DEFAULT_BLOCK,
+    input_grads: bool = False,
 ) -> torch.Tensor:
     """Windowed grid encode through the binned path.
 
-    x01_cf: [3, M] in [0,1]; table_win: [NW, C, 128, 64].  Returns [L*C, M]
-    f32, level-major, with the bf16 corner numerics of the TPU default.
-    Table gradients flow (in the window layout); positions get none, as the
-    JAX package's default `input_grads=False`."""
-    return _WindowEncodeBinned.apply(x01_cf, table_win, spec, block)
+    x01_cf: [3, M], in [0,1] for NGP (samples outside contribute nothing at
+    the dense levels' out-of-range corners); table_win: [NW, C, 128, 64].
+    Returns [L*C, M] f32, level-major, with the bf16 corner numerics of the
+    TPU default.  Table gradients flow (in the window layout); positions get
+    theirs only with `input_grads=True`, as the JAX package's option."""
+    return _WindowEncodeBinned.apply(x01_cf, table_win, spec, block, input_grads)

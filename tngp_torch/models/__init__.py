@@ -1,4 +1,5 @@
 from .common import MLP
+from .dnerf import DNeRFNetwork
 from .ngp import NGPNetwork
 
-__all__ = ["MLP", "NGPNetwork"]
+__all__ = ["MLP", "DNeRFNetwork", "NGPNetwork"]

@@ -154,34 +154,67 @@ def sample_tiles(x01_cf: torch.Tensor) -> torch.Tensor:
     return (ti[0] * TILES_SIDE + ti[1]) * TILES_SIDE + ti[2]
 
 
-def _corner_rows(spec: WindowSpec, level: int, x01: torch.Tensor):
+def _corner_rows(spec: WindowSpec, level: int, x01: torch.Tensor, deriv: bool = False):
     """Per-corner window rows + interpolation weights at `level`.
 
-    x01: [3, B] in [0,1].  Returns (rows [8, B] int64 in [0, WIN_ROWS) for
-    inputs in [0, 1], weights [8, B] f32).  The hash is uint32 arithmetic;
-    only its low 13 bits survive the mask, so int64 products give the same
-    rows."""
+    x01: [3, B].  Returns (rows [8, B] int64 in [0, WIN_ROWS), weights [8, B]
+    f32) and, with `deriv`, also the derivative weights [3, 8, B]: entry
+    [j, k] is d weight_k / d x01_j as the TPU kernel's `deriv=j` pass builds
+    it (±1 or ±(6 f)(1 - f) of the raw fraction for dimension j, f or 1 - f
+    for the others, in dimension order, times the level's scale).
+
+    A dense level's corner row outside [0, WIN_ROWS) (a sample outside the
+    unit cube) contributes nothing: its weights are 0 and its row is
+    `row & (WIN_ROWS - 1)`, a valid one, as in the TPU kernel, whose one-hot
+    row selection matches no such row.  The hash is uint32 arithmetic; only
+    its low 13 bits survive the mask, so int64 products give the same rows."""
     scale = spec.level_scale(level)
     side = spec.level_side(level)
+    dense = spec.level_dense(level)
     pos = x01.float() * scale + spec.shift
     pg = torch.floor(pos)
-    frac = pos - pg
+    fr = pos - pg
     if spec.interpolation == "smoothstep":
-        frac = frac * frac * (3.0 - 2.0 * frac)
+        frac = fr * fr * (3.0 - 2.0 * fr)
+        dfrac = 6.0 * fr * (1.0 - fr)
+    else:
+        frac, dfrac = fr, None
     pgi = pg.long()
-    rows, ws = [], []
+    rows, ws, dws = [], [], []
     for k in range(8):
-        cc = [pgi[d] + ((k >> d) & 1) for d in range(3)]
-        if spec.level_dense(level):
+        bits = [(k >> d) & 1 for d in range(3)]
+        cc = [pgi[d] + bits[d] for d in range(3)]
+        if dense:
             row = cc[0] + cc[1] * side + cc[2] * (side * side)
+            in_range = (row >= 0) & (row < WIN_ROWS)
         else:
-            row = (cc[0] ^ (cc[1] * P1) ^ (cc[2] * P2)) & (WIN_ROWS - 1)
-        rows.append(row)
+            row = cc[0] ^ (cc[1] * P1) ^ (cc[2] * P2)
+            in_range = None
+        rows.append(row & (WIN_ROWS - 1))
         w = torch.ones_like(frac[0])
         for d in range(3):
-            w = w * (frac[d] if (k >> d) & 1 else 1.0 - frac[d])
+            w = w * (frac[d] if bits[d] else 1.0 - frac[d])
         ws.append(w)
-    return torch.stack(rows), torch.stack(ws)
+        if deriv:
+            for j in range(3):
+                v = torch.ones_like(frac[0])
+                for d in range(3):
+                    if d != j:
+                        v = v * (frac[d] if bits[d] else 1.0 - frac[d])
+                    elif dfrac is not None:
+                        v = v * (dfrac[d] if bits[d] else -dfrac[d])
+                    elif not bits[d]:
+                        v = -v
+                dws.append(v * scale)
+        if in_range is not None:
+            ws[-1] = torch.where(in_range, ws[-1], 0.0)
+            if deriv:
+                dws[-3:] = [torch.where(in_range, v, 0.0) for v in dws[-3:]]
+    rows, ws = torch.stack(rows), torch.stack(ws)
+    if not deriv:
+        return rows, ws
+    B = x01.shape[1]
+    return rows, ws, torch.stack(dws).reshape(8, 3, B).transpose(0, 1)
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:

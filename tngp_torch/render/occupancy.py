@@ -1,11 +1,13 @@
 """Occupancy (density) grid maintenance — the port of
 `tngp/render/occupancy.py`: `create`, `mark_untrained_grid`,
-`update_density_grid` (`full`, and the partial modes `resample` and `slab`)
-and the occupied-cell inverse-CDF sampler.  Cells are in linear order
+`update_density_grid` (`full`, and the partial modes `resample` and `slab`),
+the occupied-cell inverse-CDF sampler, and D-NeRF's time-extended grid
+(`TimeOccupancyGrid`, `create_time`, `time_slice_index`,
+`update_time_density_grid`).  Cells are in linear order
 (cell = (ix*H + iy)*H + iz).
 
-The random draws of an update (`GridDraws`) are separate from the update
-itself (`update_density_grid_from_draws`), so that a test can feed this
+The random draws of an update (`GridDraws`, `TimeSliceDraws`) are separate
+from the update itself (`*_from_draws`), so that a test can feed this
 package and the JAX package the same ones.
 
 Duplicate cells in the `resample` write.  `rand_idx ++ occ_idx` may name a
@@ -20,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops.grid_utils import packbits
@@ -213,6 +216,134 @@ def update_density_grid(state: OccupancyGrid, params, generator: torch.Generator
                              state.density_grid.device)
     return update_density_grid_from_draws(state, params, draws, grid_size=grid_size,
                                           full=full, partial_mode=partial_mode, **kw)
+
+
+@dataclass
+class TimeOccupancyGrid:
+    """Time-extended density grid for D-NeRF: density_grid [T, CAS, H^3],
+    bitfield [T, CAS * H^3 // 8]; a render at time t marches through
+    bitfield[time_slice_index(t, T)]."""
+
+    density_grid: torch.Tensor
+    bitfield: torch.Tensor
+    mean_density: torch.Tensor
+    iter_density: torch.Tensor
+
+
+def create_time(time_size: int, cascades: int, grid_size: int,
+                device="cuda") -> TimeOccupancyGrid:
+    H3 = grid_size**3
+    return TimeOccupancyGrid(
+        density_grid=torch.zeros((time_size, cascades, H3), dtype=torch.float32,
+                                 device=device),
+        bitfield=torch.zeros((time_size, cascades * H3 // 8), dtype=torch.uint8,
+                             device=device),
+        mean_density=torch.zeros((), dtype=torch.float32, device=device),
+        iter_density=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def time_slice_index(time: float, time_size: int) -> int:
+    """floor(time * T) in f32, clamped to [0, T): the bitfield slice of a
+    render at `time`.  A host integer from a host number, as the trainers
+    pick the time on the host."""
+    s = np.floor(np.float32(time) * np.float32(time_size))
+    return int(np.clip(s, 0, time_size - 1))
+
+
+class TimeSliceDraws(NamedTuple):
+    """The random numbers of one time slice's update: `t_u01` in [0, 1) for
+    the time jitter within the slice (a host number) and one `GridDraws`
+    per cascade (of the full or the `resample` form)."""
+
+    t_u01: float
+    cascades: list
+
+
+def draw_time_grid_update(time_size: int, cascades: int, grid_size: int, full: bool,
+                          generator: torch.Generator, rng: np.random.Generator,
+                          device) -> list[TimeSliceDraws]:
+    """Cell draws from `generator` (on `device`), time jitters from the
+    host generator `rng`."""
+    return [
+        TimeSliceDraws(float(rng.uniform()),
+                       draw_grid_update(cascades, grid_size, full, "resample", generator,
+                                        device))
+        for _ in range(time_size)
+    ]
+
+
+@torch.no_grad()
+def update_time_density_grid_from_draws(
+    state: TimeOccupancyGrid,
+    params,
+    draws: list[TimeSliceDraws],
+    *,
+    density_fn: Callable,  # (params, x_cf [3, N], t: float) -> sigma [N]
+    bound: float,
+    grid_size: int,
+    density_thresh: float,
+    full: bool,
+    decay: float = 0.95,
+    density_scale: float = 1.0,
+    chunk: int = 2**17,
+) -> TimeOccupancyGrid:
+    """Per-time-slice update with time jitter: slice s is queried at
+    t = (s + 0.5) / T + (u - 0.5) / T (in f32), every cell (`full`) or
+    H^3/4 random plus H^3/4 occupied cells per cascade (the `resample`
+    scheme of `update_density_grid`).  Then `max(decayed old, new)` where both
+    are known, one mean density over all slices and its threshold
+    `min(mean_density, density_thresh)`, and one bitfield per slice."""
+    T, cascades, H3 = state.density_grid.shape
+    H = grid_size
+    dev = state.density_grid.device
+    tmp = torch.full_like(state.density_grid, -1.0)
+    coords = _linear_coords_cf(H, dev) if full else None
+    f32 = np.float32
+    for s, sd in enumerate(draws):
+        t_val = float((f32(s) + f32(0.5)) / f32(T) + (f32(sd.t_u01) - f32(0.5)) / f32(T))
+
+        def query(coords_cf, cas, jitter, t_val=t_val):
+            xyz_cf = _cells_to_world_cf(coords_cf, cas, bound, H, jitter)
+            fn = lambda p, x: density_fn(p, x, t_val)  # noqa: E731
+            return _chunked_density(fn, params, xyz_cf, chunk).float() * density_scale
+
+        for cas in range(cascades):
+            d = sd.cascades[cas]
+            if full:
+                tmp[s, cas] = query(coords, cas, d.jitter)
+                continue
+            rand_idx = d.rand_idx.long()
+            occ_idx, total = _sample_occupied_cells(state.density_grid[s, cas] > 0, d.u01)
+            occ_idx = torch.where(total > 0, occ_idx, rand_idx)
+            idx = torch.cat([rand_idx, occ_idx])  # [2N], may repeat a cell
+            tmp[s, cas, idx] = query(_idx_coords_cf(idx, H), cas, d.jitter)
+
+    valid = (state.density_grid >= 0) & (tmp >= 0)
+    grid = torch.where(valid, torch.maximum(state.density_grid * decay, tmp),
+                       state.density_grid)
+    mean_density = torch.clamp(grid, min=0.0).mean()
+    thresh = torch.clamp(mean_density, max=density_thresh)
+    return TimeOccupancyGrid(
+        density_grid=grid,
+        bitfield=packbits(grid.reshape(T, -1), thresh),
+        mean_density=mean_density,
+        iter_density=state.iter_density + 1,
+    )
+
+
+def update_time_density_grid(state: TimeOccupancyGrid, params, generator: torch.Generator,
+                             rng: np.random.Generator, *, grid_size: int, full: bool,
+                             **kw) -> TimeOccupancyGrid:
+    """`update_time_density_grid_from_draws` with cell draws from
+    `generator` (which lives on the grid's device) and time jitters from
+    the host generator `rng`.  Where the JAX function takes a key, this one
+    takes the two generators."""
+    T, cascades, _ = state.density_grid.shape
+    draws = draw_time_grid_update(T, cascades, grid_size, full, generator, rng,
+                                  state.density_grid.device)
+    return update_time_density_grid_from_draws(state, params, draws, grid_size=grid_size,
+                                               full=full, **kw)
 
 
 @torch.no_grad()

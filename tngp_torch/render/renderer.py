@@ -154,8 +154,11 @@ def render_rays_train(
 ):
     """Single-march budgeted training render.  Returns dict(image [N, 3],
     depth [N], weights_sum [N], num_points [], ray_mask [N]); gradients flow
-    to the field's weights.  Where the JAX function takes a key, this one
-    takes the per-ray `noise` itself."""
+    to the field's weights.  A field whose `sigma_rgb` returns a third entry,
+    a dict of per-sample values, adds dict `aux` of their sums over the
+    selected samples divided by max(num_points, 1), where num_points is the
+    march's demand, not the selected count (as the JAX package).  Where the
+    JAX function takes a key, this one takes the per-ray `noise` itself."""
     N = rays_o.shape[0]
     if not cfg.march_dense:
         raise NotImplementedError("only the march_dense training render is ported")
@@ -180,22 +183,32 @@ def render_rays_train(
             dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
         )
     out = field.sigma_rgb(params, x_c, d_c)
-    if len(out) != 2:
-        raise NotImplementedError("auxiliary field outputs are not ported yet")
-    sig_c, rgb_c = out
+    aux = None
+    if len(out) == 3:
+        # per-sample auxiliary outputs (D-NeRF's |deform|): the mean over the
+        # selected samples, divided by the march's demand as in the JAX package
+        sig_c, rgb_c, aux_c = out
+        valid_f = cm.sel_valid.float()
+        denom = torch.clamp(cm.num_points.float(), min=1.0)
+        aux = {k: (a.reshape(-1) * valid_f).sum() / denom for k, a in aux_c.items()}
+    else:
+        sig_c, rgb_c = out
     ws, depth_raw, image = composite_stream(
         sig_c.float() * cfg.density_scale, rgb_c, dt_c, None, ray_id, cm.sel_valid,
         N, cfg.T_thresh, t_cum=t_rel,
     )
     image = image + (1.0 - ws)[:, None] * bg
     depth = torch.clamp(depth_raw - nears, min=0.0) / torch.clamp(fars - nears, min=1e-6)
-    return {
+    results = {
         "image": image,
         "depth": depth,
         "weights_sum": ws,
         "num_points": cm.num_points,
         "ray_mask": cm.ray_mask,
     }
+    if aux is not None:
+        results["aux"] = aux
+    return results
 
 
 def _alpha_weights(deltas: torch.Tensor, sigmas: torch.Tensor) -> torch.Tensor:

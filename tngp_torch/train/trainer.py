@@ -11,6 +11,11 @@ static, so a step makes no host sync; the trainer reads demand from the
 device once per grid-update interval (`host_reads` counts those reads), and
 losses stay on the device until an epoch ends.
 
+Subclasses (`DNeRFTrainer`) override the hooks `make_grid`, `set_grid`,
+`update_grid`, `sample_batch`, `loss_on_batch` and `render_image`, set
+`update_interval`, and run without budget tiers (`adaptive_tiers = False`),
+as the JAX package enables tiers for the base step only.
+
 Not ported yet: `mesh=` (data parallelism), `use_grid=False` (the uniform
 training path), the error map, the CLIP step, checkpoints, TensorBoard, and
 the frame-level eval renderer (`render_image` takes the per-chunk
@@ -68,6 +73,8 @@ def masked_mse(image: torch.Tensor, gt_rgb: torch.Tensor, ray_mask: torch.Tensor
 class Trainer:
     """Occupancy-grid NeRF trainer over an `nn.Module` field."""
 
+    adaptive_tiers = True  # budget tiers for this step (the base NGP step only)
+
     def __init__(
         self,
         model: torch.nn.Module,
@@ -111,10 +118,8 @@ class Trainer:
         self.optimizer, self.scheduler = make_optimizer(self.params, tc, constant_lr)
         self.ema_params = ema_init(self.params)
         self._grid_updates = 0  # host copy of grid.iter_density
-        self.set_grid(mark_untrained_grid(
-            create_grid(cfg.cascades, cfg.grid_size, device=self.device),
-            self.poses, self.intrinsics, bound=cfg.bound, grid_size=cfg.grid_size,
-        ))
+        self.update_interval = tc.update_extra_interval  # grid update cadence (steps)
+        self.set_grid(self.make_grid())
 
         self.epoch = 0
         self.global_step = 0
@@ -126,7 +131,7 @@ class Trainer:
         # overdrive tier above it, each with its static sample budget
         f = cfg.compact_fraction
         fracs = [f]
-        if tc.adaptive_budget:
+        if tc.adaptive_budget and self.adaptive_tiers:
             fracs = [f / 4.0, f / 2.0, f]
             f_over = min(2.0 * f, 0.9)
             if tc.adaptive_overdrive and f_over > f:
@@ -148,7 +153,8 @@ class Trainer:
     def sample_batch(self):
         """One step's rays, targets, march noise and background, drawn on the
         device (the frame index on the host, from a numpy generator: no
-        tensor is read back).  Returns dict(rays_o, rays_d, gt_rgb, noise, bg)."""
+        tensor is read back).  Returns dict(frame, rays_o, rays_d, gt_rgb,
+        noise, bg), `frame` the host index."""
         N = self.tc.num_rays
         idx = int(self.host_rng.integers(self.n_frames))
         r = sample_rays(self.poses[idx], self.intrinsics, self.H, self.W, N,
@@ -161,8 +167,8 @@ class Trainer:
         else:
             bg = None  # -> 1.0 inside the render
             gt_rgb = gt[:, :3]
-        return {"rays_o": r["rays_o"], "rays_d": r["rays_d"], "gt_rgb": gt_rgb,
-                "noise": noise, "bg": bg}
+        return {"frame": idx, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
+                "gt_rgb": gt_rgb, "noise": noise, "bg": bg}
 
     def loss_on_batch(self, batch):
         """Render the batch at the current tier and return (loss, num_points,
@@ -202,6 +208,14 @@ class Trainer:
         self.log(f"[adaptive_budget] step {self.global_step}: tier -> "
                  f"M={self._tier_M[t]} (demand {int(demand)}, kept {kept_frac:.3f})")
 
+    def make_grid(self):
+        """The initial grid: cells no training camera sees marked untrained."""
+        cfg = self.cfg
+        return mark_untrained_grid(
+            create_grid(cfg.cascades, cfg.grid_size, device=self.device),
+            self.poses, self.intrinsics, bound=cfg.bound, grid_size=cfg.grid_size,
+        )
+
     def set_grid(self, grid):
         """Install an occupancy grid.  The dilated chunk grid of the training
         march changes only with the bitfield: it is rebuilt here and nowhere
@@ -223,12 +237,12 @@ class Trainer:
 
     def run_steps(self, steps: int):
         """`steps` train steps with the grid update and the tier read at
-        every `update_extra_interval`-th step.  Returns (losses, num_points,
-        kept) as device tensors [steps]; the only host reads are the tier
-        reads, one per interval."""
+        every `update_interval`-th step.  Returns (losses, num_points, kept)
+        as device tensors [steps]; the only host reads are the tier reads,
+        one per interval."""
         losses, pts, kepts = [], [], []
         for _ in range(steps):
-            if self.global_step % self.tc.update_extra_interval == 0:
+            if self.global_step % self.update_interval == 0:
                 if len(self._tier_M) > 1 and pts:
                     # one host read per grid-update interval
                     demand, kept = torch.stack([pts[-1].float(), kepts[-1]]).tolist()
@@ -282,6 +296,13 @@ class Trainer:
         the intrinsics are rescaled to match.  Returns (image [H, W, 3],
         depth [H, W]) as numpy; `last_render_stats` holds the samples
         queried, the valid ones, the residual rounds and the chunk count."""
+        return self._render_frame(pose, intrinsics, use_ema, chunk, bg_color, W, H,
+                                  self.field, self.grid.bitfield)
+
+    def _render_frame(self, pose, intrinsics, use_ema, chunk, bg_color, W, H, field,
+                      bitfield, dgrid=None):
+        """`render_image` through `field` over `bitfield` (its dilated chunk
+        grid `dgrid`, built here when None)."""
         intr = self.intrinsics if intrinsics is None else torch.as_tensor(
             intrinsics, dtype=torch.float32, device=self.device)
         if W is None or H is None:
@@ -295,13 +316,14 @@ class Trainer:
         pad = (-n) % chunk
         o = torch.nn.functional.pad(o, (0, 0, 0, pad))
         d = torch.nn.functional.pad(d, (0, 0, 0, pad))
-        dgrid = dilated_chunk_grid(self.grid.bitfield, self.cfg)
+        if dgrid is None:
+            dgrid = dilated_chunk_grid(bitfield, self.cfg)
         imgs, deps = [], []
         stats = {"samples": 0, "valid_samples": 0, "rounds": 0, "chunks": 0}
         with self.ema_weights() if use_ema else contextlib.nullcontext():
             for s in range(0, n + pad, chunk):
-                out = render_rays_eval(self.field, None, o[s:s + chunk], d[s:s + chunk],
-                                       self.grid.bitfield, self.cfg, bg_color=bg_color,
+                out = render_rays_eval(field, None, o[s:s + chunk], d[s:s + chunk],
+                                       bitfield, self.cfg, bg_color=bg_color,
                                        dilated_grid=dgrid)
                 imgs.append(out["image"])
                 deps.append(out["depth"])
