@@ -33,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
   6. D-NeRF training at full width with scripts/bench_dnerf_step.py's
      config (`dnerf_phase`): the pinned NGP step, then D-NeRF on 12 views of
      128x128 of the dynamic blob scene, 64 untimed and 100 timed steps each;
-     rays/s, ms/step, their ratio, the time-grid update's wall, the loss
+     rays/s, ms/step, their ratio, the time-grid update's wall (CUDA events
+     on the stream, no host sync in the timed steps), the loss
      halving, no host sync in a step, the input-gradient kernel once per
      backward, one step through the kernels against the plain versions, and
      the EMA PSNR over the 12 views at their own times;
@@ -68,6 +69,8 @@ WARM_STEPS, TIMED_STEPS = 200, 100  # training: untimed, then timed
 SYNC_STEPS = 32  # further steps under the host-sync log
 DNERF_WARM, DNERF_TIMED = 64, 100  # D-NeRF and pinned NGP: untimed, then timed
 DNERF_SYNC_STEPS = 16
+DNERF_FRAMES, DNERF_RES, DNERF_TIME_SIZE = 12, 128, 16  # bench_dnerf_step.py's scene and grid
+GRID_SIZE = 128  # occupancy grid side, bench.py's render config
 N_RAYS = 4096  # rays per training step and per eval chunk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -180,19 +183,18 @@ def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
     return float(err.max()), float((err / tol.clamp(min=1e-30)).max())
 
 
-def dnerf_phase(dev, ds, seed: int, n_frames=12, res=128, grid_size=128,
-                time_size=16, warm=None, timed=None, sync_steps=None, **net_kw) -> dict:
+def dnerf_phase(dev, ds, seed: int) -> dict:
     """D-NeRF training at full width, as scripts/bench_dnerf_step.py drives
     it: the flagship encoder with position gradients, a 5x128 bf16 deform
-    MLP, 4096 rays/step, bench.py's render config, a time grid of 16 slices
-    updated every 16 steps, no budget tiers; the NGP step under the same
-    pinned config on the static scene `ds` is its yardstick (JAX's bar:
-    <= 2x).  Shows that every kernel of the path launched and the
-    input-gradient kernel once per backward, that the loss halves, that a
-    step makes no host sync, and one step through the kernels against the
-    plain versions; reports rays/s, ms/step, the ratio, the time-grid
-    update's wall and the EMA PSNR over the views at their own times.  The
-    keyword sizes exist for a rehearsal on the CPU at a tiny size."""
+    MLP, 4096 rays/step, bench.py's render config, a time grid of
+    DNERF_TIME_SIZE slices updated every 16 steps, no budget tiers; the NGP
+    step under the same pinned config on the static scene `ds` is its
+    yardstick (JAX's bar: <= 2x).  Shows that every kernel of the path
+    launched and the input-gradient kernel once per backward, that the loss
+    halves, that a step makes no host sync, and one step through the kernels
+    against the plain versions; reports rays/s, ms/step, the ratio, the
+    time-grid update's wall and the EMA PSNR over the views at their own
+    times."""
     from tngp_torch import kernels
     from tngp_torch.data import make_synthetic_dynamic_dataset
     from tngp_torch.kernels import window_encoder as kw
@@ -201,82 +203,80 @@ def dnerf_phase(dev, ds, seed: int, n_frames=12, res=128, grid_size=128,
     from tngp_torch.train import DNeRFTrainer, Trainer
     from tngp_torch.utils import TrainConfig
 
-    warm = DNERF_WARM if warm is None else warm
-    timed = DNERF_TIMED if timed is None else timed
-    sync_steps = DNERF_SYNC_STEPS if sync_steps is None else sync_steps
     info = kernels.KERNELS
-    n_rays = N_RAYS if dev.type == "cuda" else 256
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
     t0 = time.time()
-    dds = make_synthetic_dynamic_dataset(n_frames=n_frames, H=res, W=res, seed=0, device=dev)
-    log(f"[dnerf] {n_frames} x {res} x {res} views of the dynamic blob scene (times 0..1) "
-        f"rendered in {time.time() - t0:.2f} s (mean {dds.images.mean():.4f})")
-    cfg_p = RenderConfig(bound=1.0, grid_size=grid_size, max_steps=512, K=128, min_near=0.05,
+    dds = make_synthetic_dynamic_dataset(n_frames=DNERF_FRAMES, H=DNERF_RES, W=DNERF_RES,
+                                         seed=0, device=dev)
+    log(f"[dnerf] {DNERF_FRAMES} x {DNERF_RES} x {DNERF_RES} views of the dynamic blob scene "
+        f"(times 0..1) rendered in {time.time() - t0:.2f} s (mean {dds.images.mean():.4f})")
+    cfg_p = RenderConfig(bound=1.0, grid_size=GRID_SIZE, max_steps=512, K=128, min_near=0.05,
                          compact_fraction=0.25, density_thresh=1.0, march_dense=True)
-    pinned = TrainConfig(num_rays=n_rays, iters=100_000, adaptive_budget=False, seed=seed)
+    pinned = TrainConfig(num_rays=N_RAYS, iters=100_000, adaptive_budget=False, seed=seed)
 
     def pinned_run(tr, label):
-        """`warm` untimed then `timed` timed steps (grid updates included, as
-        bench_dnerf_step.py times them).  Returns (losses of all steps,
-        timed wall, launches in the timed steps)."""
-        sync()
+        """DNERF_WARM untimed then DNERF_TIMED timed steps (grid updates
+        included, as bench_dnerf_step.py times them).  Returns (losses of
+        all steps, timed wall, launches in the timed steps)."""
+        torch.cuda.synchronize()
         t0 = time.time()
-        lw, _, _ = tr.run_steps(warm)
-        sync()
-        log(f"[dnerf] {label}: {warm} untimed steps {time.time() - t0:.2f} s")
+        lw, _, _ = tr.run_steps(DNERF_WARM)
+        torch.cuda.synchronize()
+        log(f"[dnerf] {label}: {DNERF_WARM} untimed steps {time.time() - t0:.2f} s")
         kernels.reset_launch_counts()
         t0 = time.time()
-        lt, pts, kept = tr.run_steps(timed)
-        sync()
+        lt, pts, kept = tr.run_steps(DNERF_TIMED)
+        torch.cuda.synchronize()
         dt = time.time() - t0
         counts = {name: k.launches for name, k in info.items()}
-        log(f"[dnerf] {label}: {timed} timed steps {dt:.3f} s, {1e3 * dt / timed:.2f} ms/step, "
-            f"{timed * n_rays / dt:,.1f} train rays/s; demand {float(pts.float().mean()):,.0f} "
-            f"rungs/step, {float(kept.mean()):,.0f} of {n_rays} rays kept (M = {tr.tier_M}); "
+        log(f"[dnerf] {label}: {DNERF_TIMED} timed steps {dt:.3f} s, "
+            f"{1e3 * dt / DNERF_TIMED:.2f} ms/step, {DNERF_TIMED * N_RAYS / dt:,.1f} train "
+            f"rays/s; demand {float(pts.float().mean()):,.0f} rungs/step, "
+            f"{float(kept.mean()):,.0f} of {N_RAYS} rays kept (M = {tr.tier_M}); "
             f"launches {counts}")
         return torch.cat([lw, lt]), dt, counts
 
-    ngp_p = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed,
-                               **net_kw), ds, cfg_p, pinned, device=dev)
+    ngp_p = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed),
+                    ds, cfg_p, pinned, device=dev)
     _, dt_ngp, _ = pinned_run(ngp_p, "NGP, pinned config")
     del ngp_p
     dmodel = DNeRFNetwork(bound=1.0, encoding="hashgrid_window", compute_dtype=torch.bfloat16,
-                          device=dev, seed=seed, **net_kw)
-    dtr = DNeRFTrainer(dmodel, dds, cfg_p, pinned, time_size=time_size, update_interval=16,
+                          device=dev, seed=seed)
+    dtr = DNeRFTrainer(dmodel, dds, cfg_p, pinned, time_size=DNERF_TIME_SIZE, update_interval=16,
                        device=dev)
-    grid_walls = []
+    # each grid update between two CUDA events on the stream, read after the
+    # run: no host sync, so the timed steps run as in the NGP run
+    grid_events = []
     update_grid = dtr.update_grid
 
     def timed_update_grid():
-        sync()
-        t0 = time.time()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         full = dtr._grid_updates < dtr.full_grid_updates
+        a.record()
         update_grid()
-        sync()
-        grid_walls.append((time.time() - t0, full))
+        b.record()
+        grid_events.append((a, b, full))
 
     dtr.update_grid = timed_update_grid
     losses_d, dt_dnerf, launches_dnerf = pinned_run(dtr, "D-NeRF")
+    dtr.update_grid = update_grid
     ratio = dt_dnerf / dt_ngp
-    n_full = sum(f for _, f in grid_walls)
-    walls = [w for w, _ in grid_walls]
+    n_full = sum(f for _, _, f in grid_events)
+    walls = [a.elapsed_time(b) / 1e3 for a, b, _ in grid_events]
     log(f"[dnerf] time-grid updates: {len(walls)} over {dtr.global_step} steps, {n_full} full "
-        f"({time_size} slices x {grid_size}^3 cells each), wall {statistics.mean(walls):.3f} s "
-        f"mean, {min(walls):.3f}-{max(walls):.3f} s, {sum(walls):.3f} s in all")
+        f"({DNERF_TIME_SIZE} slices x {GRID_SIZE}^3 cells each), wall on the stream (CUDA "
+        f"events) {statistics.mean(walls):.3f} s mean, {min(walls):.3f}-{max(walls):.3f} s, "
+        f"{sum(walls):.3f} s in all")
     log(f"[dnerf] D-NeRF / NGP step time under the same pinned config: {ratio:.3f}x "
         f"(JAX's bar in scripts/bench_dnerf_step.py: <= 2)")
     for name in ("bin_ranks", "scatter_add", "window_encode_fwd", "window_encode_bwd",
                  "window_encode_dx"):
-        if dev.type == "cuda" and launches_dnerf[name] <= 0:
+        if launches_dnerf[name] <= 0:
             raise SystemExit(f"a kernel of the D-NeRF path never launched: {launches_dnerf}")
-    if launches_dnerf["window_encode_dx"] != launches_dnerf["window_encode_bwd"]:
-        raise SystemExit(f"window_encode_dx did not run once per backward: {launches_dnerf}")
-    if dev.type == "cuda" and launches_dnerf["window_encode_dx"] != timed:
-        raise SystemExit(f"window_encode_dx did not run once per step: {launches_dnerf}")
+    if not (launches_dnerf["window_encode_dx"] == launches_dnerf["window_encode_bwd"]
+            == DNERF_TIMED):
+        raise SystemExit(f"window_encode_dx did not run once per backward and step: "
+                         f"{launches_dnerf}")
     first16, last16 = float(losses_d[:16].mean()), float(losses_d[-16:].mean())
     log(f"[dnerf] loss first 16 steps {first16:.6f}, last 16 {last16:.6f}")
     if not (np.isfinite(first16) and last16 < 0.5 * first16):
@@ -284,24 +284,23 @@ def dnerf_phase(dev, ds, seed: int, n_frames=12, res=128, grid_size=128,
     if not all(bool(torch.isfinite(p).all()) for p in dtr.params + dtr.ema_params):
         raise SystemExit("D-NeRF: a parameter is not finite after training")
 
-    if dev.type == "cuda":
-        step_syncs = []
-        with host_sync_log() as caught:
-            plain_step = dtr.train_step
+    step_syncs = []
+    with host_sync_log() as caught:
+        plain_step = dtr.train_step
 
-            def counted_dstep():
-                before = n_syncs(caught)
-                out = plain_step()
-                step_syncs.append(n_syncs(caught) - before)
-                return out
+        def counted_dstep():
+            before = n_syncs(caught)
+            out = plain_step()
+            step_syncs.append(n_syncs(caught) - before)
+            return out
 
-            dtr.train_step = counted_dstep
-            dtr.run_steps(sync_steps)
-            dtr.train_step = plain_step
-        log(f"[dnerf] host syncs over {sync_steps} further steps: inside train_step "
-            f"{sum(step_syncs)} ({max(step_syncs)} max per step)")
-        if sum(step_syncs) != 0:
-            raise SystemExit(f"D-NeRF train_step made host syncs: {step_syncs}")
+        dtr.train_step = counted_dstep
+        dtr.run_steps(DNERF_SYNC_STEPS)
+        dtr.train_step = plain_step
+    log(f"[dnerf] host syncs over {DNERF_SYNC_STEPS} further steps: inside train_step "
+        f"{sum(step_syncs)} ({max(step_syncs)} max per step)")
+    if sum(step_syncs) != 0:
+        raise SystemExit(f"D-NeRF train_step made host syncs: {step_syncs}")
 
     # one D-NeRF step's gradients: through the kernels, and through the plain
     # versions; the input-gradient kernel on that step's own inputs
@@ -351,12 +350,13 @@ def dnerf_phase(dev, ds, seed: int, n_frames=12, res=128, grid_size=128,
 
     t0 = time.time()
     psnr_d = dtr.evaluate(dds)
-    log(f"[dnerf] PSNR with the EMA weights over the {n_frames} views at their own times after "
-        f"{dtr.global_step} steps: {psnr_d:.2f} dB ({time.time() - t0:.2f} s)")
+    log(f"[dnerf] PSNR with the EMA weights over the {DNERF_FRAMES} views at their own times "
+        f"after {dtr.global_step} steps: {psnr_d:.2f} dB ({time.time() - t0:.2f} s)")
     if not np.isfinite(psnr_d):
         raise SystemExit("D-NeRF: the evaluation PSNR is not finite")
-    return dict(dt_dnerf=dt_dnerf, dt_ngp=dt_ngp, ratio=ratio, rays_s=timed * n_rays / dt_dnerf,
-                psnr=psnr_d, launches=launches_dnerf, dx_args=dx_args, err_dx=err_dx)
+    return dict(dt_dnerf=dt_dnerf, dt_ngp=dt_ngp, ratio=ratio,
+                rays_s=DNERF_TIMED * N_RAYS / dt_dnerf, psnr=psnr_d, launches=launches_dnerf,
+                dx_args=dx_args, err_dx=err_dx)
 
 
 def main() -> int:
@@ -535,7 +535,7 @@ def main() -> int:
 
     # ---- 3. eval path, random weights: 800x800 frames ----------------------
     model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
-    cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
+    cfg = RenderConfig(bound=1.0, grid_size=GRID_SIZE, max_steps=512, K=128, min_near=0.05,
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True,
                        march_group=16)
     t0 = time.time()
@@ -870,7 +870,10 @@ def main() -> int:
               f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
               f"{xyz4_x.shape[0]}]")
     xi = torch.arange(1 << 13, dtype=torch.int32, device=dev).reshape(8, -1)
-    row("int_mul_probe", "int_mul_probe", launches_parity["int_mul_probe"], 0.0,
+    err_int = max_abs(int_mul.int_mul_hash(xi), int_mul.int_mul_hash_plain(xi))
+    if err_int != 0.0:
+        raise SystemExit(f"int_mul_hash disagrees with its plain version: {err_int}")
+    row("int_mul_probe", "int_mul_probe", launches_parity["int_mul_probe"], err_int,
         lambda: int_mul.int_mul_hash(xi), lambda: int_mul.int_mul_hash_plain(xi), None,
         xi.numel() * 8, xi.numel() * 3, INT32_OPS_PER_S, path="device parity",
         shape="int32 [8, 1024] -> int32 [8, 1024] (exact)")

@@ -34,7 +34,7 @@ from tngp.models.dnerf import _freq_cf as jax_freq_cf
 from tngp.ops.freq import freq_encode as jax_freq_encode
 from tngp_torch.convert import flax_params_from_ngp_state_dict, ngp_state_dict_from_flax
 from tngp_torch.models import DNeRFNetwork
-from tngp_torch.ops.freq import freq_encode, freq_encode_cf
+from tngp_torch.ops.freq import freq_encode_cf
 from tngp_torch.render import render_rays_train
 from torch_train_helpers import (
     N_RAYS,
@@ -52,13 +52,12 @@ TIME = float(np.float32(0.6))  # a frame time (f32); slice 2 of 4
 
 def test_frequency_encoding_matches_jax():
     x = np.random.default_rng(0).uniform(-1.1, 1.1, (40, 3)).astype(np.float32)
-    got = freq_encode(torch.from_numpy(x), 10).numpy()
-    np.testing.assert_allclose(got, np.asarray(jax_freq_encode(jnp.asarray(x), 10)),
+    got = freq_encode_cf(torch.from_numpy(x.T.copy()), 10).numpy()
+    np.testing.assert_allclose(got.T, np.asarray(jax_freq_encode(jnp.asarray(x), 10)),
                                rtol=1e-6, atol=1e-6)
     got_cf = freq_encode_cf(torch.from_numpy(x.T.copy()), 6).numpy()
     np.testing.assert_allclose(got_cf, np.asarray(jax_freq_cf(jnp.asarray(x.T), 6)),
                                rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(got_cf, freq_encode(torch.from_numpy(x), 6).numpy().T)
 
 
 def test_f32_step_matches_jax_and_the_hoisted_dilated_grid_is_the_inline_one():

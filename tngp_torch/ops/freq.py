@@ -1,7 +1,8 @@
 """NeRF positional (frequency) encoding — the port of `tngp/ops/freq.py`
-`freq_encode` and of `tngp/models/dnerf.py` `_freq_cf`: the layout is
-`[x, sin(2^0 x), cos(2^0 x), sin(2^1 x), cos(2^1 x), ...]`, each block the
-D input dimensions, for `degree` octaves; output_dim = D * (1 + 2 * degree)."""
+`freq_encode` and of `tngp/models/dnerf.py` `_freq_cf`, channels first: the
+layout is `[x, sin(2^0 x), cos(2^0 x), sin(2^1 x), cos(2^1 x), ...]`, each
+block the D input dimensions, for `degree` octaves; output_dim =
+D * (1 + 2 * degree)."""
 
 from __future__ import annotations
 
@@ -16,12 +17,6 @@ def freq_encode_cf(x_cf: torch.Tensor, degree: int) -> torch.Tensor:
         outs.append(torch.sin(xi))
         outs.append(torch.cos(xi))
     return torch.cat(outs, dim=0)
-
-
-def freq_encode(x: torch.Tensor, degree: int = 4) -> torch.Tensor:
-    """Batch-first `[..., D]` -> `[..., D * (1 + 2 * degree)]`."""
-    prefix = x.shape[:-1]
-    return freq_encode_cf(x.reshape(-1, x.shape[-1]).T, degree).T.reshape(*prefix, -1)
 
 
 def freq_output_dim(input_dim: int, degree: int) -> int:

@@ -86,7 +86,6 @@ class DNeRFTrainer(Trainer):
             density_fn=lambda p, x_cf, t: model.density_cf(x_cf, t)["sigma"],
             bound=cfg.bound, grid_size=cfg.grid_size, density_thresh=cfg.density_thresh,
             full=self._grid_updates < self.full_grid_updates,
-            density_scale=cfg.density_scale,
         ))
         self._grid_updates += 1
 
