@@ -12,10 +12,17 @@ Phases (any failure exits non-zero and prints no result line):
      training step (encoder backward and the cotangent sort at the top
      budget tier, M = 131,072), and samples with x01 in [-0.06, 1.06], as
      D-NeRF's x + dx gives them (forward, table gradient and the
-     input-gradient kernel);
+     input-gradient kernel), and the set-scatter exactly on the occupancy
+     update's resample-shaped input (rand_idx ++ occ_idx on a ~10% occupied
+     128^3 grid), an all-skip input, a ragged M and M = 0;
   2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
      (the int-mul probe exact, the encoder kernels against independent plain
      versions);
+  2c. the grid-update stage bench, `tngp_torch.diagnostics.bench_grid_update
+     .main()` at full width (H = 128, 2N = 1,048,576 queries, the flagship
+     network): its stage times, the set-scatter kernel exactly equal to its
+     plain version (a failed check fails the run), and every kernel of its
+     path launched;
   3. eval path, random weights from --seed: one warm-up and one timed
      800x800 frame of the flagship-width instant-NGP network through
      `Trainer.render_image` on bench.py's blob-scene occupancy grid; show
@@ -43,8 +50,9 @@ Phases (any failure exits non-zero and prints no result line):
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
-`--profile` adds a profiled eval frame and ten profiled training steps with
-device time by kernel and the idle share.
+`--profile` adds a profiled partial grid update (resample, H = 128), a
+profiled eval frame and ten profiled training steps with device time by
+kernel and the idle share.
 
 It needs a CUDA card and the rest of the repository next to it.
 """
@@ -363,8 +371,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one eval frame and ten training steps as well and print "
-                         "device time by kernel")
+                    help="profile one partial grid update, one eval frame and ten training "
+                         "steps as well and print device time by kernel")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -373,7 +381,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tngp_torch import kernels
     from tngp_torch.data import full_image_rays, make_blob_field, make_synthetic_dataset, orbit_poses
-    from tngp_torch.diagnostics import device_parity
+    from tngp_torch.diagnostics import bench_grid_update, device_parity
     from tngp_torch.kernels import scatter as ks
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.kernels import int_mul
@@ -381,6 +389,7 @@ def main() -> int:
     from tngp_torch.ops.grid_utils import packbits
     from tngp_torch.ops.window_table import WindowSpec, sample_tiles
     from tngp_torch.render import (
+        FieldFns,
         OccupancyGrid,
         RenderConfig,
         cell_centers_cf,
@@ -522,6 +531,35 @@ def main() -> int:
         f"{err_bwd_o:.3g} (reordering bound), window_encode_dx max|err| {err_dx_o:.3g}, "
         f"worst err/bound {worst_dx_o:.3f} (<= 2 (L*C) 2^-24 sum|g d| per sample and dimension)")
 
+    # the set-scatter, exactly: the occupancy update's resample write
+    # (rand_idx ++ occ_idx, repeats concentrated on the occupied cells), all
+    # skips, a ragged M with skips and another init, and M = 0
+    Hg = bench_grid_update.H
+    H3g, Ng = Hg**3, Hg**3 // 4
+    gen_g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    grid_g = bench_grid_update.occupied_grid(Hg, gen_g)
+    rand_idx = torch.randint(0, H3g, (Ng,), generator=gen_g, device=dev)
+    idx_rs = torch.cat([rand_idx, bench_grid_update.occupied_cells(grid_g, gen_g)])
+    vals_rs = torch.rand((2 * Ng,), generator=gen_g, device=dev)
+    m_odd = 2 * Ng - 77
+    idx_odd = torch.randint(0, H3g, (m_odd,), generator=gen_g, device=dev)
+    idx_odd = torch.where(torch.rand((m_odd,), generator=gen_g, device=dev) < 0.1, -1, idx_odd)
+    set_cases = {
+        "resample-shaped": (idx_rs, vals_rs, -1.0),
+        "all-skip": (torch.full_like(idx_rs, -1), vals_rs, -1.0),
+        f"M = {m_odd} with 10% skips, init 0": (idx_odd, vals_rs[:m_odd], 0.0),
+        "M = 0": (idx_rs[:0], vals_rs[:0], -1.0),
+    }
+    for what, (i_s, v_s, init_s) in set_cases.items():
+        got = ks.scatter_set_flat(i_s, v_s, H3g, init_s)
+        bad = int((got != ks.scatter_set_flat_plain(i_s, v_s, H3g, init_s)).sum())
+        if bad:
+            raise SystemExit(f"scatter_set_flat ({what}) differs from its plain version in "
+                             f"{bad} cells")
+    dup_rs = int((torch.bincount(idx_rs, minlength=H3g) > 1).sum())
+    log(f"[check] set-scatter into {H3g:,} cells exact against its plain version: "
+        + ", ".join(set_cases) + f" (the resample-shaped input repeats {dup_rs:,} cells)")
+
     # ---- 2b. the device-parity entry (int-mul probe and encoder probes) ------
     kernels.reset_launch_counts()
     t0 = time.time()
@@ -530,8 +568,38 @@ def main() -> int:
     launches_parity = {name: k.launches for name, k in info.items()}
     log(f"[parity] python -m tngp_torch.diagnostics.device_parity passed in "
         f"{time.time() - t0:.1f} s; launches {launches_parity}")
-    if min(launches_parity.values()) <= 0:
+    parity_kernels = ("bin_ranks", "scatter_add", "window_encode_fwd", "window_encode_bwd",
+                      "window_encode_dx", "int_mul_probe")
+    if min(launches_parity[n] for n in parity_kernels) <= 0:
         raise SystemExit(f"a kernel of the parity path never launched: {launches_parity}")
+
+    # ---- 2c. the grid-update stage bench at full width ----------------------
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    bench = bench_grid_update.main(seed=args.seed)
+    launches_grid = {name: k.launches for name, k in info.items()}
+    log(f"[grid] python -m tngp_torch.diagnostics.bench_grid_update in {time.time() - t0:.1f} s: "
+        "stage ms " + ", ".join(f"{k} {v:.4f}" for k, v in bench.times_ms.items())
+        + f"; set-scatter checks {bench.checks}; launches {launches_grid}")
+    if bench.rc != 0:
+        raise SystemExit(f"the grid-update bench failed its set-scatter checks: {bench.checks}")
+    for name in ("scatter_set", "bin_ranks", "scatter_add", "window_encode_fwd"):
+        if launches_grid[name] <= 0:
+            raise SystemExit(f"a kernel of the grid-update path never launched: {launches_grid}")
+    if args.profile:
+        net_g = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
+        dens_g = FieldFns.from_model(net_g).density
+
+        def grid_update():
+            bench_grid_update.partial_update(grid_g, dens_g, Hg, gen_g, "resample")
+
+        grid_update()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        grid_update()
+        torch.cuda.synchronize()
+        profile_device(grid_update, f"one partial (resample) grid update, H = {Hg}",
+                       time.time() - t0)
 
     # ---- 3. eval path, random weights: 800x800 frames ----------------------
     model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
@@ -869,6 +937,27 @@ def main() -> int:
         shape=f"xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples), g_sorted "
               f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
               f"{xyz4_x.shape[0]}]")
+    # the set-scatter at the bench's shape (2N random writes into H^3 cells).
+    # Bytes the function needs: idx once, the winning value of each written
+    # cell, the output once; the kernel's three passes move `kernel_bytes`
+    # (memset, atomics and a read of the int32 winner array on top).
+    idx_b, vals_b = bench_grid_update.scatter_inputs(H3g, 2 * Ng, gen_g)
+    set_k = ks.scatter_set_flat(idx_b, vals_b, H3g)
+    set_p = ks.scatter_set_flat_plain(idx_b, vals_b, H3g)
+    err_set = max_abs(set_k, set_p)
+    if err_set != 0.0:
+        raise SystemExit(f"scatter_set_flat at the bench shape differs from plain: {err_set}")
+    n_written = int(torch.unique(idx_b).numel())
+    m_b = idx_b.numel()
+    row("scatter_set", "scatter_set", launches_grid["scatter_set"], err_set,
+        lambda: ks.scatter_set_flat(idx_b, vals_b, H3g),
+        lambda: ks.scatter_set_flat_plain(idx_b, vals_b, H3g),
+        lambda: torch.full((H3g,), -1.0, device=dev).index_put_((idx_b,), vals_b),
+        m_b * 8 + n_written * 4 + H3g * 4, m_b, INT32_OPS_PER_S, path="grid-update bench",
+        library_call="index_put_ (its winner on a repeated index is unspecified: not the "
+        "same function)", kernel_bytes=H3g * 4 * 3 + m_b * (8 + 4) + n_written * 4,
+        shape=f"idx [{m_b}] int64, vals [{m_b}] f32 -> [{H3g}] f32 ({n_written:,} cells "
+              f"written)")
     xi = torch.arange(1 << 13, dtype=torch.int32, device=dev).reshape(8, -1)
     err_int = max_abs(int_mul.int_mul_hash(xi), int_mul.int_mul_hash_plain(xi))
     if err_int != 0.0:

@@ -47,7 +47,7 @@ def test_every_kernel_is_registered_with_its_source():
         importlib.import_module(m.name)
     from tngp_torch.kernels import KERNELS
 
-    assert set(KERNELS) == {"scatter_add", "bin_ranks", "window_encode_fwd",
+    assert set(KERNELS) == {"scatter_add", "scatter_set", "bin_ranks", "window_encode_fwd",
                             "window_encode_bwd", "window_encode_dx", "int_mul_probe"}
     for info in KERNELS.values():
         assert (ROOT / info.source).is_file()
@@ -67,7 +67,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
 
     from tngp_torch.kernels import int_mul
 
-    for mod, name in ((scatter, "scatter_add_plain"), (window_encoder, "bin_ranks_plain"),
+    for mod, name in ((scatter, "scatter_add_plain"), (scatter, "scatter_set_flat_plain"),
+                      (window_encoder, "bin_ranks_plain"),
                       (window_encoder, "window_encode_fwd_plain"),
                       (window_encoder, "window_encode_bwd_plain"),
                       (window_encoder, "window_encode_dx_plain"),
@@ -82,4 +83,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     assert table.grad.shape == table.shape and table.grad.is_cuda
     assert x.grad.shape == x.shape and x.grad.is_cuda
     assert int_mul.int_mul_hash(torch.arange(64, dtype=torch.int32, device="cuda")).is_cuda
+    out = scatter.scatter_set_flat(torch.tensor([3, -1, 3], device="cuda"),
+                                   torch.tensor([1.0, 2.0, 3.0], device="cuda"), 128)
+    assert out.is_cuda and out[3].item() == 3.0 and out[0].item() == -1.0
     torch.cuda.synchronize()

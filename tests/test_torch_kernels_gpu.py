@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 bin ranks, the encoder forward, table gradient and input gradient (inside
-and outside the unit cube), scatter-add, the hash-product probe, and a small
+and outside the unit cube), scatter-add, set-scatter, the hash-product probe, and a small
 train step through the kernels against the plain path.
 
 This file imports no JAX, so it runs on a machine with a card and without
@@ -238,6 +238,36 @@ def test_scatter_add_matches_plain(cuda):
     rid = torch.sort(torch.from_numpy(rng.integers(0, 512, M))).values.to(cuda)
     torch.testing.assert_close(ks.scatter_add(rid, vals, 512),
                                ks.scatter_add_plain(rid, vals, 512), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["duplicates", "ragged_with_skips", "all_skip", "empty"])
+def test_scatter_set_matches_plain_exactly(cuda, case):
+    """Exact and deterministic: the last write wins a repeated cell, -1
+    skips, M = 0 gives all `init`; int32 indices are refused."""
+    rng = np.random.default_rng(2)
+    cells = 4096
+    M = {"duplicates": 200_000, "ragged_with_skips": 70_001, "all_skip": 5000, "empty": 0}[case]
+    idx = rng.integers(0, cells, M)
+    if case == "ragged_with_skips":
+        idx[rng.random(M) < 0.2] = -1
+    if case == "all_skip":
+        idx[:] = -1
+    vals = rng.normal(size=M).astype(np.float32)
+    init = 0.5 if case == "ragged_with_skips" else -1.0
+    idx_t, vals_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(vals).to(cuda)
+    got = ks.scatter_set_flat(idx_t, vals_t, cells, init)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks.scatter_set_flat_plain(idx_t, vals_t, cells, init))
+    assert torch.equal(got, ks.scatter_set_flat(idx_t, vals_t, cells, init))
+    last = np.full(cells, init, np.float32)
+    keep = idx >= 0
+    # the first occurrence in the reversed writes is the last write of a cell
+    c, first = np.unique(idx[keep][::-1], return_index=True)
+    last[c] = vals[keep][::-1][first]
+    np.testing.assert_array_equal(got.cpu().numpy(), last)
+    with pytest.raises(TypeError):
+        ks.scatter_set_flat(idx_t.int(), vals_t, cells)
 
 
 @pytest.mark.gpu

@@ -1,2 +1,2 @@
 """Device diagnostics of the port (counterparts of the JAX package's
-device-check scripts)."""
+device-check and stage-bench scripts)."""

@@ -4,7 +4,7 @@ the TPU kernel it replaces and its launch count."""
 
 from ._lib import KERNELS, load_all, plain_versions, reset_launch_counts
 from .int_mul import int_mul_hash
-from .scatter import scatter_add
+from .scatter import scatter_add, scatter_set_flat
 from .window_encoder import (
     bin_dest,
     bin_ranks,
@@ -16,7 +16,7 @@ from .window_encoder import (
 
 __all__ = [
     "KERNELS", "load_all", "plain_versions", "reset_launch_counts", "int_mul_hash",
-    "scatter_add",
+    "scatter_add", "scatter_set_flat",
     "bin_dest", "bin_ranks", "window_encode_binned", "window_encode_bwd",
     "window_encode_dx", "window_encode_fwd",
 ]

@@ -45,6 +45,9 @@ _SIGNATURES = {
         ("tngp_scatter_add_f32", _c.c_int,
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
           _c.c_int64, _c.c_void_p]),
+        ("tngp_scatter_set_f32", _c.c_int,
+         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
+          _c.c_int64, _c.c_float, _c.c_void_p]),
     ],
     "bin_rank.cu": [
         ("tngp_bin_ranks", _c.c_int,
