@@ -568,9 +568,7 @@ def main() -> int:
     launches_parity = {name: k.launches for name, k in info.items()}
     log(f"[parity] python -m tngp_torch.diagnostics.device_parity passed in "
         f"{time.time() - t0:.1f} s; launches {launches_parity}")
-    parity_kernels = ("bin_ranks", "scatter_add", "window_encode_fwd", "window_encode_bwd",
-                      "window_encode_dx", "int_mul_probe")
-    if min(launches_parity[n] for n in parity_kernels) <= 0:
+    if min(launches_parity[n] for n in device_parity.KERNELS) <= 0:
         raise SystemExit(f"a kernel of the parity path never launched: {launches_parity}")
 
     # ---- 2c. the grid-update stage bench at full width ----------------------
@@ -583,9 +581,8 @@ def main() -> int:
         + f"; set-scatter checks {bench.checks}; launches {launches_grid}")
     if bench.rc != 0:
         raise SystemExit(f"the grid-update bench failed its set-scatter checks: {bench.checks}")
-    for name in ("scatter_set", "bin_ranks", "scatter_add", "window_encode_fwd"):
-        if launches_grid[name] <= 0:
-            raise SystemExit(f"a kernel of the grid-update path never launched: {launches_grid}")
+    if min(launches_grid[n] for n in bench_grid_update.KERNELS) <= 0:
+        raise SystemExit(f"a kernel of the grid-update path never launched: {launches_grid}")
     if args.profile:
         net_g = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
         dens_g = FieldFns.from_model(net_g).density
@@ -937,19 +934,15 @@ def main() -> int:
         shape=f"xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples), g_sorted "
               f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
               f"{xyz4_x.shape[0]}]")
-    # the set-scatter at the bench's shape (2N random writes into H^3 cells).
+    # the set-scatter on the inputs the grid-update bench compared (2N random
+    # writes into H^3 cells; its checks, exact against plain, passed above).
     # Bytes the function needs: idx once, the winning value of each written
     # cell, the output once; the kernel's three passes move `kernel_bytes`
     # (memset, atomics and a read of the int32 winner array on top).
-    idx_b, vals_b = bench_grid_update.scatter_inputs(H3g, 2 * Ng, gen_g)
-    set_k = ks.scatter_set_flat(idx_b, vals_b, H3g)
-    set_p = ks.scatter_set_flat_plain(idx_b, vals_b, H3g)
-    err_set = max_abs(set_k, set_p)
-    if err_set != 0.0:
-        raise SystemExit(f"scatter_set_flat at the bench shape differs from plain: {err_set}")
-    n_written = int(torch.unique(idx_b).numel())
+    idx_b, vals_b = bench.scatter_args
+    n_written = bench.checks["written_cells"]
     m_b = idx_b.numel()
-    row("scatter_set", "scatter_set", launches_grid["scatter_set"], err_set,
+    row("scatter_set", "scatter_set", launches_grid["scatter_set"], bench.checks["max_abs_err"],
         lambda: ks.scatter_set_flat(idx_b, vals_b, H3g),
         lambda: ks.scatter_set_flat_plain(idx_b, vals_b, H3g),
         lambda: torch.full((H3g,), -1.0, device=dev).index_put_((idx_b,), vals_b),

@@ -55,6 +55,17 @@ def test_every_kernel_is_registered_with_its_source():
         assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
 
 
+def test_diagnostics_declare_registered_kernels():
+    """The kernels each diagnostic declares (and `chip_smoke.py` requires to
+    have launched on its path) are registered ones."""
+    from tngp_torch.diagnostics import bench_grid_update, device_parity
+    from tngp_torch.kernels import KERNELS
+
+    for declared in (device_parity.KERNELS, bench_grid_update.KERNELS):
+        assert declared and set(declared) <= set(KERNELS)
+    assert "scatter_set" in bench_grid_update.KERNELS
+
+
 @pytest.mark.gpu
 def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     if not torch.cuda.is_available():

@@ -56,12 +56,15 @@ H = 128  # grid side
 CHUNK = 2**17  # density-query chunk
 DENSITY_THRESH = 10.0
 WARMUP, ITERS = 2, 10
+# the kernels this bench's stages launch (a caller checks that each ran)
+KERNELS = ("scatter_set", "bin_ranks", "scatter_add", "window_encode_fwd")
 
 
 class BenchReport(NamedTuple):
     rc: int  # 0 if every check passed
     times_ms: dict  # stage -> mean device ms per call
     checks: dict  # the set-scatter comparison (`compare_scatters`)
+    scatter_args: tuple  # (idx, vals) that stage 3 scattered and compared
 
 
 def occupied_grid(grid_size: int, generator: torch.Generator) -> OccupancyGrid:
@@ -72,8 +75,8 @@ def occupied_grid(grid_size: int, generator: torch.Generator) -> OccupancyGrid:
 
 
 @torch.no_grad()
-def density_query(density_fn: Callable, grid_size: int, generator: torch.Generator,
-                  chunk: int = CHUNK) -> torch.Tensor:
+def density_query(density_fn: Callable, grid_size: int,
+                  generator: torch.Generator) -> torch.Tensor:
     """Density [2N] at 2N = 2 (H^3 // 4) random cells, jittered in the cell."""
     H3 = grid_size**3
     n2 = 2 * (H3 // 4)
@@ -81,7 +84,7 @@ def density_query(density_fn: Callable, grid_size: int, generator: torch.Generat
     idx = torch.randint(0, H3, (n2,), generator=generator, device=dev)
     jitter = torch.rand((3, n2), generator=generator, device=dev) * 2.0 - 1.0
     xyz = _cells_to_world_cf(_idx_coords_cf(idx, grid_size), 0, 1.0, grid_size, jitter)
-    return _chunked_density(density_fn, None, xyz, chunk)
+    return _chunked_density(density_fn, None, xyz, CHUNK)
 
 
 def occupied_cells(grid: OccupancyGrid, generator: torch.Generator) -> torch.Tensor:
@@ -110,11 +113,12 @@ def scatter_forms(idx: torch.Tensor, vals: torch.Tensor, num_cells: int) -> dict
 
 def compare_scatters(idx: torch.Tensor, vals: torch.Tensor, kernel: torch.Tensor,
                      plain: torch.Tensor, lib: torch.Tensor) -> dict:
-    """Stage 3's comparison.  `mismatches` (kernel vs plain),
-    `single_mismatches` (cells written at most once, `index_put_` vs kernel)
-    and `not_candidate` (repeated cells where `index_put_` holds none of the
-    cell's values) must be 0; `dup_cells` and `dup_differ` (repeated cells
-    where `index_put_` kept another write than the last) are a report."""
+    """Stage 3's comparison.  `mismatches` and `max_abs_err` (kernel vs
+    plain), `single_mismatches` (cells written at most once, `index_put_` vs
+    kernel) and `not_candidate` (repeated cells where `index_put_` holds none
+    of the cell's values) must be 0; `written_cells`, `dup_cells` and
+    `dup_differ` (repeated cells where `index_put_` kept another write than
+    the last) are a report."""
     valid = idx >= 0
     cells, v = idx[valid], vals[valid]
     counts = torch.bincount(cells, minlength=kernel.shape[0])
@@ -125,6 +129,8 @@ def compare_scatters(idx: torch.Tensor, vals: torch.Tensor, kernel: torch.Tensor
     differ = lib != kernel
     return dict(
         mismatches=int((kernel != plain).sum()),
+        max_abs_err=float((kernel - plain).abs().max()),
+        written_cells=int((counts > 0).sum()),
         single_mismatches=int((~dup & differ).sum()),
         not_candidate=int((dup & ~candidate).sum()),
         dup_cells=int(dup.sum()),
@@ -197,7 +203,7 @@ def main(device="cuda", seed: int = 0) -> BenchReport:
                   lambda mode=mode: partial_update(grid, field.density, H, gen, mode))
     ok = checks_pass(checks)
     print(f"# GRID-UPDATE BENCH {'OK' if ok else 'FAIL'}", flush=True)
-    return BenchReport(0 if ok else 1, times, checks)
+    return BenchReport(0 if ok else 1, times, checks, (idx, vals))
 
 
 if __name__ == "__main__":

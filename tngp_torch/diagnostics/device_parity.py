@@ -145,6 +145,11 @@ def probe_inputs(spec, n: int, seed: int, device):
     return table.to(device), x01.to(device)
 
 
+# the kernels `run_probes` launches (a caller checks that each ran)
+KERNELS = ("int_mul_probe", "bin_ranks", "scatter_add", "window_encode_fwd",
+           "window_encode_bwd", "window_encode_dx")
+
+
 def run_probes(spec, n: int = 65536, seed: int = 0, device="cuda") -> bool:
     table, x01 = probe_inputs(spec, n, seed, device)
     ok = [int_mul_probe(device), forward_probe(spec, table, x01),

@@ -63,9 +63,12 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, num_rows: int) -> torch.T
     return out
 
 
-def _check_num_cells(num_cells: int) -> None:
-    # the JAX kernel's lane packing needs it; kept so both packages accept
-    # the same calls
+def _check_set_call(idx: torch.Tensor, num_cells: int) -> None:
+    """The contract both paths of `scatter_set_flat` hold: int64 indices, and
+    num_cells % 128 == 0 (the JAX kernel's lane packing needs it; kept so
+    both packages accept the same calls)."""
+    if idx.dtype != torch.int64:
+        raise TypeError(f"idx: expected torch.int64, got {idx.dtype}")
     if num_cells % 128 != 0:
         raise ValueError(f"num_cells must be a multiple of 128, got {num_cells}")
 
@@ -75,10 +78,9 @@ def scatter_set_flat_plain(idx: torch.Tensor, vals: torch.Tensor, num_cells: int
     """Plain version, deterministic: the winner of a cell is the largest j
     that names it (`scatter_reduce_` "amax" of the positions), which is the
     result of the TPU kernel's sequential loop.  Skips go to an overflow
-    slot.  Indices outside [-1, num_cells) are an error here (the kernel
-    drops them)."""
-    _check_num_cells(num_cells)
-    idx = idx.long()
+    slot.  Like the kernel it takes int64 indices only; indices outside
+    [-1, num_cells) are an error here (the kernel drops them)."""
+    _check_set_call(idx, num_cells)
     if bool(((idx < -1) | (idx >= num_cells)).any()):
         raise ValueError(f"scatter_set_flat: an index lies outside [-1, {num_cells})")
     M = idx.shape[0]
@@ -100,7 +102,7 @@ def scatter_set_flat(idx: torch.Tensor, vals: torch.Tensor, num_cells: int,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     is exact and deterministic."""
-    _check_num_cells(num_cells)
+    _check_set_call(idx, num_cells)
     if _lib.use_plain(vals):
         return scatter_set_flat_plain(idx, vals, num_cells, init)
     M = idx.shape[0]
