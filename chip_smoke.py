@@ -7,9 +7,12 @@ Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel from `tngp_torch/csrc/`;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the paths give it: the eval render (encoder forward
-     M = 393,216 samples of the flagship spec, bin ranks, scatter-add for the
-     encoder's payload sort and the compositor's per-ray reduction), the
-     training step (encoder backward and the cotangent sort at the top
+     M = 393,216 samples of the flagship spec, bin ranks, the scatter-add's
+     unique form for the encoder's payload sort, exact, its sorted form for
+     the compositor's per-ray reduction and the eval round update, within
+     (n-1) 2^-24 sum|v| of the exact sum and bitwise the same on a second
+     call, and its general atomic form on the per-ray inputs), the training
+     step (encoder backward and the cotangent sort, unique form, at the top
      budget tier, M = 131,072), and samples with x01 in [-0.06, 1.06], as
      D-NeRF's x + dx gives them (forward, table gradient and the
      input-gradient kernel), and the set-scatter exactly on the occupancy
@@ -45,8 +48,11 @@ Phases (any failure exits non-zero and prints no result line):
      halving, no host sync in a step, the input-gradient kernel once per
      backward, one step through the kernels against the plain versions, and
      the EMA PSNR over the 12 views at their own times;
-  7. time each kernel, its plain version and the nearest single PyTorch call
-     at the paths' shapes, beside the least time the card could take;
+  7. time each kernel (one row per scatter-add form and caller), its plain
+     version and the nearest single PyTorch call at the paths' shapes: ms
+     (CUDA events around 20 back-to-back calls), host_us (200 calls without
+     a sync) and, last, device_ms (profiler device events), beside the
+     least time the card could take (`tngp_torch.diagnostics.kernel_times`);
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
@@ -64,7 +70,6 @@ import contextlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 import warnings
@@ -87,22 +92,6 @@ INT32_OPS_PER_S = 16.7e12  # H100 SXM int32: 64 per clock per SM x 132 SMs x 1.9
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def bound(bytes_moved: float, ops: float, ops_rate: float):
@@ -164,6 +153,45 @@ def profile_device(fn, label: str, wall_off: float) -> None:
         f"{1 - busy / wall_off:.3f} of the unprofiled wall")
     for k, t, c in dev_us[:25]:
         log(f"[profile]   {t / 1e3:10.3f} ms  {100 * t / 1e6 / busy:5.1f}%  x{c:<7d} {k[:96]}")
+
+
+@torch.no_grad()
+def check_scatter_add(idx, vals, rows, indices, what):
+    """A scatter-add form against its plain version on indices that hold its
+    statement.  "unique": exact.  "sorted" and "any": each row within
+    (n - 1) 2^-24 sum|v| of the exact (f64) sum, n = the row's entry count
+    (any order of n f32 terms is), and within n 2^-24 sum|v| of the plain
+    version (the check of PRs 1-4); "sorted" also bitwise the same on a
+    second call.  Returns (max |err| vs plain, worst err / bound vs exact)."""
+    from tngp_torch.kernels import scatter as ks
+
+    got = ks.scatter_add(idx, vals, rows, indices=indices)
+    plain = ks.scatter_add_plain(idx, vals, rows)
+    err = max_abs(got, plain)
+    if indices == "unique":
+        if err != 0.0:
+            raise SystemExit(f"scatter_add_unique ({what}) not exact: {err}")
+        return err, 0.0
+    slot = torch.where((idx >= 0) & (idx < rows), idx, rows)
+    C = vals.shape[1]
+
+    def f64_sum(v):
+        z = torch.zeros((rows + 1, C), dtype=torch.float64, device=v.device)
+        return z.index_add_(0, slot, v.double())[:rows]
+
+    exact, sabs = f64_sum(vals), f64_sum(vals.abs())
+    n = torch.bincount(slot, minlength=rows + 1)[:rows].double()[:, None]
+    dev_exact = (got.double() - exact).abs()
+    tol = (n - 1).clamp(min=0) * 2.0**-24 * sabs
+    if not bool((dev_exact <= tol).all()):
+        raise SystemExit(f"scatter_add_{indices} ({what}) beyond (n-1) 2^-24 sum|v| of the "
+                         f"exact sum: {float(dev_exact.max())}")
+    if not bool(((got.double() - plain.double()).abs() <= n * 2.0**-24 * sabs + 1e-30).all()):
+        raise SystemExit(f"scatter_add_{indices} ({what}) beyond n 2^-24 sum|v| of plain: {err}")
+    if indices == "sorted" and not torch.equal(got, ks.scatter_add(idx, vals, rows,
+                                                                   indices=indices)):
+        raise SystemExit(f"scatter_add_sorted ({what}) differs between two calls")
+    return err, float((dev_exact / tol.clamp(min=1e-300)).max())
 
 
 @torch.no_grad()
@@ -277,8 +305,8 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
         f"{sum(walls):.3f} s in all")
     log(f"[dnerf] D-NeRF / NGP step time under the same pinned config: {ratio:.3f}x "
         f"(JAX's bar in scripts/bench_dnerf_step.py: <= 2)")
-    for name in ("bin_ranks", "scatter_add", "window_encode_fwd", "window_encode_bwd",
-                 "window_encode_dx"):
+    for name in ("bin_ranks", "scatter_add_unique", "scatter_add_sorted", "window_encode_fwd",
+                 "window_encode_bwd", "window_encode_dx"):
         if launches_dnerf[name] <= 0:
             raise SystemExit(f"a kernel of the D-NeRF path never launched: {launches_dnerf}")
     if not (launches_dnerf["window_encode_dx"] == launches_dnerf["window_encode_bwd"]
@@ -382,6 +410,7 @@ def main() -> int:
     from tngp_torch import kernels
     from tngp_torch.data import full_image_rays, make_blob_field, make_synthetic_dataset, orbit_poses
     from tngp_torch.diagnostics import bench_grid_update, device_parity
+    from tngp_torch.diagnostics.kernel_times import card, device_ms, events_ms, host_us
     from tngp_torch.kernels import scatter as ks
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.kernels import int_mul
@@ -431,10 +460,8 @@ def main() -> int:
         raise SystemExit("bin_dest through the kernel disagrees with the plain bin_dest")
     M_pad = kw.padded_size(M, BLOCK)
     payload = torch.cat([x01, torch.ones((1, M), device=dev)]).T.contiguous()
-    xyz4 = ks.scatter_add(dest, payload, M_pad)
-    err_sort = max_abs(xyz4, ks.scatter_add_plain(dest, payload, M_pad))
-    if err_sort != 0.0:
-        raise SystemExit(f"scatter_add (unique indices) not exact: {err_sort}")
+    err_sort, _ = check_scatter_add(dest, payload, M_pad, "unique", "payload sort")
+    xyz4 = ks.scatter_add(dest, payload, M_pad, indices="unique")
 
     wob = kw._wob_local(spec, tob)
     feats_k = kw.window_encode_fwd(xyz4, wob, table, spec, BLOCK)
@@ -446,20 +473,25 @@ def main() -> int:
     if not err_enc <= 6e-6:
         raise SystemExit(f"window_encode_fwd disagrees with its plain version: {err_enc}")
 
+    # the compositor's per-ray reduction: ascending ray ids; the same inputs
+    # through the general (atomic) form, which no path calls yet
     rid = torch.sort(torch.randint(0, N_RAYS, (M,), generator=gen)).values.to(dev)
     vals5 = torch.rand((M, 5), generator=gen).to(dev)
-    comp_k = ks.scatter_add(rid, vals5, N_RAYS)
-    comp_p = ks.scatter_add_plain(rid, vals5, N_RAYS)
-    # tolerance: any summation order of n terms is within (n-1) 2^-24 sum|v|
-    # of any other; per ray, n = its sample count
-    cnt = torch.bincount(rid, minlength=N_RAYS).double()[:, None]
-    tol = cnt * 2.0**-24 * ks.scatter_add_plain(rid, vals5.abs(), N_RAYS).double()
-    err_comp = max_abs(comp_k, comp_p)
-    if not bool(((comp_k.double() - comp_p.double()).abs() <= tol + 1e-30).all()):
-        raise SystemExit(f"scatter_add (sorted indices) beyond reordering bound: {err_comp}")
-    log(f"[check] eval shapes: bin_ranks exact, bin_dest exact, scatter_add sort exact, "
-        f"window_encode_fwd max|err| {err_enc:.3g} (<= 6e-6), "
-        f"scatter_add per-ray max|err| {err_comp:.3g} (<= (n-1) 2^-24 sum|v|)")
+    err_comp, worst_comp = check_scatter_add(rid, vals5, N_RAYS, "sorted", "per-ray reduction")
+    err_any, worst_any = check_scatter_add(rid, vals5, N_RAYS, "any", "per-ray inputs")
+    # the eval round update: Na = 1024 alive-ray slots, ascending, fill N - 1
+    Na = N_RAYS // 4
+    live = torch.nonzero(torch.rand(N_RAYS, generator=gen) < 0.2)[:Na, 0]
+    sel_r = torch.cat([live, torch.full((Na - live.numel(),), N_RAYS - 1)]).to(dev)
+    delta6 = torch.randn((Na, 6), generator=gen).to(dev)
+    err_round, worst_round = check_scatter_add(sel_r, delta6, N_RAYS, "sorted", "round update")
+    log(f"[check] eval shapes: bin_ranks exact, bin_dest exact, payload sort "
+        f"(scatter_add_unique, C = 4) exact, window_encode_fwd max|err| {err_enc:.3g} "
+        f"(<= 6e-6); per-ray reduction (scatter_add_sorted, C = 5) max|err| vs plain "
+        f"{err_comp:.3g}, worst err/bound vs the exact sum {worst_comp:.3f}, bitwise the same "
+        f"on a second call; round update (scatter_add_sorted, C = 6) {err_round:.3g}, "
+        f"{worst_round:.3f}; per-ray inputs through scatter_add_any {err_any:.3g}, "
+        f"{worst_any:.3f} (bound (n-1) 2^-24 sum|v| per row)")
 
     # training shapes: the top budget tier, 4096 rays x K 128 x 0.25
     Mt = 131_072
@@ -473,8 +505,8 @@ def main() -> int:
         m_pad = kw.padded_size(m, BLOCK)
         pay = torch.cat([x01_t, torch.ones((1, m), device=dev)]).T.contiguous()
         g_rows = g_t.T.contiguous()  # [M, LC]
-        return (ks.scatter_add(dest_t, pay, m_pad), kw._wob_local(spec, tob_t), dest_t, g_rows,
-                ks.scatter_add(dest_t, g_rows, m_pad))
+        return (ks.scatter_add(dest_t, pay, m_pad, indices="unique"), kw._wob_local(spec, tob_t),
+                dest_t, g_rows, ks.scatter_add(dest_t, g_rows, m_pad, indices="unique"))
 
     def bwd_addresses(xyz4_t, wob_t):
         """Flat table index [L, 8, M_pad] (channel 0) of every corner."""
@@ -505,12 +537,12 @@ def main() -> int:
     x01_t = torch.rand((3, Mt), generator=gen).to(dev)
     g_t = torch.randn((L * C, Mt), generator=gen).to(dev)
     xyz4_t, wob_t, dest_t, g_rows_t, g_sorted_t = sorted_inputs(x01_t, g_t)
-    err_gsort = max_abs(g_sorted_t, ks.scatter_add_plain(dest_t, g_rows_t, Mt_pad))
-    if err_gsort != 0.0 or not torch.equal(g_sorted_t[dest_t], g_rows_t):
-        raise SystemExit(f"scatter_add (cotangent sort) not exact: {err_gsort}")
+    err_gsort, _ = check_scatter_add(dest_t, g_rows_t, Mt_pad, "unique", "cotangent sort")
+    if not torch.equal(g_sorted_t[dest_t], g_rows_t):
+        raise SystemExit("scatter_add_unique (cotangent sort) lost a row")
     err_bwd, n_max = check_bwd(xyz4_t, wob_t, g_sorted_t, "uniform samples")
     log(f"[check] train shapes (M = {Mt}, M_pad = {Mt_pad}): cotangent sort "
-        f"[{Mt}, {L * C}] -> [{Mt_pad}, {L * C}] exact, window_encode_bwd max|err| "
+        f"(scatter_add_unique) [{Mt}, {L * C}] -> [{Mt_pad}, {L * C}] exact, window_encode_bwd max|err| "
         f"{err_bwd:.3g} (each entry <= 2 (n-1) 2^-24 sum|term|, n up to {n_max:.0f})")
 
     # samples outside the unit cube, as D-NeRF's x + dx gives them: dense
@@ -635,7 +667,8 @@ def main() -> int:
         st = trainer.last_render_stats
         if img.shape != (R, R, 3) or not np.isfinite(img).all():
             raise SystemExit(f"{label}: rendered image is not a finite [R, R, 3] array")
-        for name in ("scatter_add", "bin_ranks", "window_encode_fwd"):
+        for name in ("scatter_add_unique", "scatter_add_sorted", "bin_ranks",
+                     "window_encode_fwd"):
             if counts[name] <= 0:
                 raise SystemExit(f"{label}: a kernel of the eval path never launched: {counts}")
         log(f"[eval] {label}: one {R}x{R} frame {dt:.3f} s, {R * R / dt:,.1f} rays/s; "
@@ -703,8 +736,8 @@ def main() -> int:
         f"{float(kept_t.mean()):,.0f} of {N_RAYS} rays kept; loss first 16 steps "
         f"{first16:.6f}, last 16 {last16:.6f}; occupancy at the end {occ_end:.4f}; "
         f"launches {launches_train}")
-    if min(launches_train[n] for n in ("scatter_add", "bin_ranks", "window_encode_fwd",
-                                       "window_encode_bwd")) <= 0:
+    if min(launches_train[n] for n in ("scatter_add_unique", "scatter_add_sorted", "bin_ranks",
+                                       "window_encode_fwd", "window_encode_bwd")) <= 0:
         raise SystemExit(f"a kernel of the training path never launched: {launches_train}")
 
     # host syncs, counted over two further grid-update intervals (outside the
@@ -812,22 +845,28 @@ def main() -> int:
     err_dx_real = dn["err_dx"]
 
     # ---- 7. timing at the paths' shapes ------------------------------------
+    # per callable: ms (CUDA events around 20 back-to-back calls), host_us
+    # (200 calls, no sync) and, at the end of the phase because the
+    # profiler's host cost lingers, device_ms (profiler device events)
     table_win = model.encoder.embeddings.detach()
     visited = sum(int(torch.unique(wob[l]).numel()) for l in range(L))
     enc_bytes = M_pad * 16 + wob.numel() * 4 + L * C * M_pad * 4 + visited * C * 8192 * 4
     enc_ops = M_pad * L * (10 + 8 * (3 + 2 * C))  # positions + per-corner weight and sums
-    rows = []
+    rows, to_profile = [], []
 
     def row(name, kernel, launches_n, err, fn_k, fn_p, fn_lib, nbytes, ops, rate, **extra):
-        ms, plain_ms = cuda_time_ms(fn_k), cuda_time_ms(fn_p)
-        lib_ms = cuda_time_ms(fn_lib) if fn_lib is not None else None
         b_ms, b_by = bound(nbytes, ops, rate)
-        rows.append(dict(name=name, route="cuda", source=info[kernel].source,
-                         replaces=info[kernel].replaces, launches=launches_n, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms, **extra))
-        log(f"[time] {name:26s} {ms:9.4f} ms  plain {plain_ms:9.4f} ms  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {b_ms:.4f} ms ({b_by})")
+        r = dict(name=name, kernel=kernel, route="cuda", source=info[kernel].source,
+                 replaces=info[kernel].replaces, launches=launches_n, max_abs_err=err,
+                 ms=events_ms(fn_k), host_us=host_us(fn_k), plain_ms=events_ms(fn_p),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None if fn_lib is None else events_ms(fn_lib),
+                 library_host_us=None if fn_lib is None else host_us(fn_lib), **extra)
+        rows.append(r)
+        to_profile.append((r, fn_k, fn_lib))
+        lib = "-" if fn_lib is None else f"{r['library_ms']:.4f}"
+        log(f"[time] {name:34s} {r['ms']:9.4f} ms  host {r['host_us']:7.2f} us  plain "
+            f"{r['plain_ms']:9.4f} ms  library {lib} ms  bound {b_ms:.4f} ms ({b_by})")
 
     row("window_encode_fwd", "window_encode_fwd", launches_eval["window_encode_fwd"], err_enc,
         lambda: kw.window_encode_fwd(xyz4, wob, table_win, spec, BLOCK),
@@ -843,32 +882,39 @@ def main() -> int:
         keyp.numel() * 8 + NBk * 64 * 4, keyp.numel() * 20, INT32_OPS_PER_S, path="eval",
         launches_train=launches_train["bin_ranks"],
         shape=f"keys [{NBk}, 512] -> rank [{NBk}, 512], tot [{NBk}, 64]")
-    row("scatter_add", "scatter_add", launches_eval["scatter_add"], err_sort,
-        lambda: ks.scatter_add(dest, payload, M_pad),
-        lambda: ks.scatter_add_plain(dest, payload, M_pad),
-        lambda: torch.zeros((M_pad, 4), device=dev).index_add_(0, dest, payload),
-        M * 8 + M * 16 + M_pad * 16, M * 4, F32_OPS_PER_S, path="eval",
-        launches_train=launches_train["scatter_add"],
-        call="encoder payload sort (unique indices)", shape=f"[{M}, 4] -> [{M_pad}, 4]")
-    row("scatter_add_composite", "scatter_add", launches_eval["scatter_add"], err_comp,
-        lambda: ks.scatter_add(rid, vals5, N_RAYS),
-        lambda: ks.scatter_add_plain(rid, vals5, N_RAYS),
-        lambda: torch.zeros((N_RAYS, 5), device=dev).index_add_(0, rid, vals5),
-        M * 8 + M * 20 + N_RAYS * 20, M * 5, F32_OPS_PER_S, path="eval",
-        launches_train=launches_train["scatter_add"],
-        call="compositor per-ray reduction (nondecreasing indices)",
-        shape=f"[{M}, 5] -> [{N_RAYS}, 5]")
-    # one cotangent sort per backward: this caller's share of the scatter-add launches
-    row("scatter_add_cotangent_sort", "scatter_add", launches_train["window_encode_bwd"],
-        err_gsort,
-        lambda: ks.scatter_add(dest_t, g_rows_t, Mt_pad),
-        lambda: ks.scatter_add_plain(dest_t, g_rows_t, Mt_pad),
-        lambda: torch.zeros((Mt_pad, L * C), device=dev).index_add_(0, dest_t, g_rows_t),
-        Mt * 8 + Mt * L * C * 4 + Mt_pad * L * C * 4, Mt * L * C, F32_OPS_PER_S, path="train",
-        call="encoder backward: cotangent sort (unique indices), one per backward, of the "
-             f"{launches_train['scatter_add']} scatter-add launches of all callers in the "
-             "timed steps",
-        shape=f"[{Mt}, {L * C}] -> [{Mt_pad}, {L * C}]")
+
+    def add_row(name, indices, launches_n, err, idx, vals, rows_out, **extra):
+        """A scatter-add form.  Bytes: idx and vals read once, the output
+        written once; one add per element."""
+        m, c = vals.shape
+        row(name, f"scatter_add_{indices}", launches_n, err,
+            lambda: ks.scatter_add(idx, vals, rows_out, indices=indices),
+            lambda: ks.scatter_add_plain(idx, vals, rows_out),
+            lambda: torch.zeros((rows_out, c), device=dev).index_add_(0, idx, vals),
+            m * 8 + m * c * 4 + rows_out * c * 4, m * c, F32_OPS_PER_S,
+            library_call="index_add_ into zeros", shape=f"[{m}, {c}] -> [{rows_out}, {c}]",
+            **extra)
+
+    # launches: the unique form's over the frame are the payload sorts; in
+    # the timed steps one cotangent sort per backward, the rest payload sorts
+    add_row("scatter_add_unique", "unique", launches_eval["scatter_add_unique"], err_sort,
+            dest, payload, M_pad, path="eval", call="encoder payload sort (unique indices)",
+            launches_train=launches_train["scatter_add_unique"])
+    add_row("scatter_add_sorted", "sorted", launches_eval["scatter_add_sorted"], err_comp,
+            rid, vals5, N_RAYS, path="eval", worst_err_over_bound=worst_comp,
+            call="compositor per-ray reduction (nondecreasing indices); the frame's count "
+                 "includes the round updates", launches_train=launches_train["scatter_add_sorted"])
+    add_row("scatter_add_unique_cotangent_sort", "unique", launches_train["window_encode_bwd"],
+            err_gsort, dest_t, g_rows_t, Mt_pad, path="train",
+            call="encoder backward: cotangent sort (unique indices), one per backward")
+    add_row("scatter_add_sorted_round_update", "sorted", launches_eval["scatter_add_sorted"],
+            err_round, sel_r, delta6, N_RAYS, path="eval", worst_err_over_bound=worst_round,
+            call=f"eval round update: Na = {Na} alive-ray slots, ascending, fill N - 1 (the "
+                 "frame's count includes the per-ray reductions)")
+    add_row("scatter_add_any", "any", launches_eval["scatter_add_any"], err_any, rid, vals5,
+            N_RAYS, path="none yet", worst_err_over_bound=worst_any,
+            call="general indices (atomics), kept for later callers; timed on the per-ray "
+                 "reduction's inputs")
 
     # the backward kernel, on the inputs a training step gave it (captured
     # above) and on uniform samples at the top tier.  Bytes: samples, cotangents
@@ -891,8 +937,8 @@ def main() -> int:
         return lambda: torch.zeros(table.numel(), device=dev).index_add_(0, idx, vals)
 
     lib_real = bwd_library(xyz4_r, wob_r, g_sorted_r)
-    zero_ms = cuda_time_ms(lambda: torch.zeros_like(table), reps=10)
-    ms_uniform = cuda_time_ms(lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK))
+    zero_ms = events_ms(lambda: torch.zeros_like(table))
+    ms_uniform = events_ms(lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK))
     n_live = int((xyz4_r[:, 3] > 0).sum())
     n_grad = int(((xyz4_r[:, 3] > 0) & (g_sorted_r != 0).any(dim=1)).sum())
     row("window_encode_bwd", "window_encode_bwd", launches_train["window_encode_bwd"],
@@ -921,7 +967,7 @@ def main() -> int:
         return nbytes, m_pad * L * (12 + 8 * 3 * 4 + C * (8 + 3 * 8 * 2 + 3 * 2)), vis
 
     dx_bytes, dx_ops, dx_vis = dx_cost(xyz4_x, wob_x)
-    ms_dx_uniform = cuda_time_ms(
+    ms_dx_uniform = events_ms(
         lambda: kw.window_encode_dx(xyz4_o, wob_o, table, g_sorted_o, spec, BLOCK))
     n_live_x = int((xyz4_x[:, 3] > 0).sum())
     row("window_encode_dx", "window_encode_dx", launches_dnerf["window_encode_dx"], err_dx_real,
@@ -937,8 +983,8 @@ def main() -> int:
     # the set-scatter on the inputs the grid-update bench compared (2N random
     # writes into H^3 cells; its checks, exact against plain, passed above).
     # Bytes the function needs: idx once, the winning value of each written
-    # cell, the output once; the kernel's three passes move `kernel_bytes`
-    # (memset, atomics and a read of the int32 winner array on top).
+    # cell, the output once; the kernel moves `kernel_bytes` (the int32
+    # winner array written, hit by the atomics and read again on top).
     idx_b, vals_b = bench.scatter_args
     n_written = bench.checks["written_cells"]
     m_b = idx_b.numel()
@@ -959,12 +1005,20 @@ def main() -> int:
         lambda: int_mul.int_mul_hash(xi), lambda: int_mul.int_mul_hash_plain(xi), None,
         xi.numel() * 8, xi.numel() * 3, INT32_OPS_PER_S, path="device parity",
         shape="int32 [8, 1024] -> int32 [8, 1024] (exact)")
+    missing = set(info) - {r["kernel"] for r in rows}
+    if missing:
+        raise SystemExit(f"registered kernels without a timing row: {sorted(missing)}")
+
+    for r, fn_k, fn_lib in to_profile:
+        r["device_ms"], r["device_events"] = device_ms(fn_k)
+        r["library_device_ms"] = None if fn_lib is None else device_ms(fn_lib)[0]
+        lib_dev = r["library_device_ms"]
+        log(f"[time] {r['name']:34s} device {r['device_ms']:9.4f} ms over "
+            f"{r['device_events']} device events per call; library device "
+            f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms")
 
     # ---- 8. report ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"[result] train {train_rays_s:,.1f} rays/s (tier M {trainer.tier_M}, PSNR {psnr:.2f} dB "
         f"after {psnr_steps} steps); eval 800x800 {R * R / dt_rand:,.1f} rays/s "
         f"random weights, {R * R / dt_trained:,.1f} rays/s trained weights "

@@ -47,7 +47,8 @@ def test_every_kernel_is_registered_with_its_source():
         importlib.import_module(m.name)
     from tngp_torch.kernels import KERNELS
 
-    assert set(KERNELS) == {"scatter_add", "scatter_set", "bin_ranks", "window_encode_fwd",
+    assert set(KERNELS) == {"scatter_add_unique", "scatter_add_sorted", "scatter_add_any",
+                            "scatter_set", "bin_ranks", "window_encode_fwd",
                             "window_encode_bwd", "window_encode_dx", "int_mul_probe"}
     for info in KERNELS.values():
         assert (ROOT / info.source).is_file()
@@ -64,6 +65,9 @@ def test_diagnostics_declare_registered_kernels():
     for declared in (device_parity.KERNELS, bench_grid_update.KERNELS):
         assert declared and set(declared) <= set(KERNELS)
     assert "scatter_set" in bench_grid_update.KERNELS
+    # both paths sort the encoder's samples, whose destinations are unique
+    assert "scatter_add_unique" in device_parity.KERNELS
+    assert "scatter_add_unique" in bench_grid_update.KERNELS
 
 
 @pytest.mark.gpu
@@ -94,6 +98,11 @@ def test_cuda_tensors_never_reach_the_plain_versions(monkeypatch):
     assert table.grad.shape == table.shape and table.grad.is_cuda
     assert x.grad.shape == x.shape and x.grad.is_cuda
     assert int_mul.int_mul_hash(torch.arange(64, dtype=torch.int32, device="cuda")).is_cuda
+    vals = torch.ones((4, 6), device="cuda")
+    for indices, idx in (("unique", [4, 0, 2, 5]), ("sorted", [0, 2, 2, 5]),
+                         ("any", [2, 0, 5, 2])):
+        out = scatter.scatter_add(torch.tensor(idx, device="cuda"), vals, 5, indices=indices)
+        assert out.is_cuda and out.sum().item() == 18.0  # row 5 dropped
     out = scatter.scatter_set_flat(torch.tensor([3, -1, 3], device="cuda"),
                                    torch.tensor([1.0, 2.0, 3.0], device="cuda"), 128)
     assert out.is_cuda and out[3].item() == 3.0 and out[0].item() == -1.0

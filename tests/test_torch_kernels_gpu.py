@@ -81,8 +81,8 @@ def test_window_encoder_backward_matches_plain(cuda, interpolation, crowd):
     dest, tob = kw.bin_dest(x)
     M_pad = kw.padded_size(M, kw.DEFAULT_BLOCK)
     payload = torch.cat([x, torch.ones((1, M), device=cuda)]).T.contiguous()
-    xyz4 = ks.scatter_add(dest, payload, M_pad)
-    g_sorted = ks.scatter_add(dest, g.T.contiguous(), M_pad)
+    xyz4 = ks.scatter_add(dest, payload, M_pad, indices="unique")
+    g_sorted = ks.scatter_add(dest, g.T.contiguous(), M_pad, indices="unique")
     wob = kw._wob_local(spec, tob)
     plain = kw.window_encode_bwd_plain(xyz4, wob, g_sorted, spec, kw.DEFAULT_BLOCK)
     sabs = kw.window_encode_bwd_plain(xyz4, wob, g_sorted.abs(), spec, kw.DEFAULT_BLOCK)
@@ -106,8 +106,8 @@ def _sorted_inputs(x, g, spec, cuda):
     dest, tob = kw.bin_dest(x)
     M_pad = kw.padded_size(M, kw.DEFAULT_BLOCK)
     payload = torch.cat([x, torch.ones((1, M), device=cuda)]).T.contiguous()
-    return (ks.scatter_add(dest, payload, M_pad), kw._wob_local(spec, tob), dest,
-            ks.scatter_add(dest, g.T.contiguous(), M_pad))
+    return (ks.scatter_add(dest, payload, M_pad, indices="unique"), kw._wob_local(spec, tob),
+            dest, ks.scatter_add(dest, g.T.contiguous(), M_pad, indices="unique"))
 
 
 @pytest.mark.gpu
@@ -227,17 +227,52 @@ def test_train_step_gradients_through_kernels_match_plain_path(cuda):
 
 
 @pytest.mark.gpu
-def test_scatter_add_matches_plain(cuda):
-    """Unique indices exact; repeated indices within f32 reordering."""
-    rng = np.random.default_rng(1)
-    M, C, rows = 100_000, 4, 131_072
-    idx = torch.from_numpy(rng.permutation(rows)[:M]).to(cuda)
+@pytest.mark.parametrize("indices,C", [("unique", 4), ("unique", 32), ("unique", 5),
+                                       ("sorted", 5), ("sorted", 6), ("sorted", 32),
+                                       ("any", 4), ("any", 5), ("any", 6)])
+def test_scatter_add_matches_plain(cuda, indices, C):
+    """Each form on indices that hold its statement.  Unique: exact against
+    the plain version.  Sorted and any: each row within (n - 1) 2^-24
+    sum|v| of the exact (f64) sum, n = the row's entry count (any order of
+    n f32 terms is), and within rtol 1e-5, atol 1e-4 of the plain version;
+    sorted also bitwise the same on a second call.  A tail of out-of-range
+    rows (the compositor's padding) is dropped.  The same values at an odd
+    offset (not 16-byte aligned) take the scalar path and give the same."""
+    rng = np.random.default_rng(C)
+    M, rows = 100_000, 512
     vals = torch.from_numpy(rng.normal(size=(M, C)).astype(np.float32)).to(cuda)
-    torch.testing.assert_close(ks.scatter_add(idx, vals, rows),
-                               ks.scatter_add_plain(idx, vals, rows), rtol=0, atol=0)
-    rid = torch.sort(torch.from_numpy(rng.integers(0, 512, M))).values.to(cuda)
-    torch.testing.assert_close(ks.scatter_add(rid, vals, 512),
-                               ks.scatter_add_plain(rid, vals, 512), rtol=1e-5, atol=1e-4)
+    if indices == "unique":
+        rows = 131_072
+        idx = torch.from_numpy(rng.permutation(rows)[:M]).to(cuda)
+    else:
+        idx = torch.sort(torch.from_numpy(rng.integers(0, rows, M))).values.to(cuda)
+        idx[-M // 8:] = rows
+        if indices == "any":
+            idx = idx[torch.from_numpy(rng.permutation(M)).to(cuda)]
+    want = ks.scatter_add_plain(idx, vals, rows)
+    slot = torch.where(idx < rows, idx, rows)
+    exact = torch.zeros((rows + 1, C), dtype=torch.float64, device=cuda).index_add_(
+        0, slot, vals.double())[:rows]
+    sabs = torch.zeros((rows + 1, C), dtype=torch.float64, device=cuda).index_add_(
+        0, slot, vals.double().abs())[:rows]
+    n = torch.bincount(slot, minlength=rows + 1)[:rows].double()[:, None]
+    tol = (n - 1).clamp(min=0) * 2.0**-24 * sabs
+
+    def check(got):
+        assert got.shape == (rows, C)
+        if indices == "unique":
+            assert torch.equal(got, want)
+        else:
+            assert bool(((got.double() - exact).abs() <= tol).all())
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+    got = ks.scatter_add(idx, vals, rows, indices=indices)
+    check(got)
+    if indices == "sorted":
+        assert torch.equal(got, ks.scatter_add(idx, vals, rows, indices=indices))
+    flat = torch.empty(M * C + 1, device=cuda)
+    flat[1:] = vals.reshape(-1)
+    check(ks.scatter_add(idx, flat[1:].view(M, C), rows, indices=indices))
 
 
 @pytest.mark.gpu

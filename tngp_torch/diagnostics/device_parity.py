@@ -122,9 +122,9 @@ def input_grad_probe(spec, table_win, x01, block: int = kw.DEFAULT_BLOCK) -> boo
     dest, tob = kw.bin_dest(x01, block)
     M, M_pad = x01.shape[1], kw.padded_size(x01.shape[1], block)
     xyz4 = kw.scatter_add(dest, torch.cat([x01, torch.ones_like(x01[:1])]).T.contiguous(),
-                          M_pad)
+                          M_pad, indices="unique")
     wob = kw._wob_local(spec, tob)
-    g_sorted = kw.scatter_add(dest, g.T.contiguous(), M_pad)
+    g_sorted = kw.scatter_add(dest, g.T.contiguous(), M_pad, indices="unique")
     with _lib.plain_versions():
         want = kw.window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block)
         d = kw.dx_features(xyz4, wob, table_win, spec, block)
@@ -146,7 +146,7 @@ def probe_inputs(spec, n: int, seed: int, device):
 
 
 # the kernels `run_probes` launches (a caller checks that each ran)
-KERNELS = ("int_mul_probe", "bin_ranks", "scatter_add", "window_encode_fwd",
+KERNELS = ("int_mul_probe", "bin_ranks", "scatter_add_unique", "window_encode_fwd",
            "window_encode_bwd", "window_encode_dx")
 
 

@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -42,12 +42,14 @@ _c = ctypes
 # C signatures of the exported launchers: (name, restype, argtypes)
 _SIGNATURES = {
     "scatter.cu": [
-        ("tngp_scatter_add_f32", _c.c_int,
-         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
-          _c.c_int64, _c.c_void_p]),
-        ("tngp_scatter_set_f32", _c.c_int,
-         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
-          _c.c_int64, _c.c_float, _c.c_void_p]),
+        *[(f"tngp_scatter_add_{form}_f32", _c.c_int,
+           [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
+            _c.c_int64, _c.c_void_p])
+          for form in ("unique", "sorted", "any")],
+        *[(name, _c.c_int,
+           [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
+            _c.c_int64, _c.c_float, _c.c_void_p])
+          for name in ("tngp_scatter_set_f32", "tngp_scatter_set_packed_f32")],
     ],
     "bin_rank.cu": [
         ("tngp_bin_ranks", _c.c_int,
@@ -77,21 +79,23 @@ SOURCES = tuple(_SIGNATURES)
 
 @dataclass
 class KernelInfo:
-    """One hand-written kernel: where it lives, what it replaces, and how
-    many times its wrapper launched it (a plain integer, reset by callers
-    that want to show a path went through it)."""
+    """One hand-written kernel: where it lives, what it replaces, its
+    exported launcher, and how many times its wrapper launched it (a plain
+    integer, reset by callers that want to show a path went through it)."""
 
     name: str
     source: str  # repo-relative path of the CUDA source
     replaces: str  # file:line of the TPU kernel it replaces
+    symbol: str  # the exported C launcher
     launches: int = 0
+    fn: object = field(default=None, repr=False)  # the ctypes function, bound at load
 
 
 KERNELS: dict[str, KernelInfo] = {}
 
 
-def register(name: str, source: str, replaces: str) -> KernelInfo:
-    info = KernelInfo(name, f"tngp_torch/csrc/{source}", replaces)
+def register(name: str, source: str, replaces: str, symbol: str) -> KernelInfo:
+    info = KernelInfo(name, f"tngp_torch/csrc/{source}", replaces, symbol)
     KERNELS[name] = info
     return info
 
@@ -132,7 +136,7 @@ def use_plain(t: torch.Tensor) -> bool:
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`
     (None in `shape` matches any extent)."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -144,13 +148,21 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def launch(info: KernelInfo, fn_name: str, device: torch.device, *args) -> None:
-    """Call an exported launcher on the current stream of `device`; raise if
-    it reports a CUDA error, else count the launch."""
-    fn = getattr(library(info.source.rsplit("/", 1)[-1]), fn_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
+def launch(info: KernelInfo, device: torch.device, *args) -> None:
+    """Call the kernel's launcher on the current stream of `device`; raise
+    if it reports a CUDA error, else count the launch.  The launcher is
+    bound once, when its library loads; the stream is read without a
+    device switch when `device` is the current one."""
+    fn = info.fn
+    if fn is None:
+        library(info.source.rsplit("/", 1)[-1])
+        fn = info.fn
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{info.name}: CUDA error {rc} at launch")
     info.launches += 1
@@ -228,6 +240,9 @@ def library(source: str) -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
+            for info in KERNELS.values():
+                if info.source.rsplit("/", 1)[-1] == source:
+                    info.fn = getattr(lib, info.symbol)
             _LIBS[source] = lib
         return lib
 

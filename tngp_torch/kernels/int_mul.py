@@ -11,7 +11,8 @@ from ..ops.window_table import P1, P2
 from . import _lib
 
 KERNEL = _lib.register(
-    "int_mul_probe", "int_mul_probe.cu", "scripts/check_device_parity.py:62"
+    "int_mul_probe", "int_mul_probe.cu", "scripts/check_device_parity.py:62",
+    "tngp_int_mul_probe",
 )
 
 
@@ -31,6 +32,6 @@ def int_mul_hash(x: torch.Tensor) -> torch.Tensor:
         return int_mul_hash_plain(x)
     _lib.check(x, "x", torch.int32, tuple(x.shape))
     out = torch.empty_like(x)
-    _lib.launch(KERNEL, "tngp_int_mul_probe", x.device, x.data_ptr(), out.data_ptr(),
+    _lib.launch(KERNEL, x.device, x.data_ptr(), out.data_ptr(),
                 x.numel())
     return out

@@ -58,16 +58,19 @@ DEFAULT_BLOCK = 512
 RANK_BS = 512  # keys per bin-rank block (fixed in bin_rank.cu)
 
 BIN_RANK = _lib.register(
-    "bin_ranks", "bin_rank.cu", "tngp/kernels/window_encoder.py:131"
+    "bin_ranks", "bin_rank.cu", "tngp/kernels/window_encoder.py:131", "tngp_bin_ranks"
 )
 WINDOW_FWD = _lib.register(
-    "window_encode_fwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:336"
+    "window_encode_fwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:336",
+    "tngp_window_encode_fwd",
 )
 WINDOW_BWD = _lib.register(
-    "window_encode_bwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:396"
+    "window_encode_bwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:396",
+    "tngp_window_encode_bwd",
 )
 WINDOW_DX = _lib.register(
-    "window_encode_dx", "window_encoder.cu", "tngp/kernels/window_encoder.py:633"
+    "window_encode_dx", "window_encoder.cu", "tngp/kernels/window_encoder.py:633",
+    "tngp_window_encode_dx",
 )
 
 
@@ -116,7 +119,7 @@ def bin_ranks(keyp: torch.Tensor):
     rank = torch.empty((n,), dtype=torch.int32, device=keyp.device)
     tot = torch.empty((NBk, N_TILES), dtype=torch.int32, device=keyp.device)
     _lib.launch(
-        BIN_RANK, "tngp_bin_ranks", keyp.device,
+        BIN_RANK, keyp.device,
         keyp.data_ptr(), rank.data_ptr(), tot.data_ptr(), NBk,
     )
     return rank, tot
@@ -232,7 +235,7 @@ def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     out = torch.empty((L * C, M_pad), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
-        WINDOW_FWD, "tngp_window_encode_fwd", xyz4.device,
+        WINDOW_FWD, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), out.data_ptr(),
         M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
@@ -279,7 +282,7 @@ def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     gtab = torch.zeros((spec.n_windows, C, WIN_LANES, WIN_HI), dtype=torch.float32,
                        device=xyz4.device)
     _lib.launch(
-        WINDOW_BWD, "tngp_window_encode_bwd", xyz4.device,
+        WINDOW_BWD, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), g_sorted.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), gtab.data_ptr(),
         M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
@@ -336,7 +339,7 @@ def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: in
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     gx = torch.empty((3, M_pad), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
-        WINDOW_DX, "tngp_window_encode_dx", xyz4.device,
+        WINDOW_DX, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(), g_sorted.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), gx.data_ptr(),
         M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
@@ -356,7 +359,7 @@ class _WindowEncodeBinned(torch.autograd.Function):
         payload = torch.cat(
             [x01_cf.float(), x01_cf.new_ones((1, M), dtype=torch.float32)]
         ).T.contiguous()  # [M, 4]
-        xyz4 = scatter_add(dest, payload, M_pad)  # [M_pad, 4]
+        xyz4 = scatter_add(dest, payload, M_pad, indices="unique")  # [M_pad, 4]
         wob = _wob_local(spec, tob)  # [L, NB]
         table = table_win.float().contiguous()
         feats_sorted = window_encode_fwd(xyz4, wob, table, spec, block)  # [LC, M_pad]
@@ -373,7 +376,8 @@ class _WindowEncodeBinned(torch.autograd.Function):
         xyz4, dest, wob, table = ctx.saved_tensors
         # sort the cotangents the way the inputs were sorted: rows [M, LC]
         # (g may arrive non-contiguous) -> [M_pad, LC], unique indices
-        g_sorted = scatter_add(dest, g.float().T.contiguous(), xyz4.shape[0])
+        g_sorted = scatter_add(dest, g.float().T.contiguous(), xyz4.shape[0],
+                               indices="unique")
         gtab = gx = None
         if ctx.needs_input_grad[1]:
             gtab = window_encode_bwd(xyz4, wob, g_sorted, ctx.spec, ctx.block)

@@ -11,7 +11,11 @@ Per ray segment of the ray-major sample stream:
           running transmittance falls below T_thresh
 
 and the per-ray sums of (w * rgb, w, w * t_cum) come from one scatter-add
-(the port's kernel on the card).  The backward needs one suffix segmented
+over the ascending ray ids (on the card the deterministic segmented reduce,
+`indices="sorted"`).  The ids must ascend over padding slots too: the
+renderer gives the march's padding ray n_rays, which the reduction drops
+and the scans and gathers clamp to n_rays - 1 (a padding slot's weight is
+0 either way).  The backward needs one suffix segmented
 sum and three gathers on the ray id:
 
   g_i     = dWs[r_i] + dD[r_i] * tcum_i + dIm[r_i, :] . rgb_i
@@ -84,12 +88,15 @@ class _CompositeStreamCore(torch.autograd.Function):
     """Stream compositor with the closed-form backward (module docstring)."""
 
     @staticmethod
-    def forward(ctx, sigmas, rgbs_cf, dts, t_cum, rid, m, is_start, heads, n_rays, T_thresh):
+    def forward(ctx, sigmas, rgbs_cf, dts, t_cum, rid, sid, m, is_start, heads, n_rays,
+                T_thresh):
         sig, weights, T_after, alive = _stream_weights(sigmas, dts, m, is_start, heads,
                                                        T_thresh)
         rgb = rgbs_cf.float()
         t_cum = t_cum.float()
-        out = scatter_add(rid, _stream_vals(weights, rgb, t_cum), n_rays)  # [N, 5]
+        # the unclamped ids: a padding slot's n_rays drops it (its weight is 0)
+        out = scatter_add(sid, _stream_vals(weights, rgb, t_cum), n_rays,
+                          indices="sorted")  # [N, 5]
         ctx.save_for_backward(rid, m, dts.float(), sig, t_cum, rgb, weights, T_after,
                               alive, is_start)
         ctx.dtypes = (sigmas.dtype, rgbs_cf.dtype, dts.dtype)
@@ -111,7 +118,7 @@ class _CompositeStreamCore(torch.autograd.Function):
         d_dt = (dtau * sig).to(ddt)
         drgb = (w[None] * dim_s).to(rdt)
         dtc = w * dd_s
-        return dsig, drgb, d_dt, dtc, None, None, None, None, None, None
+        return dsig, drgb, d_dt, dtc, None, None, None, None, None, None, None
 
 
 def _stream_prologue(gaps, ray_id, valid, n_rays, t_cum):
@@ -131,7 +138,7 @@ def composite_stream(
     rgbs_cf: torch.Tensor,  # [3, M]
     dts: torch.Tensor,  # [M]
     gaps: torch.Tensor | None,  # [M] real t advance; ignored if t_cum is given
-    ray_id: torch.Tensor,  # [M] nondecreasing ray of each sample
+    ray_id: torch.Tensor,  # [M] nondecreasing ray of each sample; n_rays on padding
     valid: torch.Tensor,  # [M] bool (False = padding slot)
     n_rays: int,
     T_thresh: float = 1e-4,
@@ -142,7 +149,8 @@ def composite_stream(
     and `t_cum` (or `gaps`) through the closed-form backward."""
     m, rid, is_start, heads, t_cum = _stream_prologue(gaps, ray_id, valid, n_rays, t_cum)
     return _CompositeStreamCore.apply(
-        sigmas, rgbs_cf, dts, t_cum, rid, m, is_start, heads, n_rays, float(T_thresh)
+        sigmas, rgbs_cf, dts, t_cum, rid, ray_id.long(), m, is_start, heads, n_rays,
+        float(T_thresh)
     )
 
 

@@ -182,6 +182,7 @@ def render_rays_train(
             bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
             dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
         )
+        ray_id = _ascending_ids(ray_id, cm.sel_valid, N)
     out = field.sigma_rgb(params, x_c, d_c)
     aux = None
     if len(out) == 3:
@@ -278,6 +279,14 @@ def render_rays_uniform(
     return {"image": image, "depth": depth, "weights_sum": ws}
 
 
+def _ascending_ids(ray_id: torch.Tensor, sel_valid: torch.Tensor, n_rays: int) -> torch.Tensor:
+    """The march's padding slots (after the selected prefix) repeat its first
+    sample, so their ray ids fall back below the prefix's; give them n_rays
+    instead, which keeps the ids ascending for the compositor's sorted
+    reduction and drops the padding from it (its weights are 0)."""
+    return torch.where(sel_valid, ray_id, n_rays)
+
+
 def _bucket_ladder(M_total: int) -> list[int]:
     """Power-of-two query widths down to M/16, floored at 4096 samples."""
     ladder: list[int] = []
@@ -311,6 +320,7 @@ def _bucketed_stream_query(field, params, sel, sel_valid, rays_o, rays_d, t0,
         bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
         dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
     )
+    ray_id = _ascending_ids(ray_id, sel_valid[:Mq], n_rays)
     sig_c, rgb_c = field.sigma_rgb(params, x_c, d_c)[:2]
     return composite_stream(
         sig_c.float() * cfg.density_scale, rgb_c, dt_c, None, ray_id,
@@ -407,7 +417,7 @@ def render_rays_eval(
             (T_in * (dep_c + t_a * ws_c))[:, None],
             T_in[:, None] * img_c,
         ], dim=1)  # [Na, 6]
-        upd = scatter_add(sel, delta.contiguous(), N)
+        upd = scatter_add(sel, delta.contiguous(), N, indices="sorted")  # ascends, fill N-1
         rays_t = rays_t + upd[:, 0]
         ws = ws + upd[:, 1]
         depth = depth + upd[:, 2]
