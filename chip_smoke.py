@@ -20,7 +20,7 @@ Phases (any failure exits non-zero and prints no result line):
      128^3 grid), an all-skip input, a ragged M and M = 0;
   2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
      (the int-mul probe exact, the encoder kernels against independent plain
-     versions);
+     versions, each scatter-add form against the exact sum);
   2c. the grid-update stage bench, `tngp_torch.diagnostics.bench_grid_update
      .main()` at full width (H = 128, 2N = 1,048,576 queries, the flagship
      network): its stage times, the set-scatter kernel exactly equal to its
@@ -911,10 +911,10 @@ def main() -> int:
             err_round, sel_r, delta6, N_RAYS, path="eval", worst_err_over_bound=worst_round,
             call=f"eval round update: Na = {Na} alive-ray slots, ascending, fill N - 1 (the "
                  "frame's count includes the per-ray reductions)")
-    add_row("scatter_add_any", "any", launches_eval["scatter_add_any"], err_any, rid, vals5,
-            N_RAYS, path="none yet", worst_err_over_bound=worst_any,
-            call="general indices (atomics), kept for later callers; timed on the per-ray "
-                 "reduction's inputs")
+    add_row("scatter_add_any", "any", launches_parity["scatter_add_any"], err_any, rid, vals5,
+            N_RAYS, path="device parity", worst_err_over_bound=worst_any,
+            call="general indices (atomics): no caller on the training or eval path yet; "
+                 "timed on the per-ray reduction's inputs, the atomics' contended case")
 
     # the backward kernel, on the inputs a training step gave it (captured
     # above) and on uniform samples at the top tier.  Bytes: samples, cotangents

@@ -32,7 +32,8 @@
 //          loads), strides over the run's rows of vals with a fixed lane
 //          for each j, adds each lane's channels in j order, folds the 32
 //          lanes with a fixed __shfl_down_sync tree and writes the row once
-//          (0 for a row with no entries).  No atomics and no zero fill.
+//          (0 for a row with no entries; a row of one entry skips the
+//          fold).  No atomics and no zero fill.
 //          The order of every add is fixed by (lo, hi) alone, so the same
 //          inputs give bitwise the same output on every run.  Indices
 //          below 0 or at or past num_rows fall outside every row's run and
@@ -42,14 +43,17 @@
 //          ~160 idx entries per row, which stay in L2), the output written
 //          once.  A run longer than a few thousand rows keeps one warp
 //          busy alone: the callers' runs are one ray's samples (at most
-//          max_steps) and padding is given an out-of-range row.
+//          max_steps) and padding is given an out-of-range row.  With few
+//          entries per row (the round update: 1024 into 4096 rows) the
+//          search's dependent loads bound it, not bytes.
 //  any     (`tngp_scatter_add_any_f32`; general indices, for later
-//          callers): one thread per row j, vector atomics (sm_90's
-//          atomicAdd on float4 / float2 in global memory: one atomic per
-//          16 bytes) into the memset output.  Repeated rows are added in
-//          the order the atomics land: within f32 reordering error, not
-//          bitwise reproducible.
-//          Bound: bytes, as unique; contention on a repeated row is on top.
+//          callers): the unique form's threads, each adding its chunk with
+//          a vector atomic (sm_90's atomicAdd on float4 / float2 in global
+//          memory: one atomic per 16 bytes) into the memset output.
+//          Repeated rows are added in the order the atomics land: within
+//          f32 reordering error, not bitwise reproducible.
+//          Bound: bytes, as unique; contention on a repeated row is on top
+//          (the per-ray reduction's ~96 adds into one row serialise).
 //
 // The vector width is 4 floats where C % 4 == 0 and vals and out are
 // 16-byte aligned, else 2 where C % 2 == 0 and 8-byte aligned, else 1.
@@ -60,11 +64,13 @@
 
 namespace cg = cooperative_groups;
 
-template <typename V>
-__global__ void scatter_add_unique_kernel(const int64_t* __restrict__ idx,
-                                          const V* __restrict__ vals,
-                                          V* __restrict__ out, int64_t n,
-                                          int cv, int64_t num_rows) {
+// One thread per (row j, vector chunk): threadIdx.x is the chunk, so no
+// integer division.  UNIQUE stores, the general form adds atomically.
+template <bool UNIQUE, typename V>
+__global__ void scatter_add_rows_kernel(const int64_t* __restrict__ idx,
+                                        const V* __restrict__ vals,
+                                        V* __restrict__ out, int64_t n, int cv,
+                                        int64_t num_rows) {
   int64_t j = (int64_t)blockIdx.x * blockDim.y + threadIdx.y;
   if (j >= n) return;
   int64_t r = idx[j];
@@ -72,21 +78,12 @@ __global__ void scatter_add_unique_kernel(const int64_t* __restrict__ idx,
   if (r < 0 || r >= num_rows) return;
   const V* src = vals + j * cv;
   V* dst = out + r * cv;
-  for (int c = threadIdx.x; c < cv; c += blockDim.x) dst[c] = src[c];
-}
-
-template <typename V>
-__global__ void scatter_add_any_kernel(const int64_t* __restrict__ idx,
-                                       const V* __restrict__ vals,
-                                       V* __restrict__ out, int64_t n, int cv,
-                                       int64_t num_rows) {
-  int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  int64_t r = idx[j];
-  if (r < 0 || r >= num_rows) return;
-  const V* src = vals + j * cv;
-  V* dst = out + r * cv;
-  for (int c = 0; c < cv; ++c) atomicAdd(dst + c, src[c]);
+  for (int c = threadIdx.x; c < cv; c += blockDim.x) {
+    if constexpr (UNIQUE)
+      dst[c] = src[c];
+    else
+      atomicAdd(dst + c, src[c]);
+  }
 }
 
 // First p in [0, n) with idx[p] >= key (n if none), searched by the 16
@@ -164,20 +161,14 @@ static int vec_width(const void* a, const void* b, int C) {
 // zero the output, then launch the unique or the any form at the widest
 // vector width that C and the pointers' alignment allow
 template <bool UNIQUE, typename V>
-static void launch_add(const int64_t* idx, const float* vals, float* out,
-                       int64_t n, int cv, int64_t num_rows,
-                       cudaStream_t stream) {
-  if (UNIQUE) {
-    int bx = cv < 32 ? cv : 32;  // threads per row, one vector each
-    int by = 256 / bx;           // rows per block
-    int64_t blocks = (n + by - 1) / by;
-    scatter_add_unique_kernel<V><<<(unsigned)blocks, dim3(bx, by), 0, stream>>>(
-        idx, (const V*)vals, (V*)out, n, cv, num_rows);
-  } else {
-    int64_t blocks = (n + 255) / 256;
-    scatter_add_any_kernel<V><<<(unsigned)blocks, 256, 0, stream>>>(
-        idx, (const V*)vals, (V*)out, n, cv, num_rows);
-  }
+static void launch_rows(const int64_t* idx, const float* vals, float* out,
+                        int64_t n, int cv, int64_t num_rows,
+                        cudaStream_t stream) {
+  int bx = cv < 32 ? cv : 32;  // threads per row, one vector each
+  int by = 256 / bx;           // rows per block
+  int64_t blocks = (n + by - 1) / by;
+  scatter_add_rows_kernel<UNIQUE, V><<<(unsigned)blocks, dim3(bx, by), 0, stream>>>(
+      idx, (const V*)vals, (V*)out, n, cv, num_rows);
 }
 
 template <bool UNIQUE>
@@ -191,11 +182,11 @@ static int zero_then_add(const int64_t* idx, const float* vals, float* out,
   if (n > 0) {
     int v = vec_width(vals, out, C);
     if (v == 4)
-      launch_add<UNIQUE, float4>(idx, vals, out, n, C / 4, num_rows, stream);
+      launch_rows<UNIQUE, float4>(idx, vals, out, n, C / 4, num_rows, stream);
     else if (v == 2)
-      launch_add<UNIQUE, float2>(idx, vals, out, n, C / 2, num_rows, stream);
+      launch_rows<UNIQUE, float2>(idx, vals, out, n, C / 2, num_rows, stream);
     else
-      launch_add<UNIQUE, float>(idx, vals, out, n, C, num_rows, stream);
+      launch_rows<UNIQUE, float>(idx, vals, out, n, C, num_rows, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -255,12 +246,10 @@ extern "C" int tngp_scatter_add_sorted_f32(const int64_t* idx, const float* vals
 // kernel moves more: winner is written, hit by the atomics and read again,
 // 8 B per cell and 4 B per write on top.
 //
-// `tngp_scatter_set_packed_f32` is the alternative measured beside it: a
-// 64-bit atomicMax of ((j + 1) << 32 | bits(vals[j])) into a uint64 scratch
-// filled with 0, so phase 3 unpacks the winning value without the
-// dependent vals[winner] gather, at 8 B of scratch per cell instead of 4.
-// The same three phases in one cooperative launch, exact for the same
-// reason (j + 1 in the high word decides the maximum).
+// Measured beside it and dropped: a 64-bit atomicMax of
+// ((j + 1) << 32 | bits(vals[j])) into a uint64 scratch, which spares phase
+// 3 the dependent vals[winner] gather but moves 8 B of scratch per cell
+// instead of 4 (slower on the H100; PERF.md, PR 5).
 
 __global__ void scatter_set_kernel(const int64_t* __restrict__ idx,
                                    const float* __restrict__ vals,
@@ -287,91 +276,41 @@ __global__ void scatter_set_kernel(const int64_t* __restrict__ idx,
   }
 }
 
-__device__ __forceinline__ float unpack_or(unsigned long long k, float init) {
-  return k ? __uint_as_float((unsigned)k) : init;
-}
-
-__global__ void scatter_set_packed_kernel(const int64_t* __restrict__ idx,
-                                          const float* __restrict__ vals,
-                                          unsigned long long* key,
-                                          float* __restrict__ out, int n,
-                                          int64_t num_cells, float init) {
-  cg::grid_group grid = cg::this_grid();
-  int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t nth = (int64_t)gridDim.x * blockDim.x;
-  int64_t n4 = num_cells / 4;
-  ulonglong2* k2 = reinterpret_cast<ulonglong2*>(key);
-  for (int64_t c = tid; c < 2 * n4; c += nth) k2[c] = make_ulonglong2(0ull, 0ull);
-  grid.sync();
-  for (int64_t j = tid; j < n; j += nth) {
-    int64_t c = idx[j];
-    if (c >= 0 && c < num_cells)
-      atomicMax(key + c, ((unsigned long long)(j + 1) << 32) |
-                             __float_as_uint(vals[j]));
-  }
-  grid.sync();
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (int64_t c = tid; c < n4; c += nth) {
-    ulonglong2 a = __ldcg(k2 + 2 * c), b = __ldcg(k2 + 2 * c + 1);
-    o4[c] = make_float4(unpack_or(a.x, init), unpack_or(a.y, init),
-                        unpack_or(b.x, init), unpack_or(b.y, init));
-  }
-}
-
-// Blocks of `threads` that fit on the card at once for `kernel`, cached per
-// device (the answer does not change within a process).
-static int resident_blocks(const void* kernel, int threads, int slot) {
-  static int cache[2][16];
+// Blocks of `threads` that fit on the card at once for the set-scatter
+// kernel, cached per device (the answer does not change within a process).
+static int resident_blocks(int threads) {
+  static int cache[16];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
-  int b = cache[slot][dev];
-  if (b == 0) {
+  if (cache[dev] == 0) {
     int per_sm = 0, sms = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      0) != cudaSuccess ||
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, scatter_set_kernel, threads, 0) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess)
       return 0;
-    b = per_sm * sms;
-    cache[slot][dev] = b;
+    cache[dev] = per_sm * sms;
   }
-  return b;
-}
-
-static int launch_set(const void* kernel, int slot, const int64_t* idx,
-                      const float* vals, void* scratch, float* out, int n,
-                      int64_t num_cells, float init, cudaStream_t stream) {
-  // large blocks: each grid.sync() waits for one arrival per block
-  const int threads = 1024;
-  if (num_cells <= 0) return (int)cudaGetLastError();
-  if (num_cells % 4 != 0) return (int)cudaErrorInvalidValue;
-  int most = resident_blocks(kernel, threads, slot);
-  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
-  int64_t work = num_cells / 4 > n ? num_cells / 4 : n;
-  int64_t want = (work + threads - 1) / threads;
-  int blocks = (int)(want < most ? want : most);
-  void* args[] = {(void*)&idx,  (void*)&vals,      (void*)&scratch,
-                  (void*)&out,  (void*)&n,         (void*)&num_cells,
-                  (void*)&init};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel, blocks, threads, args,
-                                                0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return cache[dev];
 }
 
 extern "C" int tngp_scatter_set_f32(const int64_t* idx, const float* vals,
                                     int* winner, float* out, int n,
                                     int64_t num_cells, float init,
                                     cudaStream_t stream) {
-  return launch_set((const void*)scatter_set_kernel, 0, idx, vals, winner, out,
-                    n, num_cells, init, stream);
-}
-
-extern "C" int tngp_scatter_set_packed_f32(const int64_t* idx,
-                                           const float* vals,
-                                           unsigned long long* key, float* out,
-                                           int n, int64_t num_cells, float init,
-                                           cudaStream_t stream) {
-  return launch_set((const void*)scatter_set_packed_kernel, 1, idx, vals, key,
-                    out, n, num_cells, init, stream);
+  // large blocks: each grid.sync() waits for one arrival per block
+  const int threads = 1024;
+  if (num_cells <= 0) return (int)cudaGetLastError();
+  if (num_cells % 4 != 0) return (int)cudaErrorInvalidValue;
+  int most = resident_blocks(threads);
+  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
+  int64_t work = num_cells / 4 > n ? num_cells / 4 : n;
+  int64_t want = (work + threads - 1) / threads;
+  int blocks = (int)(want < most ? want : most);
+  void* args[] = {(void*)&idx, (void*)&vals, (void*)&winner,   (void*)&out,
+                  (void*)&n,   (void*)&num_cells, (void*)&init};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)scatter_set_kernel, blocks, threads, args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

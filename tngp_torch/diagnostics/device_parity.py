@@ -1,5 +1,5 @@
-"""Device parity of the window encoder's kernels — the port of
-`scripts/check_device_parity.py`.
+"""Device parity of the window encoder's kernels and the scatter-add — the
+port of `scripts/check_device_parity.py`.
 
     python -m tngp_torch.diagnostics.device_parity [--seed 0]
 
@@ -16,14 +16,18 @@ straddle a tile boundary:
              channel 1 the hi row of every window), so a wrong row shows as
              a wrong code;
   bwd grad   the table-gradient kernel against `window_table_grad_ref`;
-  input grad the input-gradient kernel against its plain version.
+  input grad the input-gradient kernel against its plain version;
+  scatter    each scatter-add form on indices that hold its statement
+             (unique C = 4, sorted C = 5, any C = 6; as many rows of values
+             as samples) against the exact f64 sum.
 
 Each tolerance is the f32 reordering bound of the sum it checks: two sums of
 the same n terms in two orders differ by at most 2 (n - 1) 2^-24 sum|term|
 (n = 8 corners for the forward; the terms of each table entry for the
 table gradient; the L*C (level, channel) terms of each sample and dimension
 for the input gradient, which the kernel adds in order and the plain
-version in torch's order).  A probe that fails makes `main` return 1; an
+version in torch's order); against an exact sum, one order is within
+(n - 1) 2^-24 sum|term|, which asks a unique scatter to be exact.  A probe that fails makes `main` return 1; an
 error raises.  The JAX script also checks a trained hard-scene table from
 its msgpack checkpoints; that branch waits for the checkpoint port (ROADMAP
 item 8).
@@ -39,6 +43,7 @@ import torch
 from ..kernels import _lib
 from ..kernels import window_encoder as kw
 from ..kernels.int_mul import int_mul_hash, int_mul_hash_plain
+from ..kernels.scatter import scatter_add
 from ..ops import window_table as wt
 
 U = 2.0**-24  # f32 unit roundoff
@@ -133,6 +138,30 @@ def input_grad_probe(spec, table_win, x01, block: int = kw.DEFAULT_BLOCK) -> boo
     return _report("input grad", (x.grad - want[:, dest]).abs(), tol[:, dest])
 
 
+def scatter_probe(n: int, seed: int, device) -> bool:
+    """Each scatter-add form against the exact (f64) sum of its rows: within
+    (n_row - 1) 2^-24 sum|v|, so exact where a row has one entry."""
+    gen = torch.Generator().manual_seed(seed)
+    rows = max(n // 16, 1)
+    cases = {"unique": (torch.randperm(4 * n, generator=gen)[:n], 4 * n, 4),
+             "sorted": (torch.sort(torch.randint(0, rows, (n,), generator=gen)).values, rows, 5),
+             "any": (torch.randint(0, rows, (n,), generator=gen), rows, 6)}
+    ok = True
+    for indices, (idx, num_rows, C) in cases.items():
+        vals = torch.randn((n, C), generator=gen).to(device)
+        idx = idx.to(device)
+        got = scatter_add(idx, vals, num_rows, indices=indices)
+
+        def exact(v):
+            z = torch.zeros((num_rows, C), dtype=torch.float64, device=device)
+            return z.index_add_(0, idx, v.double())
+
+        count = torch.bincount(idx, minlength=num_rows).double()[:, None]
+        tol = (count - 1).clamp(min=0) * U * exact(vals.abs())
+        ok &= _report(f"scatter {indices}", (got.double() - exact(vals)).abs(), tol)
+    return ok
+
+
 def probe_inputs(spec, n: int, seed: int, device):
     """N(0, 1e-2) table in the window layout and n uniform samples plus n/64
     that straddle the tile boundary x = 1/4, from `seed`."""
@@ -146,15 +175,15 @@ def probe_inputs(spec, n: int, seed: int, device):
 
 
 # the kernels `run_probes` launches (a caller checks that each ran)
-KERNELS = ("int_mul_probe", "bin_ranks", "scatter_add_unique", "window_encode_fwd",
-           "window_encode_bwd", "window_encode_dx")
+KERNELS = ("int_mul_probe", "bin_ranks", "scatter_add_unique", "scatter_add_sorted",
+           "scatter_add_any", "window_encode_fwd", "window_encode_bwd", "window_encode_dx")
 
 
 def run_probes(spec, n: int = 65536, seed: int = 0, device="cuda") -> bool:
     table, x01 = probe_inputs(spec, n, seed, device)
     ok = [int_mul_probe(device), forward_probe(spec, table, x01),
           row_mapping_probe(spec, x01), bwd_probe(spec, table, x01),
-          input_grad_probe(spec, table, x01)]
+          input_grad_probe(spec, table, x01), scatter_probe(n, seed, device)]
     return all(ok)
 
 

@@ -102,7 +102,7 @@ def scatter_calls(seed: int = 0) -> dict:
     path's shapes, through the imported package's wrappers (a package whose
     `scatter_add` takes no `indices` runs its one form)."""
     from tngp_torch.diagnostics import bench_grid_update as bg
-    from tngp_torch.kernels import _lib, int_mul
+    from tngp_torch.kernels import int_mul
     from tngp_torch.kernels import scatter as ks
     from tngp_torch.kernels import window_encoder as kw
 
@@ -130,23 +130,7 @@ def scatter_calls(seed: int = 0) -> dict:
     idx_s, vals_s = bg.scatter_inputs(H3, 2 * (H3 // 4), torch.Generator(device=dev)
                                       .manual_seed(seed + 1))
     xi = torch.arange(1 << 13, dtype=torch.int32, device=dev).reshape(8, -1)
-    extra = {}
-    lib = _lib.library("scatter.cu")
-    if hasattr(lib, "tngp_scatter_set_packed_f32"):  # the design alternative, beside it
-        def packed():
-            key = torch.empty((H3,), dtype=torch.int64, device=dev)
-            out = torch.empty((H3,), dtype=torch.float32, device=dev)
-            rc = lib.tngp_scatter_set_packed_f32(
-                idx_s.data_ptr(), vals_s.data_ptr(), key.data_ptr(), out.data_ptr(),
-                idx_s.numel(), H3, -1.0, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"tngp_scatter_set_packed_f32: CUDA error {rc}")
-            return out
-
-        if not torch.equal(packed(), ks.scatter_set_flat(idx_s, vals_s, H3)):
-            raise SystemExit("the packed set-scatter differs from scatter_set_flat")
-        extra["scatter_set_packed"] = (packed, None)
-    return {**extra,
+    return {
         "payload_sort_unique_C4": add(dest, payload, kw.padded_size(M, kw.DEFAULT_BLOCK),
                                       "unique"),
         "per_ray_sorted_C5": add(rid, torch.rand((M, 5), generator=gen).to(dev), N, "sorted"),

@@ -46,10 +46,9 @@ _SIGNATURES = {
            [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
             _c.c_int64, _c.c_void_p])
           for form in ("unique", "sorted", "any")],
-        *[(name, _c.c_int,
-           [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
-            _c.c_int64, _c.c_float, _c.c_void_p])
-          for name in ("tngp_scatter_set_f32", "tngp_scatter_set_packed_f32")],
+        ("tngp_scatter_set_f32", _c.c_int,
+         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
+          _c.c_int64, _c.c_float, _c.c_void_p]),
     ],
     "bin_rank.cu": [
         ("tngp_bin_ranks", _c.c_int,

@@ -54,7 +54,7 @@ KERNEL_SET = _lib.register(
 )
 
 
-def check_indices(idx: torch.Tensor, indices: str) -> None:
+def _check_indices(idx: torch.Tensor, indices: str) -> None:
     """Raise `ValueError` unless `idx` holds what `indices` states."""
     if indices not in INDICES:
         raise ValueError(f"indices must be one of {INDICES}, got {indices!r}")
@@ -68,12 +68,10 @@ def scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor, num_rows: int,
                       indices: str = "any") -> torch.Tensor:
     """Plain version: `index_add_` into zeros, whatever `indices` says; an
     out-of-range index goes to an overflow row that is cut off.  For a CPU
-    tensor the statement is checked (`check_indices`); on the card it is
+    tensor the statement is checked (`_check_indices`); on the card it is
     not, so that this path makes no host sync."""
     if idx.device.type == "cpu":
-        check_indices(idx, indices)
-    elif indices not in INDICES:
-        raise ValueError(f"indices must be one of {INDICES}, got {indices!r}")
+        _check_indices(idx, indices)
     idx = idx.long()
     slot = torch.where((idx >= 0) & (idx < num_rows), idx, num_rows)
     out = torch.zeros((num_rows + 1, vals.shape[1]), dtype=torch.float32, device=vals.device)
@@ -88,11 +86,10 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, *,
 
     CPU tensors take the plain version; CUDA tensors launch the stated
     form's kernel."""
+    if indices not in INDICES:
+        raise ValueError(f"indices must be one of {INDICES}, got {indices!r}")
     if _lib.use_plain(vals):
         return scatter_add_plain(idx, vals, num_rows, indices)
-    kernel = KERNELS_ADD.get(indices)
-    if kernel is None:
-        raise ValueError(f"indices must be one of {INDICES}, got {indices!r}")
     M = idx.shape[0]
     _lib.check(idx, "idx", torch.int64, (M,))
     _lib.check(vals, "vals", torch.float32, (M, None))
@@ -100,7 +97,7 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, *,
         raise ValueError("idx and vals must be on one device")
     C = vals.shape[1]
     out = torch.empty((num_rows, C), dtype=torch.float32, device=vals.device)
-    _lib.launch(kernel, vals.device, idx.data_ptr(), vals.data_ptr(), out.data_ptr(), M, C,
+    _lib.launch(KERNELS_ADD[indices], vals.device, idx.data_ptr(), vals.data_ptr(), out.data_ptr(), M, C,
                 num_rows)
     return out
 
