@@ -51,8 +51,10 @@ Phases (any failure exits non-zero and prints no result line):
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes: ms
      (CUDA events around 20 back-to-back calls), host_us (200 calls without
-     a sync) and, last, device_ms (profiler device events), beside the
-     least time the card could take (`tngp_torch.diagnostics.kernel_times`);
+     a sync) and, last, device_ms (profiler device events, or CUDA graph
+     replays where the profiler records none, as after --profile's
+     profiles), beside the least time the card could take
+     (`tngp_torch.diagnostics.kernel_times`);
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
@@ -1010,11 +1012,11 @@ def main() -> int:
         raise SystemExit(f"registered kernels without a timing row: {sorted(missing)}")
 
     for r, fn_k, fn_lib in to_profile:
-        r["device_ms"], r["device_events"] = device_ms(fn_k)
+        r["device_ms"], r["device_events"], r["device_ms_method"] = device_ms(fn_k)
         r["library_device_ms"] = None if fn_lib is None else device_ms(fn_lib)[0]
         lib_dev = r["library_device_ms"]
-        log(f"[time] {r['name']:34s} device {r['device_ms']:9.4f} ms over "
-            f"{r['device_events']} device events per call; library device "
+        log(f"[time] {r['name']:34s} device {r['device_ms']:9.4f} ms ({r['device_ms_method']}, "
+            f"{r['device_events']} device events per call); library device "
             f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms")
 
     # ---- 8. report ---------------------------------------------------------

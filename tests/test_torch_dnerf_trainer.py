@@ -20,6 +20,7 @@ from tngp.utils.config import TrainConfig as JaxTrainConfig
 from tngp_torch.convert import flax_params_from_ngp_state_dict, load_adam_state, \
     ngp_state_dict_from_flax
 from tngp_torch.data import make_synthetic_dynamic_dataset
+from tngp_torch.kernels import scatter
 from tngp_torch.models import DNeRFNetwork
 from tngp_torch.render import RenderConfig
 from tngp_torch.train import DNeRFTrainer, ema_init, ema_update, make_optimizer
@@ -91,7 +92,8 @@ def test_trainer_trains_renders_at_a_time_and_a_step_reads_nothing_back(monkeypa
     """`DNeRFTrainer(device="cpu")` for 12 steps on a 3-frame 16x16 dynamic
     scene, grid updates at steps 0 and 8 (both full: fewer than 16 have
     run), no budget tiers; no tensor is read back inside `train_step` (the
-    reads counted as in `test_torch_trainer.py`); `render_image(time=)` and
+    reads counted, and the CPU-only ones left out, as in
+    `test_torch_trainer.py`); `render_image(time=)` and
     `evaluate` give finite images."""
     ds = make_synthetic_dynamic_dataset(n_frames=3, H=16, W=16, num_steps=32, device="cpu")
     model = DNeRFNetwork(encoding="hashgrid_window", device="cpu", **DNERF_KW, **DNERF_ENC_KW)
@@ -128,6 +130,16 @@ def test_trainer_trains_renders_at_a_time_and_a_step_reads_nothing_back(monkeypa
             reads["on"] = True
 
     tr.train_step, tr.optimizer.step = train_step, optimizer_step
+    statement_check = scatter._check_indices
+
+    def cpu_statement_check(*a, **k):
+        on, reads["on"] = reads["on"], False
+        try:
+            return statement_check(*a, **k)
+        finally:
+            reads["on"] = on
+
+    monkeypatch.setattr(scatter, "_check_indices", cpu_statement_check)
     losses, pts, kept = tr.run_steps(12)
     assert reads["n"] == 0
     assert tr.global_step == 12 and tr._grid_updates == 2 and int(tr.grid.iter_density) == 2

@@ -276,6 +276,40 @@ def test_scatter_add_matches_plain(cuda, indices, C):
 
 
 @pytest.mark.gpu
+def test_scatter_kernels_replay_in_a_cuda_graph(cuda):
+    """`kernel_times.graph_replay_ms`, the device timing used where the
+    profiler records nothing, captures each scatter-add form and the
+    cooperative set-scatter: a replay leaves the direct call's output
+    (bitwise for unique, sorted and the set; within f32 reordering for the
+    atomic form)."""
+    from tngp_torch.diagnostics.kernel_times import graph_replay_ms
+
+    rng = np.random.default_rng(3)
+    M, rows = 50_000, 1024
+    vals = torch.from_numpy(rng.normal(size=(M, 4)).astype(np.float32)).to(cuda)
+    sorted_idx = torch.sort(torch.from_numpy(rng.integers(0, rows, M))).values.to(cuda)
+    calls = {
+        "unique": lambda: ks.scatter_add(torch.arange(M, device=cuda), vals, M,
+                                         indices="unique"),
+        "sorted": lambda: ks.scatter_add(sorted_idx, vals, rows, indices="sorted"),
+        "any": lambda: ks.scatter_add(sorted_idx, vals, rows, indices="any"),
+        "set": lambda: ks.scatter_set_flat(sorted_idx, vals[:, 0], 4096),
+    }
+    for name, call in calls.items():
+        out = {}
+
+        def fn():
+            out["y"] = call()
+
+        assert graph_replay_ms(fn) > 0
+        want = call()
+        if name == "any":
+            torch.testing.assert_close(out["y"], want, rtol=1e-5, atol=1e-4)
+        else:
+            assert torch.equal(out["y"], want), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["duplicates", "ragged_with_skips", "all_skip", "empty"])
 def test_scatter_set_matches_plain_exactly(cuda, case):
     """Exact and deterministic: the last write wins a repeated cell, -1

@@ -22,6 +22,7 @@ from tngp_torch.convert import (
     ngp_state_dict_from_flax,
 )
 from tngp_torch.data import make_synthetic_dataset
+from tngp_torch.kernels import scatter
 from tngp_torch.models import NGPNetwork
 from tngp_torch.render import RenderConfig
 from tngp_torch.train import Trainer, ema_init, ema_update, make_optimizer
@@ -150,8 +151,10 @@ def test_trainer_trains_and_a_step_reads_nothing_back(monkeypatch):
     two grid updates (steps 0 and 16) and one tier read: the loss falls, and
     no tensor is read back to the host inside `train_step` (`.item()`,
     `.tolist()`, `.cpu()`, `.numpy()` and the bool/int/float conversions are
-    counted; Adam's reads of its own host-side step counters are not device
-    reads and are left out)."""
+    counted; Adam's reads of its own host-side step counters, and the
+    scatter-add's check of its caller's index statement, which runs for CPU
+    tensors only and never on the card, are not device reads and are left
+    out)."""
     ds = make_synthetic_dataset(n_frames=4, H=32, W=32, seed=0, num_steps=64, device="cpu")
     model = NGPNetwork(compute_dtype=torch.float32, device="cpu", **NET_KW)
     cfg = RenderConfig(**CFG_KW)
@@ -186,6 +189,16 @@ def test_trainer_trains_and_a_step_reads_nothing_back(monkeypatch):
             reads["on"] = True
 
     tr.train_step, tr.optimizer.step = train_step, optimizer_step
+    statement_check = scatter._check_indices
+
+    def cpu_statement_check(*a, **k):
+        on, reads["on"] = reads["on"], False
+        try:
+            return statement_check(*a, **k)
+        finally:
+            reads["on"] = on
+
+    monkeypatch.setattr(scatter, "_check_indices", cpu_statement_check)
     losses, pts, kept = tr.run_steps(20)
     assert reads["n"] == 0
     assert tr.host_reads == 1 and tr.global_step == 20 and tr._grid_updates == 2

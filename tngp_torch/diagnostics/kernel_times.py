@@ -7,6 +7,9 @@ kernels timed with them at the main path's shapes.
   per call: the wall a caller sees per call, max(host, device);
 - `device_ms`: the summed device time of the call's own kernels, memsets
   included, per call, from `torch.profiler`'s device events over 20 calls;
+  where the profiler records none (it records nothing once an earlier
+  large profile has run in the process, as `chip_smoke.py --profile`'s
+  do), CUDA events around 20 replays of a CUDA graph of one call;
 - `host_us`: `time.perf_counter` around 200 calls with no synchronize, per
   call: the enqueue cost.
 
@@ -63,13 +66,28 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
     return dt / calls * 1e6
 
 
-def device_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> tuple[float, int]:
-    """(device ms per call, device events per call): per distinct
+def graph_replay_ms(fn, reps: int = REPS) -> float:
+    """ms per replay of a CUDA graph captured around one call (warmed on a
+    side stream first, as capture requires)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return events_ms(graph.replay, reps)
+
+
+def device_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> tuple[float, int | None, str]:
+    """(device ms per call, device events per call, method): per distinct
     device-side event (kernel, memset, copy) that `torch.profiler` records
-    over `reps` calls, its mean duration times its count per call, summed.
-    Means per event keep the number right where the profiler drops a few
-    events.  The profiler's host cost lingers in the process, so a caller
-    takes these after its other timings."""
+    over `reps` calls, its mean duration times its count per call, summed
+    (means per event keep the number right where the profiler drops a few
+    events); where it records none, `graph_replay_ms` (events unknown).
+    The profiler's host cost lingers in the process, so a caller takes
+    these after its other timings."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -83,10 +101,10 @@ def device_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> tuple[float, int]:
     cuda_t = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.key_averages() if e.device_type == cuda_t and e.device_time_total > 0]
     if not evs:
-        raise RuntimeError("torch.profiler recorded no device time for a timed call")
+        return graph_replay_ms(fn, reps), None, "graph replay"
     per_call = [max(1, round(e.count / reps)) for e in evs]
     return (sum(e.device_time_total / e.count * k for e, k in zip(evs, per_call)) / 1e3,
-            sum(per_call))
+            sum(per_call), "profiler")
 
 
 def card() -> str:
@@ -156,9 +174,10 @@ def main(seed: int = 0) -> int:
                        library_host_us=None if lib is None else host_us(lib))
             for name, (k, lib) in calls.items()}
     for name, (k, lib) in calls.items():
-        rows[name]["device_ms"], rows[name]["device_events"] = device_ms(k)
+        (rows[name]["device_ms"], rows[name]["device_events"],
+         rows[name]["device_ms_method"]) = device_ms(k)
         if lib is not None:
-            rows[name]["library_device_ms"], _ = device_ms(lib)
+            rows[name]["library_device_ms"] = device_ms(lib)[0]
     print(f"card: {card()}")
     print(json.dumps({"package": os.path.dirname(tngp_torch.__file__), "times": rows}))
     return 0
