@@ -288,12 +288,13 @@ def test_scatter_kernels_replay_in_a_cuda_graph(cuda):
     M, rows = 50_000, 1024
     vals = torch.from_numpy(rng.normal(size=(M, 4)).astype(np.float32)).to(cuda)
     sorted_idx = torch.sort(torch.from_numpy(rng.integers(0, rows, M))).values.to(cuda)
+    vals0 = vals[:, 0].contiguous()
     calls = {
         "unique": lambda: ks.scatter_add(torch.arange(M, device=cuda), vals, M,
                                          indices="unique"),
         "sorted": lambda: ks.scatter_add(sorted_idx, vals, rows, indices="sorted"),
         "any": lambda: ks.scatter_add(sorted_idx, vals, rows, indices="any"),
-        "set": lambda: ks.scatter_set_flat(sorted_idx, vals[:, 0], 4096),
+        "set": lambda: ks.scatter_set_flat(sorted_idx, vals0, 4096),
     }
     for name, call in calls.items():
         out = {}

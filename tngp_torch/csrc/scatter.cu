@@ -249,7 +249,7 @@ extern "C" int tngp_scatter_add_sorted_f32(const int64_t* idx, const float* vals
 // Measured beside it and dropped: a 64-bit atomicMax of
 // ((j + 1) << 32 | bits(vals[j])) into a uint64 scratch, which spares phase
 // 3 the dependent vals[winner] gather but moves 8 B of scratch per cell
-// instead of 4 (slower on the H100; PERF.md, PR 5).
+// instead of 4 (slower on the H100: PERF.md, section 6).
 
 __global__ void scatter_set_kernel(const int64_t* __restrict__ idx,
                                    const float* __restrict__ vals,

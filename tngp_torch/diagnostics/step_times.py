@@ -1,14 +1,15 @@
-"""Wall time of the instant-NGP training step on the card, as `chip_smoke.py`
-phase 4 drives it (bench.py's loop), in a process of its own.
+"""Wall time of the instant-NGP eval frame and training step on the card, as
+`chip_smoke.py` phases 3 and 4 drive them, in a process of its own.
 
     python3 tngp_torch/diagnostics/step_times.py [--root DIR] [--seed 0]
 
-The flagship network (random weights from --seed) on 12 views of 128x128 of
-the blob scene, 4096 rays/step, lr 1e-2, grid update and budget-tier read
-every 16 steps: 200 untimed steps, then three windows of 100 steps, each
-timed by the host clock between two synchronizes (grid updates and tier
-reads included).  The step is host-bound, so this wall is mostly the
-host's enqueue cost.  `--root DIR` imports `tngp_torch` from another
+The flagship network (random weights from --seed): a warm-up and a timed
+800x800 frame on bench.py's blob occupancy grid (4096-ray chunks), then on
+12 views of 128x128 of the blob scene, 4096 rays/step, lr 1e-2, grid
+update and budget-tier read every 16 steps: 200 untimed steps and three
+windows of 100 steps, each timed by the host clock between two
+synchronizes (grid updates and tier reads included).  Both are host-bound,
+so these walls are mostly the host's enqueue cost.  `--root DIR` imports `tngp_torch` from another
 checkout (say the parent commit's, in a git-ignored directory), so two
 versions can alternate on one card in one call.  Prints one JSON line
 (name the card beside it: `nvidia-smi --query-gpu=name,power.limit
@@ -33,9 +34,10 @@ def main(seed: int = 0) -> int:
         print("step_times: no CUDA card visible; this run needs one", file=sys.stderr)
         return 2
     import tngp_torch
-    from tngp_torch.data import make_synthetic_dataset
+    from tngp_torch.data import make_blob_field, make_synthetic_dataset, orbit_poses
     from tngp_torch.models import NGPNetwork
-    from tngp_torch.render import RenderConfig
+    from tngp_torch.ops.grid_utils import packbits
+    from tngp_torch.render import OccupancyGrid, RenderConfig, cell_centers_cf
     from tngp_torch.train import Trainer
     from tngp_torch.utils import TrainConfig
 
@@ -46,6 +48,18 @@ def main(seed: int = 0) -> int:
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True)
     tc = TrainConfig(num_rays=4096, lr=1e-2, seed=seed, adaptive_overdrive=False)
     tr = Trainer(model, ds, cfg, tc, device=dev, constant_lr=True, full_grid_updates=2)
+    grid0 = tr.grid
+    density = make_blob_field(0, device=dev).density(
+        None, cell_centers_cf(0, cfg.bound, cfg.grid_size, device=dev))[None]
+    tr.set_grid(OccupancyGrid(
+        density_grid=density, bitfield=packbits(density, cfg.density_thresh).reshape(-1),
+        mean_density=density.mean(), iter_density=torch.zeros((), dtype=torch.int64, device=dev)))
+    poses = orbit_poses(4, radius=2.35, elevation=0.3)
+    tr.render_image(poses[0], use_ema=False, chunk=4096, W=800, H=800)
+    t0 = time.perf_counter()
+    tr.render_image(poses[1], use_ema=False, chunk=4096, W=800, H=800)  # returns host arrays
+    frame_s = time.perf_counter() - t0
+    tr.set_grid(grid0)
     tr.run_steps(WARM_STEPS)
     ms = []
     for _ in range(WINDOWS):
@@ -54,7 +68,8 @@ def main(seed: int = 0) -> int:
         tr.run_steps(WINDOW)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) / WINDOW * 1e3)
-    print(json.dumps({"package": os.path.dirname(tngp_torch.__file__), "tier_M": tr.tier_M,
+    print(json.dumps({"package": os.path.dirname(tngp_torch.__file__), "frame_s": frame_s,
+                      "eval_rays_s": 800 * 800 / frame_s, "tier_M": tr.tier_M,
                       "ms_per_step": ms}))
     return 0
 
