@@ -352,27 +352,30 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
 
     def dstep_grads():
         dtr.optimizer.zero_grad(set_to_none=True)
-        loss, _, _ = dtr.loss_on_batch(dbatch)
+        loss, npts, _ = dtr.loss_on_batch(dbatch)
         loss.backward()
-        return float(loss.detach()), [p.grad.clone() for p in dtr.params]
+        return float(loss.detach()), [p.grad.clone() for p in dtr.params], int(npts)
 
     kw.window_encode_dx = capturing_dx
     try:
-        dloss_k, dgrads_k = dstep_grads()
+        dloss_k, dgrads_k, dpts = dstep_grads()
     finally:
         kw.window_encode_dx = real_dx
     with kernels.plain_versions():
-        dloss_p, dgrads_p = dstep_grads()
+        dloss_p, dgrads_p, _ = dstep_grads()
     dtr.optimizer.zero_grad(set_to_none=True)
     dnames = [n for n, p in dmodel.named_parameters() if p.requires_grad]
     drels = {n: rel_err(a, b) for n, a, b in zip(dnames, dgrads_k, dgrads_p)}
-    deform_max = max(float(g.abs().max()) for n, g in zip(dnames, dgrads_k)
-                     if n.startswith("deform_net"))
+    deform_max = float(torch.stack([g.abs().max() for n, g in zip(dnames, dgrads_k)
+                                    if n.startswith("deform_net")]).max())  # NaN propagates
+    nonfinite = {n: int((~torch.isfinite(g)).sum()) for n, g in zip(dnames, dgrads_k)
+                 if not bool(torch.isfinite(g).all())}
     # tolerances as the NGP step: the loss to 1e-5 relative, every gradient
     # to the bf16 limit 3e-2 norm-relative
-    if not all(bool(torch.isfinite(g).all()) for g in dgrads_k) or not deform_max > 0:
-        raise SystemExit(f"D-NeRF step: a gradient is not finite or the deform net got none "
-                         f"(max |grad| {deform_max})")
+    if nonfinite or not deform_max > 0:
+        raise SystemExit(f"D-NeRF step: non-finite gradient entries {nonfinite}, deform-net max "
+                         f"|grad| {deform_max} (must be > 0); the batch: time "
+                         f"{float(dbatch['time']):.3f}, {dpts} samples, loss {dloss_k}")
     if not abs(dloss_k - dloss_p) <= 1e-5 * abs(dloss_p):
         raise SystemExit(f"D-NeRF step, kernels vs plain: loss {dloss_k} vs {dloss_p}")
     if not max(drels.values()) <= 3e-2:
