@@ -15,7 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
      step (encoder backward and the cotangent sort, unique form, at the top
      budget tier, M = 131,072), and samples with x01 in [-0.06, 1.06], as
      D-NeRF's x + dx gives them (forward, table gradient and the
-     input-gradient kernel), and the set-scatter exactly on the occupancy
+     input-gradient kernel), a small width (M = 4096, mostly padding) and
+     every sample in one tile (forward and table gradient, with the plain
+     version's zeros), and the set-scatter exactly on the occupancy
      update's resample-shaped input (rand_idx ++ occ_idx on a ~10% occupied
      128^3 grid), an all-skip input, a ragged M and M = 0;
   2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
@@ -54,7 +56,9 @@ Phases (any failure exits non-zero and prints no result line):
      a sync) and, last, device_ms (profiler device events, or CUDA graph
      replays where the profiler records none, as after --profile's
      profiles), beside the least time the card could take
-     (`tngp_torch.diagnostics.kernel_times`);
+     (`tngp_torch.diagnostics.kernel_times`); the encoder rows also time
+     the small width, one tile and (forward) a training step's inputs
+     under `shapes`;
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
@@ -415,7 +419,13 @@ def main() -> int:
     from tngp_torch import kernels
     from tngp_torch.data import full_image_rays, make_blob_field, make_synthetic_dataset, orbit_poses
     from tngp_torch.diagnostics import bench_grid_update, device_parity
-    from tngp_torch.diagnostics.kernel_times import card, device_ms, events_ms, host_us
+    from tngp_torch.diagnostics.kernel_times import (
+        card,
+        device_ms,
+        encoder_bytes,
+        events_ms,
+        host_us,
+    )
     from tngp_torch.kernels import scatter as ks
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.kernels import int_mul
@@ -567,6 +577,24 @@ def main() -> int:
         f"window_encode_fwd max|err| {err_enc_o:.3g} (<= 6e-6), window_encode_bwd max|err| "
         f"{err_bwd_o:.3g} (reordering bound), window_encode_dx max|err| {err_dx_o:.3g}, "
         f"worst err/bound {worst_dx_o:.3f} (<= 2 (L*C) 2^-24 sum|g d| per sample and dimension)")
+
+    # the encoder's other inputs: a small eval bucket (M = 4096, mostly
+    # padding, so its pieces gather from global memory) and every sample in
+    # one tile (one window per level takes all of them)
+    enc_cases = {}
+    for what, m_c, squeeze in (("small bucket", 4096, 1.0), ("crowded", Mt, 0.24)):
+        x01_c = (torch.rand((3, m_c), generator=gen) * squeeze).to(dev)
+        xyz4_c, wob_c, _, _, g_sorted_c = sorted_inputs(
+            x01_c, torch.randn((L * C, m_c), generator=gen).to(dev))
+        err_f = max_abs(kw.window_encode_fwd(xyz4_c, wob_c, table, spec, BLOCK),
+                        kw.window_encode_fwd_plain(xyz4_c, wob_c, table, spec, BLOCK))
+        if not err_f <= 6e-6:
+            raise SystemExit(f"window_encode_fwd ({what}) vs plain: {err_f}")
+        err_b, _ = check_bwd(xyz4_c, wob_c, g_sorted_c, what)
+        enc_cases[what] = (xyz4_c, wob_c, g_sorted_c)
+        log(f"[check] {what} (M = {m_c}, M_pad = {xyz4_c.shape[0]}): window_encode_fwd max|err| "
+            f"{err_f:.3g} (<= 6e-6), window_encode_bwd max|err| {err_b:.3g} (reordering bound, "
+            f"zero pattern equal)")
 
     # the set-scatter, exactly: the occupancy update's resample write
     # (rand_idx ++ occ_idx, repeats concentrated on the occupied cells), all
@@ -855,11 +883,13 @@ def main() -> int:
     # profiler's host cost lingers, device_ms (profiler device events)
     table_win = model.encoder.embeddings.detach()
     visited = sum(int(torch.unique(wob[l]).numel()) for l in range(L))
-    enc_bytes = M_pad * 16 + wob.numel() * 4 + L * C * M_pad * 4 + visited * C * 8192 * 4
     enc_ops = M_pad * L * (10 + 8 * (3 + 2 * C))  # positions + per-corner weight and sums
     rows, to_profile = [], []
 
-    def row(name, kernel, launches_n, err, fn_k, fn_p, fn_lib, nbytes, ops, rate, **extra):
+    def row(name, kernel, launches_n, err, fn_k, fn_p, fn_lib, nbytes, ops, rate, shapes=None,
+            **extra):
+        """One kernel's timings; `shapes` maps a label to (call, bytes) of the
+        same kernel on other inputs, timed too (ms, device_ms, bytes bound)."""
         b_ms, b_by = bound(nbytes, ops, rate)
         r = dict(name=name, kernel=kernel, route="cuda", source=info[kernel].source,
                  replaces=info[kernel].replaces, launches=launches_n, max_abs_err=err,
@@ -867,17 +897,34 @@ def main() -> int:
                  bound_ms=b_ms, bound_by=b_by,
                  library_ms=None if fn_lib is None else events_ms(fn_lib),
                  library_host_us=None if fn_lib is None else host_us(fn_lib), **extra)
+        shapes = shapes or {}
+        r["shapes"] = {label: dict(ms=events_ms(fn), bound_ms=nb / HBM_BYTES_PER_S * 1e3)
+                       for label, (fn, nb) in shapes.items()}
         rows.append(r)
-        to_profile.append((r, fn_k, fn_lib))
+        to_profile.append((r, fn_k, fn_lib, {label: fn for label, (fn, _) in shapes.items()}))
         lib = "-" if fn_lib is None else f"{r['library_ms']:.4f}"
         log(f"[time] {name:34s} {r['ms']:9.4f} ms  host {r['host_us']:7.2f} us  plain "
-            f"{r['plain_ms']:9.4f} ms  library {lib} ms  bound {b_ms:.4f} ms ({b_by})")
+            f"{r['plain_ms']:9.4f} ms  library {lib} ms  bound {b_ms:.4f} ms ({b_by})"
+            + "".join(f"; {label} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f})"
+                      for label, t in r["shapes"].items()))
+
+    def enc_shapes(direction, cases):
+        """The encoder kernel on each (label: (xyz4, wob, g_sorted)) input."""
+        def call(x4, wb, gs):
+            if direction == "fwd":
+                return lambda: kw.window_encode_fwd(x4, wb, table_win, spec, BLOCK)
+            return lambda: kw.window_encode_bwd(x4, wb, gs, spec, BLOCK)
+        return {label: (call(*a), encoder_bytes(direction, a[0], a[1], spec))
+                for label, a in cases.items()}
+
+    other_inputs = {"small_bucket": enc_cases["small bucket"], "crowded": enc_cases["crowded"]}
 
     row("window_encode_fwd", "window_encode_fwd", launches_eval["window_encode_fwd"], err_enc,
         lambda: kw.window_encode_fwd(xyz4, wob, table_win, spec, BLOCK),
         lambda: kw.window_encode_fwd_plain(xyz4, wob, table_win, spec, BLOCK),
-        None, enc_bytes, enc_ops, F32_OPS_PER_S, path="eval",
+        None, encoder_bytes("fwd", xyz4, wob, spec), enc_ops, F32_OPS_PER_S, path="eval",
         launches_train=launches_train["window_encode_fwd"],
+        shapes=enc_shapes("fwd", {**other_inputs, "train": (xyz4_r, wob_r, g_sorted_r)}),
         shape=f"xyz4 [{M_pad}, 4], table [749, 2, 128, 64] ({visited} windows visited)"
               f" -> [32, {M_pad}]")
     NBk = keyp.numel() // kw.RANK_BS
@@ -922,12 +969,9 @@ def main() -> int:
                  "timed on the per-ray reduction's inputs, the atomics' contended case")
 
     # the backward kernel, on the inputs a training step gave it (captured
-    # above) and on uniform samples at the top tier.  Bytes: samples, cotangents
-    # and block windows in, the whole gradient table written once (the
-    # zero-fill is that write; the atomics touch only the visited rows).
-    def bwd_bytes(m_pad):
-        return m_pad * 16 + m_pad * L * C * 4 + L * (m_pad // BLOCK) * 4 + table.numel() * 4
-
+    # above), on uniform samples at the top tier and on the other inputs.
+    # Bytes: samples, cotangents and block windows in, the whole gradient
+    # table written once.
     def bwd_library(xyz4_b, wob_b, g_sorted_b):
         """The nearest single library call: `index_add_` of precomputed flat
         rows and values into the zeroed table (it does not compute the rows,
@@ -942,7 +986,6 @@ def main() -> int:
         return lambda: torch.zeros(table.numel(), device=dev).index_add_(0, idx, vals)
 
     lib_real = bwd_library(xyz4_r, wob_r, g_sorted_r)
-    zero_ms = events_ms(lambda: torch.zeros_like(table))
     ms_uniform = events_ms(lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK))
     n_live = int((xyz4_r[:, 3] > 0).sum())
     n_grad = int(((xyz4_r[:, 3] > 0) & (g_sorted_r != 0).any(dim=1)).sum())
@@ -950,14 +993,14 @@ def main() -> int:
         err_bwd_real,
         lambda: kw.window_encode_bwd(xyz4_r, wob_r, g_sorted_r, spec, BLOCK),
         lambda: kw.window_encode_bwd_plain(xyz4_r, wob_r, g_sorted_r, spec, BLOCK),
-        lib_real, bwd_bytes(Mr_pad), Mr_pad * L * (10 + 8 * (3 + 2 * C)), F32_OPS_PER_S,
-        path="train", library_call="index_add_ of precomputed rows and values (nearest call, "
-        "not the same function)", ms_uniform_top_tier=ms_uniform, max_abs_err_uniform=err_bwd,
-        zero_fill_ms=zero_ms,
+        lib_real, encoder_bytes("bwd", xyz4_r, wob_r, spec), Mr_pad * L * (10 + 8 * (3 + 2 * C)),
+        F32_OPS_PER_S, path="train", library_call="index_add_ of precomputed rows and values "
+        "(nearest call, not the same function)", ms_uniform_top_tier=ms_uniform,
+        max_abs_err_uniform=err_bwd, shapes=enc_shapes("bwd", other_inputs),
         shape=f"xyz4 [{Mr_pad}, 4] ({n_live} samples, {n_grad} with a nonzero cotangent), "
               f"g_sorted [{Mr_pad}, {L * C}] -> [749, 2, 128, 64]")
-    log(f"[time] window_encode_bwd includes the 49.1 MB zero-fill, {zero_ms:.4f} ms alone; "
-        f"uniform samples at the top tier: {ms_uniform:.4f} ms")
+    log(f"[time] window_encode_bwd (its zeroing kernel included) on uniform samples at the "
+        f"top tier: {ms_uniform:.4f} ms")
 
     # the input-gradient kernel, on the inputs a D-NeRF step gave it and on
     # the uniform samples above.  Bytes: per sample xyz4 (16 B) and its
@@ -1014,13 +1057,17 @@ def main() -> int:
     if missing:
         raise SystemExit(f"registered kernels without a timing row: {sorted(missing)}")
 
-    for r, fn_k, fn_lib in to_profile:
+    for r, fn_k, fn_lib, shape_fns in to_profile:
         r["device_ms"], r["device_events"], r["device_ms_method"] = device_ms(fn_k)
         r["library_device_ms"] = None if fn_lib is None else device_ms(fn_lib)[0]
+        for label, fn in shape_fns.items():
+            r["shapes"][label]["device_ms"] = device_ms(fn)[0]
         lib_dev = r["library_device_ms"]
         log(f"[time] {r['name']:34s} device {r['device_ms']:9.4f} ms ({r['device_ms_method']}, "
             f"{r['device_events']} device events per call); library device "
-            f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms")
+            f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms"
+            + "".join(f"; {label} device {t['device_ms']:.4f} ms"
+                      for label, t in r["shapes"].items()))
 
     # ---- 8. report ---------------------------------------------------------
     smi = card()

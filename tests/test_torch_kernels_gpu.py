@@ -347,3 +347,134 @@ def test_wrappers_reject_bad_inputs(cuda):
         ks.scatter_add(idx, torch.zeros(4, 2, device=cuda), 3)
     with pytest.raises(ValueError):
         ks.scatter_add(idx.long(), torch.zeros(2, 4, device=cuda).T, 3)
+
+
+FLAGSHIP = dict(desired_resolution=2048)
+# name -> (M, x01 from uniform [0, 1] draws u): the small eval bucket (a
+# 4096-sample query, 36,864 padded slots: mostly padding), every sample in
+# one tile, and the top training tier's width
+PATH_INPUTS = {
+    "small_bucket": (4096, lambda u: u),
+    "crowded": (131_072, lambda u: u * 0.24),
+    "uniform": (131_072, lambda u: u),
+}
+
+
+def _bwd_within_reordering_bound(got, xyz4, wob, g_sorted, spec):
+    """Each entry within 2 (n - 1) 2^-24 sum|term| of the plain version (n
+    terms per entry, counted at channel 0's addresses) and the same zeros."""
+    block = kw.DEFAULT_BLOCK
+    plain = kw.window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block)
+    sabs = kw.window_encode_bwd_plain(xyz4, wob, g_sorted.abs(), spec, block)
+    live = (xyz4[:, 3] > 0).expand(8, -1).reshape(-1).float()
+    n = torch.zeros(plain.numel(), device=plain.device)
+    for l in range(spec.num_levels):
+        addr = kw.sorted_corner_addresses(xyz4, wob, spec, block, l)[0]
+        n.index_add_(0, addr.reshape(-1), live)
+    C = spec.level_dim
+    n = n.reshape(spec.n_windows, C, -1)[:, :1].expand(-1, C, -1).reshape(plain.shape)
+    tol = 2.0 * torch.clamp(n - 1, min=0).double() * 2.0**-24 * sabs.double()
+    return (bool(((got.double() - plain.double()).abs() <= tol).all())
+            and bool(((got == 0) == (plain == 0)).all()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PATH_INPUTS))
+def test_encoder_kernels_at_the_flagship_widths(cuda, case):
+    """The flagship spec (749 windows): the forward to 6e-6 of its plain
+    version (corner sums of bf16-exact products for N(0, 1) table values,
+    as chip_smoke.py), the table gradient to the reordering bound with the
+    plain version's zeros, on a mostly-padding small bucket, on samples all
+    in one tile (one window per level takes every sample) and uniform."""
+    spec = wt.WindowSpec.create(**FLAGSHIP)
+    M, make = PATH_INPUTS[case]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(make(rng.uniform(0, 1, (3, M))).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, spec.level_dim, 128, 64))
+                             .astype(np.float32)).to(cuda)
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    block = kw.DEFAULT_BLOCK
+    got = kw.window_encode_fwd(xyz4, wob, table, spec, block)
+    want = kw.window_encode_fwd_plain(xyz4, wob, table, spec, block)
+    assert float((got - want).abs().max()) <= 6e-6
+    assert bool((got[:, xyz4[:, 3] == 0] == 0).all())
+    gtab = kw.window_encode_bwd(xyz4, wob, g_sorted, spec, block)
+    assert _bwd_within_reordering_bound(gtab, xyz4, wob, g_sorted, spec)
+
+
+@pytest.mark.gpu
+def test_encoder_kernels_with_no_samples(cuda):
+    """M = 0 through autograd (every slot padding: zero features, a zero
+    gradient) and M_pad = 0 straight to the kernels (the gradient is still
+    written: all zeros)."""
+    spec = wt.WindowSpec.create(**SPEC_KW)
+    win = spec.init_table_win(device=cuda).requires_grad_(True)
+    x = torch.zeros((3, 0), device=cuda)
+    out = kw.window_encode_binned(x, win, spec)
+    assert out.shape == (spec.output_dim, 0)
+    out.sum().backward()
+    assert bool((win.grad == 0).all())
+    xyz4 = torch.zeros((0, 4), device=cuda)
+    wob = torch.zeros((spec.num_levels, 0), dtype=torch.int32, device=cuda)
+    g0 = torch.zeros((0, spec.output_dim), device=cuda)
+    assert kw.window_encode_fwd(xyz4, wob, win.detach(), spec, kw.DEFAULT_BLOCK).shape == (
+        spec.output_dim, 0)
+    gtab = kw.window_encode_bwd(xyz4, wob, g0, spec, kw.DEFAULT_BLOCK)
+    assert bool((gtab == 0).all())
+
+
+@pytest.mark.gpu
+def test_encoder_kernels_replay_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph (`kernel_times.graph_replay_ms`), the
+    forward replays to the direct call's bits and the table gradient to
+    within the reordering bound of the plain version."""
+    from tngp_torch.diagnostics.kernel_times import graph_replay_ms
+
+    spec = wt.WindowSpec.create(**FLAGSHIP)
+    rng = np.random.default_rng(17)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(0, 1, (3, M)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, spec.level_dim, 128, 64))
+                             .astype(np.float32)).to(cuda)
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    out = {}
+
+    def fwd():
+        out["f"] = kw.window_encode_fwd(xyz4, wob, table, spec, kw.DEFAULT_BLOCK)
+
+    def bwd():
+        out["b"] = kw.window_encode_bwd(xyz4, wob, g_sorted, spec, kw.DEFAULT_BLOCK)
+
+    assert graph_replay_ms(fwd) > 0 and graph_replay_ms(bwd) > 0
+    assert torch.equal(out["f"], kw.window_encode_fwd(xyz4, wob, table, spec, kw.DEFAULT_BLOCK))
+    assert _bwd_within_reordering_bound(out["b"], xyz4, wob, g_sorted, spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_encoder_kernels_other_channel_counts(cuda, C):
+    """C = 1, 4, 8: the forward stages (C + 1) / 2 planes of bf16 pairs
+    (128 KB for C = 8), the table gradient accumulates two channels per
+    pass; both against their plain versions as above.  C = 3 is refused."""
+    spec = wt.WindowSpec.create(**{**SPEC_KW, "level_dim": C})
+    rng = np.random.default_rng(C)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(-0.06, 1.06, (3, M)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, C, 128, 64))
+                             .astype(np.float32)).to(cuda)
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    got = kw.window_encode_fwd(xyz4, wob, table, spec, kw.DEFAULT_BLOCK)
+    want = kw.window_encode_fwd_plain(xyz4, wob, table, spec, kw.DEFAULT_BLOCK)
+    assert float((got - want).abs().max()) <= 6e-6
+    gtab = kw.window_encode_bwd(xyz4, wob, g_sorted, spec, kw.DEFAULT_BLOCK)
+    assert _bwd_within_reordering_bound(gtab, xyz4, wob, g_sorted, spec)
+    spec3 = wt.WindowSpec.create(**{**SPEC_KW, "level_dim": 3})
+    with pytest.raises(ValueError):
+        kw.window_encode_fwd(xyz4, wob, torch.zeros((spec3.n_windows, 3, 128, 64),
+                                                    device=cuda), spec3, kw.DEFAULT_BLOCK)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        flat = torch.zeros(table.numel() + 1, device=cuda)
+        kw.window_encode_fwd(xyz4, wob, flat[1:].view(table.shape), spec, kw.DEFAULT_BLOCK)

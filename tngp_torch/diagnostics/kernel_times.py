@@ -17,12 +17,18 @@ kernels timed with them at the main path's shapes.
 scatter-adds (payload sort [393,216, 4] -> [425,984, 4], per-ray reduction
 [393,216, 5] -> [4096, 5], cotangent sort [131,072, 32] -> [163,840, 32],
 round update [1024, 6] -> [4096, 6]), the set-scatter (1,048,576 writes into
-128^3 cells) and the int-mul probe through whichever `tngp_torch` it
-imports: `--root DIR` takes the package from another checkout (say the
-parent commit's, unpacked into a git-ignored directory), so two versions of
-the kernels and of the launch path are timed on one card in one call.  It
-prints the card's name and power limit and one JSON line.  It needs a
-CUDA card.
+128^3 cells), the int-mul probe, and the encoder forward and table gradient
+of the flagship spec at four inputs (`encoder_calls`: the eval's top width,
+a small eval bucket, samples all in one tile, one training step's inputs)
+through whichever `tngp_torch` it imports: `--root DIR` takes the package
+from another checkout (say the parent commit's, unpacked into a git-ignored
+directory), so two versions of the kernels and of the launch path are timed
+on one card in one call.  The training step's inputs come from
+`--train-inputs FILE` where that file exists; else they are captured from
+`TRAIN_STEPS` steps of bench.py's training loop and saved there, so the
+runs of one call time the same inputs.  It prints the card's name and power
+limit and one JSON line (encoder rows carry their bound, `bound_ms`).  It
+needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import time
 import torch
 
 REPS, WARMUP, HOST_CALLS = 20, 3, 200
+TRAIN_STEPS = 300  # training steps before the captured table gradient
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 
 
 def events_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -162,18 +170,118 @@ def scatter_calls(seed: int = 0) -> dict:
     }
 
 
-def main(seed: int = 0) -> int:
+def encoder_bytes(direction: str, xyz4, wob, spec) -> int:
+    """Bytes the encoder function must move: per sample xyz4 (16 B) and its
+    L*C features (out for the forward, cotangents in for the gradient), wob,
+    and for the forward one read of each window the blocks visit, for the
+    gradient one write of the whole table."""
+    L, C = spec.num_levels, spec.level_dim
+    m_pad = xyz4.shape[0]
+    if direction == "fwd":
+        visited = sum(int(torch.unique(wob[l]).numel()) for l in range(L))
+    else:
+        visited = spec.n_windows
+    return m_pad * (16 + 4 * L * C) + wob.numel() * 4 + visited * C * 8192 * 4
+
+
+def train_inputs(path: str | None, seed: int = 0):
+    """(xyz4, wob, g_sorted) that one training step gave the table gradient:
+    loaded from `path` where it exists, else captured after TRAIN_STEPS
+    steps of bench.py's loop (the flagship network, 12 views of 128x128 of
+    the blob scene, 4096 rays/step) and saved to `path` if one is given."""
+    if path and os.path.exists(path):
+        d = torch.load(path, map_location="cuda")
+        return d["xyz4"], d["wob"], d["g_sorted"]
+    from tngp_torch.data import make_synthetic_dataset
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.models import NGPNetwork
+    from tngp_torch.render import RenderConfig
+    from tngp_torch.train import Trainer
+    from tngp_torch.utils import TrainConfig
+
+    dev = torch.device("cuda")
+    ds = make_synthetic_dataset(n_frames=12, H=128, W=128, seed=0, device=dev)
+    cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
+                       compact_fraction=0.25, density_thresh=1.0, march_dense=True)
+    tr = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed), ds,
+                 cfg, TrainConfig(num_rays=4096, lr=1e-2, seed=seed, adaptive_overdrive=False),
+                 device=dev, constant_lr=True, full_grid_updates=2)
+    tr.run_steps(TRAIN_STEPS)
+    captured = {}
+    real = kw.window_encode_bwd
+
+    def capturing(xyz4, wob, g_sorted, *a, **k):
+        captured["args"] = (xyz4.detach(), wob, g_sorted.detach())
+        return real(xyz4, wob, g_sorted, *a, **k)
+
+    kw.window_encode_bwd = capturing
+    try:
+        tr.run_steps(1)
+    finally:
+        kw.window_encode_bwd = real
+    xyz4, wob, g_sorted = captured["args"]
+    if path:
+        torch.save({"xyz4": xyz4, "wob": wob, "g_sorted": g_sorted}, path)
+    return xyz4, wob, g_sorted
+
+
+def encoder_calls(seed: int = 0, train=None) -> dict:
+    """name -> (kernel call, None, bound ms): the encoder forward and table
+    gradient of the flagship spec (749 windows, a table drawn as the init
+    draws it) on the eval's top width (M = 393,216 -> M_pad 425,984), a
+    small eval bucket (M = 4096 -> 36,864, mostly padding), samples all in
+    one tile (x01 * 0.24, M = 131,072) and `train`, one training step's
+    (xyz4, wob, g_sorted); N(0, 1) cotangents for the first three."""
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.ops.window_table import WindowSpec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(seed + 2)
+    spec = WindowSpec.create(desired_resolution=2048)
+    L, C, block = spec.num_levels, spec.level_dim, kw.DEFAULT_BLOCK
+    table = (torch.rand((spec.n_windows, C, 128, 64), generator=gen) * 2e-4 - 1e-4).to(dev)
+
+    def sorted_inputs(x01):
+        dest, tob = kw.bin_dest(x01)
+        m = x01.shape[1]
+        m_pad = kw.padded_size(m, block)
+        payload = torch.cat([x01, torch.ones((1, m), device=dev)]).T
+        xyz4 = torch.zeros((m_pad, 4), device=dev).index_copy_(0, dest, payload)
+        g_sorted = torch.randn((m_pad, L * C), generator=gen).to(dev)
+        return xyz4, kw._wob_local(spec, tob), g_sorted
+
+    inputs = {
+        "top": sorted_inputs(torch.rand((3, 393_216), generator=gen).to(dev)),
+        "small_bucket": sorted_inputs(torch.rand((3, 4096), generator=gen).to(dev)),
+        "crowded": sorted_inputs((torch.rand((3, 131_072), generator=gen) * 0.24).to(dev)),
+    }
+    if train is not None:
+        inputs["train"] = train
+    calls = {}
+    for shape, (xyz4, wob, g_sorted) in inputs.items():
+        calls[f"window_encode_fwd_{shape}"] = (
+            lambda xyz4=xyz4, wob=wob: kw.window_encode_fwd(xyz4, wob, table, spec, block), None,
+            encoder_bytes("fwd", xyz4, wob, spec) / HBM_BYTES_PER_S * 1e3)
+        calls[f"window_encode_bwd_{shape}"] = (
+            lambda xyz4=xyz4, wob=wob, g_sorted=g_sorted:
+                kw.window_encode_bwd(xyz4, wob, g_sorted, spec, block), None,
+            encoder_bytes("bwd", xyz4, wob, spec) / HBM_BYTES_PER_S * 1e3)
+    return calls
+
+
+def main(seed: int = 0, train_path: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA card visible; this run needs one", file=sys.stderr)
         return 2
     import tngp_torch
 
-    calls = scatter_calls(seed)
-    rows = {name: dict(ms=events_ms(k), host_us=host_us(k),
+    calls = {name: (k, lib, None) for name, (k, lib) in scatter_calls(seed).items()}
+    calls.update(encoder_calls(seed, train_inputs(train_path, seed)))
+    rows = {name: dict(ms=events_ms(k), host_us=host_us(k), bound_ms=b_ms,
                        library_ms=None if lib is None else events_ms(lib),
                        library_host_us=None if lib is None else host_us(lib))
-            for name, (k, lib) in calls.items()}
-    for name, (k, lib) in calls.items():
+            for name, (k, lib, b_ms) in calls.items()}
+    for name, (k, lib, _) in calls.items():
         (rows[name]["device_ms"], rows[name]["device_events"],
          rows[name]["device_ms_method"]) = device_ms(k)
         if lib is not None:
@@ -188,7 +296,10 @@ if __name__ == "__main__":
     ap.add_argument("--root", default=None,
                     help="import tngp_torch from this checkout (default: this one)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-inputs", default=None,
+                    help="load one training step's table-gradient inputs from this file, "
+                         "or capture and save them there where it does not exist")
     args = ap.parse_args()
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.root) if args.root else here)
-    sys.exit(main(args.seed))
+    sys.exit(main(args.seed, args.train_inputs))

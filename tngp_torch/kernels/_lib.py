@@ -55,14 +55,11 @@ _SIGNATURES = {
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p]),
     ],
     "window_encoder.cu": [
-        ("tngp_window_encode_fwd", _c.c_int,
-         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-          _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_float,
-          _c.c_int, _c.c_void_p]),
-        ("tngp_window_encode_bwd", _c.c_int,
-         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-          _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-          _c.c_float, _c.c_int, _c.c_void_p]),
+        *[(f"tngp_window_encode_{d}", _c.c_int,
+           [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+            _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_float, _c.c_int, _c.c_void_p])
+          for d in ("fwd", "bwd")],
         ("tngp_window_encode_dx", _c.c_int,
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
           _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,

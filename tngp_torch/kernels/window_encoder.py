@@ -167,10 +167,11 @@ def bin_dest(x01_cf: torch.Tensor, block: int = DEFAULT_BLOCK):
 
 @functools.lru_cache(maxsize=None)
 def _level_consts(spec: WindowSpec, device: str):
-    """(scales f32 [L], iconst int32 [3, L] = side, dense, window offset,
-    twin int64 [L, 64]) on `device`."""
+    """(scales f32 [L], iconst int32 [4, L] = side, dense, window offset,
+    windows, twin int64 [L, 64]) on `device`."""
     scales, sides, dense, twin, woff = spec.const_tables()
-    iconst = torch.stack([torch.as_tensor(a) for a in (sides, dense, woff)])
+    nwin = [spec.level_n_win(l) for l in range(spec.num_levels)]
+    iconst = torch.stack([torch.as_tensor(a) for a in (sides, dense, woff, nwin)])
     return (
         torch.as_tensor(scales).to(device),
         iconst.to(torch.int32).contiguous().to(device),
@@ -179,9 +180,54 @@ def _level_consts(spec: WindowSpec, device: str):
 
 
 def _wob_local(spec: WindowSpec, tob: torch.Tensor) -> torch.Tensor:
-    """[L, NB] int32 within-level window index of each block."""
+    """[L, NB] int32 within-level window index of each block.  The blocks
+    are sorted by tile and a level's tile -> window map is nondecreasing, so
+    each row is nondecreasing: the encoder kernels rely on it."""
     twin = _level_consts(spec, str(tob.device))[2]  # [L, 64]
     return twin[:, tob].to(torch.int32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the encoder kernels' chunks (tests/test_torch_window_schedule.py states
+# the table gradient's work decomposition over them)
+# ---------------------------------------------------------------------------
+
+CHUNKS_PER_LEVEL = 128  # CUDA blocks per level the chunk size aims at
+MAX_CHUNK_BLOCKS = 16  # MAX_CHUNK in window_encoder.cu
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_blocks(n_blocks: int) -> int:
+    """S, the tile-sorted blocks per chunk (one CUDA block per chunk and
+    level in the forward and the table gradient): about CHUNKS_PER_LEVEL
+    chunks per level, from the sample count alone (the launch reads nothing
+    from the device)."""
+    return max(1, min(MAX_CHUNK_BLOCKS, -(-n_blocks // CHUNKS_PER_LEVEL)))
+
+
+@functools.lru_cache(maxsize=None)
+def _table_shape(spec: WindowSpec) -> tuple:
+    """[NW, C, 128, 64], cached: `spec.n_windows` costs ~20 us of host time."""
+    return (spec.n_windows, spec.level_dim, WIN_LANES, WIN_HI)
+
+
+def _check_encoder_call(xyz4, wob, spec: WindowSpec, block: int, **tensors):
+    """Raise on what the CUDA encoder kernels do not take; returns M_pad."""
+    L, C = spec.num_levels, spec.level_dim
+    M_pad = xyz4.shape[0]
+    if C not in (1, 2, 4, 8):
+        raise ValueError(f"level_dim {C}: the encoder kernels take 1, 2, 4 or 8 channels")
+    if block <= 0 or M_pad % block:
+        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
+    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
+    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
+    for name, t in tensors.items():
+        _lib.check(t, name, torch.float32,
+                   (M_pad, L * C) if name == "g_sorted" else _table_shape(spec))
+    for name, t in (("xyz4", xyz4), *tensors.items()):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    return M_pad
 
 
 def sorted_corner_addresses(xyz4, wob, spec: WindowSpec, block: int, level: int,
@@ -221,24 +267,23 @@ def window_encode_fwd_plain(xyz4, wob, table_win, spec: WindowSpec, block: int):
 def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
     """Encoder forward over tile-sorted samples (see
     `window_encode_fwd_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel: one CUDA block per (chunk, level), each run
+    of one window within the chunk staged once in shared memory as bf16 (a
+    one-block run of mostly padding gathers from global memory instead);
+    the same values, corners summed in the same order.  Raises on what the
+    kernel does not take (`_check_encoder_call`)."""
     if _lib.use_plain(xyz4):
         return window_encode_fwd_plain(xyz4, wob, table_win, spec, block)
     L, C = spec.num_levels, spec.level_dim
-    M_pad = xyz4.shape[0]
-    if M_pad % block:
-        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
-    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
-    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
-    _lib.check(table_win, "table_win", torch.float32,
-               (spec.n_windows, C, WIN_LANES, WIN_HI))
+    M_pad = _check_encoder_call(xyz4, wob, spec, block, table_win=table_win)
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     out = torch.empty((L * C, M_pad), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
         WINDOW_FWD, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), out.data_ptr(),
-        M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
+        M_pad, block, L, C, chunk_blocks(M_pad // block), spec.shift,
+        int(spec.interpolation == "smoothstep"),
     )
     return out
 
@@ -267,25 +312,25 @@ def window_encode_bwd_plain(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
 def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     """Table gradient over tile-sorted samples (see
     `window_encode_bwd_plain`).  CPU tensors take the plain version; CUDA
-    tensors zero-fill the gradient and launch the kernel, which adds
-    atomically: each entry matches the ordered sum to f32 reordering error."""
+    tensors launch the kernel, which writes every entry: each chunk's piece
+    (a whole run of one window of at most 2 S blocks, or a longer run's part
+    within the chunk: `encoder_pieces` in tests/test_torch_window_schedule.py)
+    accumulates its window in shared memory and stores it (a whole run) or
+    adds it into the window (zeroed first, with every unvisited window, by a
+    small kernel in the same call).  Each entry matches the ordered sum to
+    f32 reordering error."""
     if _lib.use_plain(xyz4):
         return window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block)
     L, C = spec.num_levels, spec.level_dim
-    M_pad = xyz4.shape[0]
-    if M_pad % block:
-        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
-    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
-    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
-    _lib.check(g_sorted, "g_sorted", torch.float32, (M_pad, L * C))
+    M_pad = _check_encoder_call(xyz4, wob, spec, block, g_sorted=g_sorted)
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
-    gtab = torch.zeros((spec.n_windows, C, WIN_LANES, WIN_HI), dtype=torch.float32,
-                       device=xyz4.device)
+    gtab = torch.empty(_table_shape(spec), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
         WINDOW_BWD, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), g_sorted.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), gtab.data_ptr(),
-        M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
+        M_pad, block, L, C, chunk_blocks(M_pad // block), spec.shift,
+        int(spec.interpolation == "smoothstep"),
     )
     return gtab
 
@@ -328,14 +373,8 @@ def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: in
     if _lib.use_plain(xyz4):
         return window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block)
     L, C = spec.num_levels, spec.level_dim
-    M_pad = xyz4.shape[0]
-    if M_pad % block:
-        raise ValueError(f"M_pad {M_pad} is not a multiple of block {block}")
-    _lib.check(xyz4, "xyz4", torch.float32, (M_pad, 4))
-    _lib.check(wob, "wob", torch.int32, (L, M_pad // block))
-    _lib.check(table_win, "table_win", torch.float32,
-               (spec.n_windows, C, WIN_LANES, WIN_HI))
-    _lib.check(g_sorted, "g_sorted", torch.float32, (M_pad, L * C))
+    M_pad = _check_encoder_call(xyz4, wob, spec, block, table_win=table_win,
+                                g_sorted=g_sorted)
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     gx = torch.empty((3, M_pad), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
