@@ -58,7 +58,8 @@ Phases (any failure exits non-zero and prints no result line):
      profiles), beside the least time the card could take
      (`tngp_torch.diagnostics.kernel_times`); the encoder rows also time
      the small width, one tile and (forward) a training step's inputs
-     under `shapes`;
+     under `shapes` (`kernel_times.encoder_calls` on `encoder_inputs`, the
+     inputs `kernel_times.py` times);
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
@@ -423,6 +424,8 @@ def main() -> int:
         card,
         device_ms,
         encoder_bytes,
+        encoder_calls,
+        encoder_inputs,
         events_ms,
         host_us,
     )
@@ -578,23 +581,19 @@ def main() -> int:
         f"{err_bwd_o:.3g} (reordering bound), window_encode_dx max|err| {err_dx_o:.3g}, "
         f"worst err/bound {worst_dx_o:.3f} (<= 2 (L*C) 2^-24 sum|g d| per sample and dimension)")
 
-    # the encoder's other inputs: a small eval bucket (M = 4096, mostly
-    # padding, so its pieces gather from global memory) and every sample in
-    # one tile (one window per level takes all of them)
-    enc_cases = {}
-    for what, m_c, squeeze in (("small bucket", 4096, 1.0), ("crowded", Mt, 0.24)):
-        x01_c = (torch.rand((3, m_c), generator=gen) * squeeze).to(dev)
-        xyz4_c, wob_c, _, _, g_sorted_c = sorted_inputs(
-            x01_c, torch.randn((L * C, m_c), generator=gen).to(dev))
+    # the encoder's other inputs, which phase 7 times too: a small eval
+    # bucket (M = 4096, mostly padding, so its pieces gather from global
+    # memory) and every sample in one tile (one window per level takes all)
+    enc_cases = encoder_inputs(args.seed, ("small_bucket", "crowded"))
+    for what, (xyz4_c, wob_c, g_sorted_c) in enc_cases.items():
         err_f = max_abs(kw.window_encode_fwd(xyz4_c, wob_c, table, spec, BLOCK),
                         kw.window_encode_fwd_plain(xyz4_c, wob_c, table, spec, BLOCK))
         if not err_f <= 6e-6:
             raise SystemExit(f"window_encode_fwd ({what}) vs plain: {err_f}")
         err_b, _ = check_bwd(xyz4_c, wob_c, g_sorted_c, what)
-        enc_cases[what] = (xyz4_c, wob_c, g_sorted_c)
-        log(f"[check] {what} (M = {m_c}, M_pad = {xyz4_c.shape[0]}): window_encode_fwd max|err| "
-            f"{err_f:.3g} (<= 6e-6), window_encode_bwd max|err| {err_b:.3g} (reordering bound, "
-            f"zero pattern equal)")
+        log(f"[check] {what} (M = {int((xyz4_c[:, 3] > 0).sum())}, M_pad = {xyz4_c.shape[0]}): "
+            f"window_encode_fwd max|err| {err_f:.3g} (<= 6e-6), window_encode_bwd max|err| "
+            f"{err_b:.3g} (reordering bound, zero pattern equal)")
 
     # the set-scatter, exactly: the occupancy update's resample write
     # (rand_idx ++ occ_idx, repeats concentrated on the occupied cells), all
@@ -883,13 +882,14 @@ def main() -> int:
     # profiler's host cost lingers, device_ms (profiler device events)
     table_win = model.encoder.embeddings.detach()
     visited = sum(int(torch.unique(wob[l]).numel()) for l in range(L))
-    enc_ops = M_pad * L * (10 + 8 * (3 + 2 * C))  # positions + per-corner weight and sums
+    # per live sample and level: positions + per-corner weight and sums
+    enc_ops = int((xyz4[:, 3] > 0).sum()) * L * (10 + 8 * (3 + 2 * C))
     rows, to_profile = [], []
 
     def row(name, kernel, launches_n, err, fn_k, fn_p, fn_lib, nbytes, ops, rate, shapes=None,
             **extra):
-        """One kernel's timings; `shapes` maps a label to (call, bytes) of the
-        same kernel on other inputs, timed too (ms, device_ms, bytes bound)."""
+        """One kernel's timings; `shapes` maps a label to (call, bytes bound
+        ms) of the same kernel on other inputs, timed too (ms, device_ms)."""
         b_ms, b_by = bound(nbytes, ops, rate)
         r = dict(name=name, kernel=kernel, route="cuda", source=info[kernel].source,
                  replaces=info[kernel].replaces, launches=launches_n, max_abs_err=err,
@@ -898,8 +898,8 @@ def main() -> int:
                  library_ms=None if fn_lib is None else events_ms(fn_lib),
                  library_host_us=None if fn_lib is None else host_us(fn_lib), **extra)
         shapes = shapes or {}
-        r["shapes"] = {label: dict(ms=events_ms(fn), bound_ms=nb / HBM_BYTES_PER_S * 1e3)
-                       for label, (fn, nb) in shapes.items()}
+        r["shapes"] = {label: dict(ms=events_ms(fn), bound_ms=b)
+                       for label, (fn, b) in shapes.items()}
         rows.append(r)
         to_profile.append((r, fn_k, fn_lib, {label: fn for label, (fn, _) in shapes.items()}))
         lib = "-" if fn_lib is None else f"{r['library_ms']:.4f}"
@@ -908,23 +908,19 @@ def main() -> int:
             + "".join(f"; {label} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f})"
                       for label, t in r["shapes"].items()))
 
-    def enc_shapes(direction, cases):
-        """The encoder kernel on each (label: (xyz4, wob, g_sorted)) input."""
-        def call(x4, wb, gs):
-            if direction == "fwd":
-                return lambda: kw.window_encode_fwd(x4, wb, table_win, spec, BLOCK)
-            return lambda: kw.window_encode_bwd(x4, wb, gs, spec, BLOCK)
-        return {label: (call(*a), encoder_bytes(direction, a[0], a[1], spec))
-                for label, a in cases.items()}
+    # the encoder on phase 2's other inputs and a training step's, timed as
+    # `kernel_times.py` times them: label -> (call, bytes bound ms)
+    enc_t = encoder_calls(table=table_win, train=(xyz4_r, wob_r, g_sorted_r), inputs=enc_cases)
 
-    other_inputs = {"small_bucket": enc_cases["small bucket"], "crowded": enc_cases["crowded"]}
+    def enc_shapes(direction, labels):
+        return {label: enc_t[f"window_encode_{direction}_{label}"][::2] for label in labels}
 
     row("window_encode_fwd", "window_encode_fwd", launches_eval["window_encode_fwd"], err_enc,
         lambda: kw.window_encode_fwd(xyz4, wob, table_win, spec, BLOCK),
         lambda: kw.window_encode_fwd_plain(xyz4, wob, table_win, spec, BLOCK),
-        None, encoder_bytes("fwd", xyz4, wob, spec), enc_ops, F32_OPS_PER_S, path="eval",
+        None, encoder_bytes("fwd", xyz4, wob, spec, BLOCK), enc_ops, F32_OPS_PER_S, path="eval",
         launches_train=launches_train["window_encode_fwd"],
-        shapes=enc_shapes("fwd", {**other_inputs, "train": (xyz4_r, wob_r, g_sorted_r)}),
+        shapes=enc_shapes("fwd", ("small_bucket", "crowded", "train")),
         shape=f"xyz4 [{M_pad}, 4], table [749, 2, 128, 64] ({visited} windows visited)"
               f" -> [32, {M_pad}]")
     NBk = keyp.numel() // kw.RANK_BS
@@ -993,38 +989,33 @@ def main() -> int:
         err_bwd_real,
         lambda: kw.window_encode_bwd(xyz4_r, wob_r, g_sorted_r, spec, BLOCK),
         lambda: kw.window_encode_bwd_plain(xyz4_r, wob_r, g_sorted_r, spec, BLOCK),
-        lib_real, encoder_bytes("bwd", xyz4_r, wob_r, spec), Mr_pad * L * (10 + 8 * (3 + 2 * C)),
+        lib_real, encoder_bytes("bwd", xyz4_r, wob_r, spec, BLOCK),
+        n_live * L * (10 + 8 * (3 + 2 * C)),
         F32_OPS_PER_S, path="train", library_call="index_add_ of precomputed rows and values "
         "(nearest call, not the same function)", ms_uniform_top_tier=ms_uniform,
-        max_abs_err_uniform=err_bwd, shapes=enc_shapes("bwd", other_inputs),
+        max_abs_err_uniform=err_bwd, shapes=enc_shapes("bwd", ("small_bucket", "crowded")),
         shape=f"xyz4 [{Mr_pad}, 4] ({n_live} samples, {n_grad} with a nonzero cotangent), "
               f"g_sorted [{Mr_pad}, {L * C}] -> [749, 2, 128, 64]")
     log(f"[time] window_encode_bwd (its zeroing kernel included) on uniform samples at the "
         f"top tier: {ms_uniform:.4f} ms")
 
     # the input-gradient kernel, on the inputs a D-NeRF step gave it and on
-    # the uniform samples above.  Bytes: per sample xyz4 (16 B) and its
-    # cotangent row (4 L C B) in and 12 B out, plus one read of each table
-    # window the blocks visit.  Operations: per sample and level positions
-    # (12), 3 derivative weights per corner (4 each) and per channel 8
-    # rounded loads and 3 x 8 multiply-adds and 3 contractions.
-    def dx_cost(xyz4_b, wob_b):
-        m_pad = xyz4_b.shape[0]
-        vis = sum(int(torch.unique(wob_b[l]).numel()) for l in range(L))
-        nbytes = m_pad * (16 + 4 * L * C + 12) + wob_b.numel() * 4 + vis * C * 8192 * 4
-        return nbytes, m_pad * L * (12 + 8 * 3 * 4 + C * (8 + 3 * 8 * 2 + 3 * 2)), vis
-
-    dx_bytes, dx_ops, dx_vis = dx_cost(xyz4_x, wob_x)
+    # the uniform samples above.  Bytes: `encoder_bytes("dx")`.  Operations:
+    # per live sample and level positions (12), 3 derivative weights per
+    # corner (4 each) and per channel 8 rounded loads and 3 x 8 multiply-adds
+    # and 3 contractions.
+    dx_bytes = encoder_bytes("dx", xyz4_x, wob_x, spec, BLOCK)
+    n_live_x = int((xyz4_x[:, 3] > 0).sum())
+    dx_ops = n_live_x * L * (12 + 8 * 3 * 4 + C * (8 + 3 * 8 * 2 + 3 * 2))
     ms_dx_uniform = events_ms(
         lambda: kw.window_encode_dx(xyz4_o, wob_o, table, g_sorted_o, spec, BLOCK))
-    n_live_x = int((xyz4_x[:, 3] > 0).sum())
     row("window_encode_dx", "window_encode_dx", launches_dnerf["window_encode_dx"], err_dx_real,
         lambda: kw.window_encode_dx(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK),
         lambda: kw.window_encode_dx_plain(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK),
         None, dx_bytes, dx_ops, F32_OPS_PER_S, path="dnerf",
         library_call="none: no single PyTorch call computes the derivative-weight encode "
         "and its contraction", ms_uniform_oor=ms_dx_uniform, max_abs_err_uniform_oor=err_dx_o,
-        bytes=dx_bytes, windows_visited=dx_vis,
+        bytes=dx_bytes,
         shape=f"xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples), g_sorted "
               f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
               f"{xyz4_x.shape[0]}]")

@@ -478,3 +478,33 @@ def test_encoder_kernels_other_channel_counts(cuda, C):
     with pytest.raises(ValueError):  # not 16-byte aligned
         flat = torch.zeros(table.numel() + 1, device=cuda)
         kw.window_encode_fwd(xyz4, wob, flat[1:].view(table.shape), spec, kw.DEFAULT_BLOCK)
+
+
+@pytest.mark.gpu
+def test_encoder_kernels_take_unaligned_scalar_inputs(cuda):
+    """Only xyz4 and the forward's table are read with 16-byte loads: the
+    table gradient's cotangents and the input gradient's table and
+    cotangents at an odd offset are taken, and give what aligned copies
+    give (the gradient within the reordering bound, gx bitwise)."""
+    spec = wt.WindowSpec.create(**SPEC_KW)
+    rng = np.random.default_rng(23)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(-0.06, 1.06, (3, M)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, spec.level_dim, 128, 64))
+                             .astype(np.float32)).to(cuda)
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    g_odd, table_odd = odd(g_sorted), odd(table)
+    assert g_odd.data_ptr() % 16 and table_odd.data_ptr() % 16
+    gtab = kw.window_encode_bwd(xyz4, wob, g_odd, spec, kw.DEFAULT_BLOCK)
+    assert _bwd_within_reordering_bound(gtab, xyz4, wob, g_sorted, spec)
+    assert torch.equal(kw.window_encode_dx(xyz4, wob, table_odd, g_odd, spec, kw.DEFAULT_BLOCK),
+                       kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, kw.DEFAULT_BLOCK))
+    with pytest.raises(ValueError):  # the forward stages the table with 16-byte loads
+        kw.window_encode_fwd(xyz4, wob, table_odd, spec, kw.DEFAULT_BLOCK)

@@ -212,3 +212,27 @@ def test_level_consts_carry_the_window_counts():
     assert iconst[2].tolist() == list(spec.win_offsets[:-1])
     assert [kw.chunk_blocks(nb) for nb in (1, 72, 128, 129, 320, 832, 10_000)] == \
         [1, 1, 1, 2, 3, 7, 16]
+
+
+@pytest.mark.parametrize("input_name", ["tiny", "out_of_range"])
+def test_encoder_bytes_count_the_table_entries_read(input_name):
+    """The encoder's byte bound (`kernel_times.encoder_bytes`): the forward
+    reads each table entry a live sample's corner weighs, counted here as the
+    nonzero entries of the plain table gradient for unit cotangents (all
+    weights are >= 0, so no sum cancels); the input gradient reads at least
+    those and writes gx; the table gradient writes the whole table.  At a
+    tiny width that is far below one read of each window the blocks visit."""
+    from tngp_torch.diagnostics.kernel_times import encoder_bytes
+
+    spec, xyz4, wob, _ = _sorted("small", input_name)
+    block, M_pad, C = kw.DEFAULT_BLOCK, xyz4.shape[0], spec.level_dim
+    samples = M_pad * (16 + 4 * spec.output_dim) + wob.numel() * 4
+    read = kw.window_encode_bwd_plain(xyz4, wob, torch.ones((M_pad, spec.output_dim)), spec,
+                                      block)
+    fwd = encoder_bytes("fwd", xyz4, wob, spec, block)
+    assert fwd == samples + 4 * int((read != 0).sum())
+    assert encoder_bytes("dx", xyz4, wob, spec, block) >= fwd + 12 * M_pad
+    assert encoder_bytes("bwd", xyz4, wob, spec, block) == samples + 4 * read.numel()
+    if input_name == "tiny":
+        visited = sum(int(torch.unique(wob[l]).numel()) for l in range(spec.num_levels))
+        assert fwd - samples < visited * C * WIN_ROWS * 4 // 4

@@ -2,6 +2,7 @@
 kernels timed with them at the main path's shapes.
 
     python3 tngp_torch/diagnostics/kernel_times.py [--root DIR] [--seed 0]
+        [--train-inputs FILE]
 
 - `events_ms`: CUDA events around 20 back-to-back calls after 3 warm-ups,
   per call: the wall a caller sees per call, max(host, device);
@@ -18,17 +19,19 @@ scatter-adds (payload sort [393,216, 4] -> [425,984, 4], per-ray reduction
 [393,216, 5] -> [4096, 5], cotangent sort [131,072, 32] -> [163,840, 32],
 round update [1024, 6] -> [4096, 6]), the set-scatter (1,048,576 writes into
 128^3 cells), the int-mul probe, and the encoder forward and table gradient
-of the flagship spec at four inputs (`encoder_calls`: the eval's top width,
-a small eval bucket, samples all in one tile, one training step's inputs)
-through whichever `tngp_torch` it imports: `--root DIR` takes the package
-from another checkout (say the parent commit's, unpacked into a git-ignored
-directory), so two versions of the kernels and of the launch path are timed
-on one card in one call.  The training step's inputs come from
-`--train-inputs FILE` where that file exists; else they are captured from
-`TRAIN_STEPS` steps of bench.py's training loop and saved there, so the
-runs of one call time the same inputs.  It prints the card's name and power
-limit and one JSON line (encoder rows carry their bound, `bound_ms`).  It
-needs a CUDA card.
+of the flagship spec at four inputs (`encoder_calls` on `encoder_inputs`:
+the eval's top width, a small eval bucket, samples all in one tile, and one
+training step's inputs) through whichever `tngp_torch` it imports:
+`--root DIR` takes the package from another checkout (say the parent
+commit's, unpacked into a git-ignored directory), so two versions of the
+kernels and of the launch path are timed on one card in one call.  The
+training step's inputs come from `--train-inputs FILE` where that file
+exists; else they are captured from `TRAIN_STEPS` steps of bench.py's
+training loop and saved there with how they were made (a file made with
+another seed or step count is refused), so the runs of one call time the
+same inputs; keep the file in a git-ignored directory of the checkout, such
+as `_archive/`.  It prints the card's name and power limit and one JSON
+line (encoder rows carry their bound, `bound_ms`).  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -170,28 +173,44 @@ def scatter_calls(seed: int = 0) -> dict:
     }
 
 
-def encoder_bytes(direction: str, xyz4, wob, spec) -> int:
-    """Bytes the encoder function must move: per sample xyz4 (16 B) and its
-    L*C features (out for the forward, cotangents in for the gradient), wob,
-    and for the forward one read of each window the blocks visit, for the
-    gradient one write of the whole table."""
+def encoder_bytes(direction: str, xyz4, wob, spec, block: int) -> int:
+    """Bytes the encoder function must move.  Per sample: xyz4 (16 B) and
+    its L*C features (out for "fwd", cotangents in for "bwd" and "dx"; "dx"
+    also writes 12 B of gx); wob once.  The table: "bwd" writes all of it
+    once; "fwd" and "dx" read each entry (window, channel, row) that a live
+    sample's corner weighs with a nonzero (derivative) weight once, which at
+    a small width is far less than the windows the blocks visit."""
+    from tngp_torch.kernels import window_encoder as kw
+
     L, C = spec.num_levels, spec.level_dim
-    m_pad = xyz4.shape[0]
-    if direction == "fwd":
-        visited = sum(int(torch.unique(wob[l]).numel()) for l in range(L))
+    per_sample = 16 + 4 * L * C + (12 if direction == "dx" else 0)
+    if direction == "bwd":
+        table_entries = spec.n_windows * C * 8192
     else:
-        visited = spec.n_windows
-    return m_pad * (16 + 4 * L * C) + wob.numel() * 4 + visited * C * 8192 * 4
+        table_entries = 0
+        for l in range(L):
+            geo = kw.sorted_corner_addresses(xyz4, wob, spec, block, l, deriv=direction == "dx")
+            used = geo[2].ne(0).any(0) if direction == "dx" else geo[1].ne(0)
+            table_entries += int(torch.unique(geo[0][used]).numel()) * C
+    return xyz4.shape[0] * per_sample + wob.numel() * 4 + table_entries * 4
 
 
 def train_inputs(path: str | None, seed: int = 0):
     """(xyz4, wob, g_sorted) that one training step gave the table gradient:
     loaded from `path` where it exists, else captured after TRAIN_STEPS
     steps of bench.py's loop (the flagship network, 12 views of 128x128 of
-    the blob scene, 4096 rays/step) and saved to `path` if one is given."""
+    the blob scene, 4096 rays/step) and saved to `path` if one is given,
+    with what made it (seed, steps, capturing package, time).  A file made
+    with another seed or step count is refused."""
     if path and os.path.exists(path):
         d = torch.load(path, map_location="cuda")
+        made = d.get("made", {})
+        print(f"train inputs: {path} made by {made}")
+        if made.get("seed") != seed or made.get("train_steps") != TRAIN_STEPS:
+            raise SystemExit(f"{path} holds inputs made by {made}, not seed {seed} after "
+                             f"{TRAIN_STEPS} steps: remove it or pass another path")
         return d["xyz4"], d["wob"], d["g_sorted"]
+    import tngp_torch
     from tngp_torch.data import make_synthetic_dataset
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.models import NGPNetwork
@@ -221,51 +240,71 @@ def train_inputs(path: str | None, seed: int = 0):
         kw.window_encode_bwd = real
     xyz4, wob, g_sorted = captured["args"]
     if path:
-        torch.save({"xyz4": xyz4, "wob": wob, "g_sorted": g_sorted}, path)
+        made = dict(seed=seed, train_steps=TRAIN_STEPS,
+                    package=os.path.dirname(tngp_torch.__file__), time=time.ctime())
+        torch.save({"xyz4": xyz4, "wob": wob, "g_sorted": g_sorted, "made": made}, path)
+        print(f"train inputs: saved to {path}, made by {made}")
     return xyz4, wob, g_sorted
 
 
-def encoder_calls(seed: int = 0, train=None) -> dict:
-    """name -> (kernel call, None, bound ms): the encoder forward and table
-    gradient of the flagship spec (749 windows, a table drawn as the init
-    draws it) on the eval's top width (M = 393,216 -> M_pad 425,984), a
-    small eval bucket (M = 4096 -> 36,864, mostly padding), samples all in
-    one tile (x01 * 0.24, M = 131,072) and `train`, one training step's
-    (xyz4, wob, g_sorted); N(0, 1) cotangents for the first three."""
+# label -> (samples, scale of the uniform x01 draw): the eval's top width
+# (M_pad 425,984), a small eval bucket (M_pad 36,864, mostly padding) and
+# every sample in one tile
+ENCODER_INPUTS = {"top": (393_216, 1.0), "small_bucket": (4096, 1.0), "crowded": (131_072, 0.24)}
+
+
+def encoder_inputs(seed: int = 0, labels=tuple(ENCODER_INPUTS)) -> dict:
+    """label -> (xyz4, wob, g_sorted) of the flagship spec for each of
+    `labels` (`ENCODER_INPUTS`), sorted as `window_encode_binned` sorts
+    them, with N(0, 1) cotangents; the same tensors for the same seed."""
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.ops.window_table import WindowSpec
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device="cpu").manual_seed(seed + 2)
     spec = WindowSpec.create(desired_resolution=2048)
     L, C, block = spec.num_levels, spec.level_dim, kw.DEFAULT_BLOCK
-    table = (torch.rand((spec.n_windows, C, 128, 64), generator=gen) * 2e-4 - 1e-4).to(dev)
-
-    def sorted_inputs(x01):
+    gen = torch.Generator(device="cpu").manual_seed(seed + 3)
+    out = {}
+    for label, (m, scale) in ENCODER_INPUTS.items():
+        x01 = (torch.rand((3, m), generator=gen) * scale).to(dev)
+        g = torch.randn((kw.padded_size(m, block), L * C), generator=gen).to(dev)
+        if label not in labels:
+            continue
         dest, tob = kw.bin_dest(x01)
-        m = x01.shape[1]
-        m_pad = kw.padded_size(m, block)
         payload = torch.cat([x01, torch.ones((1, m), device=dev)]).T
-        xyz4 = torch.zeros((m_pad, 4), device=dev).index_copy_(0, dest, payload)
-        g_sorted = torch.randn((m_pad, L * C), generator=gen).to(dev)
-        return xyz4, kw._wob_local(spec, tob), g_sorted
+        xyz4 = torch.zeros((g.shape[0], 4), device=dev).index_copy_(0, dest, payload)
+        out[label] = (xyz4, kw._wob_local(spec, tob), g)
+    return out
 
-    inputs = {
-        "top": sorted_inputs(torch.rand((3, 393_216), generator=gen).to(dev)),
-        "small_bucket": sorted_inputs(torch.rand((3, 4096), generator=gen).to(dev)),
-        "crowded": sorted_inputs((torch.rand((3, 131_072), generator=gen) * 0.24).to(dev)),
-    }
+
+def encoder_calls(seed: int = 0, train=None, table=None, inputs=None) -> dict:
+    """name -> (kernel call, None, bound ms): the encoder forward and table
+    gradient of the flagship spec on `table` (749 windows; default a table
+    drawn as the init draws it) at each of `inputs` (label -> (xyz4, wob,
+    g_sorted); default `encoder_inputs(seed)`) and at `train`, one training
+    step's (xyz4, wob, g_sorted), where given."""
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.ops.window_table import WindowSpec
+
+    dev = torch.device("cuda")
+    spec = WindowSpec.create(desired_resolution=2048)
+    block = kw.DEFAULT_BLOCK
+    if table is None:
+        gen = torch.Generator(device="cpu").manual_seed(seed + 2)
+        table = (torch.rand((spec.n_windows, spec.level_dim, 128, 64), generator=gen) * 2e-4
+                 - 1e-4).to(dev)
+    inputs = dict(encoder_inputs(seed) if inputs is None else inputs)
     if train is not None:
         inputs["train"] = train
     calls = {}
     for shape, (xyz4, wob, g_sorted) in inputs.items():
         calls[f"window_encode_fwd_{shape}"] = (
             lambda xyz4=xyz4, wob=wob: kw.window_encode_fwd(xyz4, wob, table, spec, block), None,
-            encoder_bytes("fwd", xyz4, wob, spec) / HBM_BYTES_PER_S * 1e3)
+            encoder_bytes("fwd", xyz4, wob, spec, block) / HBM_BYTES_PER_S * 1e3)
         calls[f"window_encode_bwd_{shape}"] = (
             lambda xyz4=xyz4, wob=wob, g_sorted=g_sorted:
                 kw.window_encode_bwd(xyz4, wob, g_sorted, spec, block), None,
-            encoder_bytes("bwd", xyz4, wob, spec) / HBM_BYTES_PER_S * 1e3)
+            encoder_bytes("bwd", xyz4, wob, spec, block) / HBM_BYTES_PER_S * 1e3)
     return calls
 
 

@@ -224,10 +224,14 @@ def _check_encoder_call(xyz4, wob, spec: WindowSpec, block: int, **tensors):
     for name, t in tensors.items():
         _lib.check(t, name, torch.float32,
                    (M_pad, L * C) if name == "g_sorted" else _table_shape(spec))
-    for name, t in (("xyz4", xyz4), *tensors.items()):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+    _check_aligned(xyz4, "xyz4")
     return M_pad
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless `t` starts on 16 bytes: the kernels read it as float4."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")
 
 
 def sorted_corner_addresses(xyz4, wob, spec: WindowSpec, block: int, level: int,
@@ -276,6 +280,7 @@ def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
         return window_encode_fwd_plain(xyz4, wob, table_win, spec, block)
     L, C = spec.num_levels, spec.level_dim
     M_pad = _check_encoder_call(xyz4, wob, spec, block, table_win=table_win)
+    _check_aligned(table_win, "table_win")  # staged with 16-byte loads
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     out = torch.empty((L * C, M_pad), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
