@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
   1. build every CUDA kernel from `tngp_torch/csrc/`;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the paths give it: the eval render (encoder forward
-     M = 393,216 samples of the flagship spec, bin ranks, the scatter-add's
-     unique form for the encoder's payload sort, exact, its sorted form for
+     M = 393,216 samples of the flagship spec, the bin sort exactly, also
+     with every sample in one tile and with NaN coordinates, the
+     scatter-add's unique form for the encoder's payload sort, exact, its sorted form for
      the compositor's per-ray reduction and the eval round update, within
      (n-1) 2^-24 sum|v| of the exact sum and bitwise the same on a second
      call, and its general atomic form on the per-ray inputs), the training
@@ -16,8 +17,9 @@ Phases (any failure exits non-zero and prints no result line):
      budget tier, M = 131,072), and samples with x01 in [-0.06, 1.06], as
      D-NeRF's x + dx gives them (forward, table gradient and the
      input-gradient kernel), a small width (M = 4096, mostly padding) and
-     every sample in one tile (forward and table gradient, with the plain
-     version's zeros), and the set-scatter exactly on the occupancy
+     every sample in one tile (forward, table gradient with the plain
+     version's zeros, and input gradient; the input gradient bitwise the
+     same on a second call wherever it is held), and the set-scatter exactly on the occupancy
      update's resample-shaped input (rand_idx ++ occ_idx on a ~10% occupied
      128^3 grid), an all-skip input, a ragged M and M = 0;
   2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
@@ -48,18 +50,22 @@ Phases (any failure exits non-zero and prints no result line):
      rays/s, ms/step, their ratio, the time-grid update's wall (CUDA events
      on the stream, no host sync in the timed steps), the loss
      halving, no host sync in a step, the input-gradient kernel once per
-     backward, one step through the kernels against the plain versions, and
-     the EMA PSNR over the 12 views at their own times;
+     backward, one step through the kernels against the plain versions on
+     a freshly built net (whose deform net must get a nonzero gradient) and
+     again after training (where a deform net that died in training is
+     reported, not failed), and the EMA PSNR over the 12 views at their own
+     times;
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes: ms
      (CUDA events around 20 back-to-back calls), host_us (200 calls without
      a sync) and, last, device_ms (profiler device events, or CUDA graph
      replays where the profiler records none, as after --profile's
      profiles), beside the least time the card could take
-     (`tngp_torch.diagnostics.kernel_times`); the encoder rows also time
-     the small width, one tile and (forward) a training step's inputs
-     under `shapes` (`kernel_times.encoder_calls` on `encoder_inputs`, the
-     inputs `kernel_times.py` times);
+     (`tngp_torch.diagnostics.kernel_times`); the bin sort's row is the
+     whole `bin_dest` call, its device operations counted; the encoder rows
+     also time the small width, one tile and (forward) a training step's
+     inputs under `shapes` (`kernel_times.encoder_calls` on
+     `encoder_inputs`, the inputs `kernel_times.py` times);
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
@@ -134,13 +140,17 @@ def n_syncs(caught) -> int:
 
 
 def profile_device(fn, label: str, wall_off: float) -> None:
-    """Run `fn` under torch.profiler; print device time by kernel and the
+    """Run `fn` under torch.profiler; print device time by kernel, the
     idle share of `wall_off`, the same work's wall time with the profiler
-    off (the profiler's host cost inflates the profiled wall)."""
+    off (the profiler's host cost inflates the profiled wall), and the
+    cumsums' device time by input shape."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tngp_torch.diagnostics.step_times import ops_by_shape
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -160,6 +170,8 @@ def profile_device(fn, label: str, wall_off: float) -> None:
         f"{1 - busy / wall_off:.3f} of the unprofiled wall")
     for k, t, c in dev_us[:25]:
         log(f"[profile]   {t / 1e3:10.3f} ms  {100 * t / 1e6 / busy:5.1f}%  x{c:<7d} {k[:96]}")
+    for op, shapes, n, ms in ops_by_shape(prof)[:8]:
+        log(f"[profile]   {op} {shapes[:80]}: {ms:.3f} ms over {n} calls")
 
 
 @torch.no_grad()
@@ -207,10 +219,11 @@ def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
     sample and dimension, the same L*C f32 products g * d (d bit for bit: the
     same bf16 roundings of derivative weights and table values, the 8
     corners summed in order); the kernel adds them in (level, channel)
-    order, the plain version in torch's.  Any order of n terms is within
-    (n - 1) 2^-24 sum|term| of the exact sum, so the two are within
-    2 (L*C) 2^-24 sum|g * d| of each other.  Returns (max |err|, worst
-    err / bound)."""
+    order within a group of levels and the groups in order, the plain
+    version in torch's.  Any order of n terms is within (n - 1) 2^-24
+    sum|term| of the exact sum, so the two are within 2 (L*C) 2^-24
+    sum|g * d| of each other.  Padding slots must be exactly 0 and a second
+    call must give the same bits.  Returns (max |err|, worst err / bound)."""
     from tngp_torch.kernels import window_encoder as kw
 
     got = kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block)
@@ -223,7 +236,74 @@ def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
                          f"{float(err.max())}")
     if not bool((got[:, xyz4[:, 3] == 0] == 0).all()):
         raise SystemExit(f"window_encode_dx ({what}): a padding slot is not zero")
+    if not torch.equal(got, kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block)):
+        raise SystemExit(f"window_encode_dx ({what}) differs between two calls")
     return float(err.max()), float((err / tol.clamp(min=1e-30)).max())
+
+
+def dnerf_step_check(tr, model, what: str) -> dict:
+    """One D-NeRF batch through the loss and its backward, through the
+    kernels and again through the plain versions, and the input-gradient
+    kernel on that step's own inputs (`check_dx`).  Fails on a non-finite
+    gradient entry, a loss beyond 1e-5 relative, a gradient beyond 3e-2
+    norm-relative (the NGP step's tolerances: the kernels' f32 summation
+    order flips single bf16 roundings in the MLPs) or an input gradient
+    beyond its reordering bound.  Returns the deform net's largest |grad|
+    through the kernels (`deform_max`: the caller decides what a zero
+    means), the errors and the input gradient's inputs (`dx_args`)."""
+    from tngp_torch import kernels
+    from tngp_torch.kernels import window_encoder as kw
+
+    batch = tr.sample_batch()
+    captured = {}
+    real_dx = kw.window_encode_dx
+
+    def capturing_dx(*a, **k):
+        captured["args"] = a[:4]
+        return real_dx(*a, **k)
+
+    def grads():
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss, npts, _ = tr.loss_on_batch(batch)
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone() for p in tr.params], int(npts)
+
+    kw.window_encode_dx = capturing_dx
+    try:
+        loss_k, grads_k, npts = grads()
+    finally:
+        kw.window_encode_dx = real_dx
+    with kernels.plain_versions():
+        loss_p, grads_p, _ = grads()
+    tr.optimizer.zero_grad(set_to_none=True)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    rels = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    deform_max = float(torch.stack([g.abs().max() for n, g in zip(names, grads_k)
+                                    if n.startswith("deform_net")]).max())  # NaN propagates
+    nonfinite = {n: int((~torch.isfinite(g)).sum()) for n, g in zip(names, grads_k)
+                 if not bool(torch.isfinite(g).all())}
+    about = (f"the batch: time {float(batch['time']):.3f}, {npts} samples, loss {loss_k}, "
+             f"deform-net max |grad| {deform_max}")
+    if nonfinite or deform_max != deform_max:
+        raise SystemExit(f"D-NeRF step ({what} net): non-finite gradient entries {nonfinite}; "
+                         + about)
+    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
+        raise SystemExit(f"D-NeRF step ({what} net), kernels vs plain: loss {loss_k} vs "
+                         f"{loss_p}; " + about)
+    if not max(rels.values()) <= 3e-2:
+        raise SystemExit(f"D-NeRF step ({what} net), kernels vs plain: gradient errors {rels}; "
+                         + about)
+    dx_args = tuple(a.detach() for a in captured["args"])
+    err_dx, worst_dx = check_dx(*dx_args, model.encoder.spec, model.encoder.block,
+                                f"a D-NeRF step's inputs, {what} net")
+    log(f"[dnerf] one step on the {what} net, kernels vs plain path: loss {loss_k:.8f} vs "
+        f"{loss_p:.8f}; gradient norm-relative errors "
+        + ", ".join(f"{n} {v:.2e}" for n, v in rels.items())
+        + f" (<= 3e-2); deform-net max |grad| {deform_max:.3e}; window_encode_dx on this "
+        f"step's inputs (M_pad = {dx_args[0].shape[0]}) max|err| {err_dx:.3g}, worst "
+        f"err/bound {worst_dx:.3f}, bitwise the same on a second call")
+    return dict(deform_max=deform_max, rels=rels, err_dx=err_dx, worst_dx=worst_dx,
+                dx_args=dx_args)
 
 
 def dnerf_phase(dev, ds, seed: int) -> dict:
@@ -235,12 +315,13 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
     yardstick (JAX's bar: <= 2x).  Shows that every kernel of the path
     launched and the input-gradient kernel once per backward, that the loss
     halves, that a step makes no host sync, and one step through the kernels
-    against the plain versions; reports rays/s, ms/step, the ratio, the
+    against the plain versions (`dnerf_step_check`) on a freshly built net,
+    whose deform net must get a gradient, and after training, where a dead
+    deform net is reported; reports rays/s, ms/step, the ratio, the
     time-grid update's wall and the EMA PSNR over the views at their own
     times."""
     from tngp_torch import kernels
     from tngp_torch.data import make_synthetic_dynamic_dataset
-    from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.models import DNeRFNetwork, NGPNetwork
     from tngp_torch.render import RenderConfig
     from tngp_torch.train import DNeRFTrainer, Trainer
@@ -278,6 +359,20 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
             f"launches {counts}")
         return torch.cat([lw, lt]), dt, counts
 
+    # the gradient flow through the kernels, on a freshly built net (its own
+    # trainer, so that the timed run below trains as it did): one full
+    # time-grid update, then one batch
+    fresh_model = DNeRFNetwork(bound=1.0, encoding="hashgrid_window",
+                               compute_dtype=torch.bfloat16, device=dev, seed=seed)
+    fresh = DNeRFTrainer(fresh_model, dds, cfg_p, pinned, time_size=DNERF_TIME_SIZE,
+                         update_interval=16, device=dev)
+    fresh.update_grid()
+    fresh_check = dnerf_step_check(fresh, fresh_model, "fresh")
+    if not fresh_check["deform_max"] > 0:
+        raise SystemExit(f"D-NeRF step on the fresh net: the deform net's largest |grad| is "
+                         f"{fresh_check['deform_max']} (must be > 0): no gradient reaches it")
+    del fresh, fresh_model
+
     ngp_p = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed),
                     ds, cfg_p, pinned, device=dev)
     _, dt_ngp, _ = pinned_run(ngp_p, "NGP, pinned config")
@@ -312,7 +407,7 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
         f"{sum(walls):.3f} s in all")
     log(f"[dnerf] D-NeRF / NGP step time under the same pinned config: {ratio:.3f}x "
         f"(JAX's bar in scripts/bench_dnerf_step.py: <= 2)")
-    for name in ("bin_ranks", "scatter_add_unique", "scatter_add_sorted", "window_encode_fwd",
+    for name in ("bin_dest", "scatter_add_unique", "scatter_add_sorted", "window_encode_fwd",
                  "window_encode_bwd", "window_encode_dx"):
         if launches_dnerf[name] <= 0:
             raise SystemExit(f"a kernel of the D-NeRF path never launched: {launches_dnerf}")
@@ -345,54 +440,10 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
     if sum(step_syncs) != 0:
         raise SystemExit(f"D-NeRF train_step made host syncs: {step_syncs}")
 
-    # one D-NeRF step's gradients: through the kernels, and through the plain
-    # versions; the input-gradient kernel on that step's own inputs
-    dbatch = dtr.sample_batch()
-    captured_dx = {}
-    real_dx = kw.window_encode_dx
-
-    def capturing_dx(*a, **k):
-        captured_dx["args"] = a[:4]
-        return real_dx(*a, **k)
-
-    def dstep_grads():
-        dtr.optimizer.zero_grad(set_to_none=True)
-        loss, npts, _ = dtr.loss_on_batch(dbatch)
-        loss.backward()
-        return float(loss.detach()), [p.grad.clone() for p in dtr.params], int(npts)
-
-    kw.window_encode_dx = capturing_dx
-    try:
-        dloss_k, dgrads_k, dpts = dstep_grads()
-    finally:
-        kw.window_encode_dx = real_dx
-    with kernels.plain_versions():
-        dloss_p, dgrads_p, _ = dstep_grads()
-    dtr.optimizer.zero_grad(set_to_none=True)
-    dnames = [n for n, p in dmodel.named_parameters() if p.requires_grad]
-    drels = {n: rel_err(a, b) for n, a, b in zip(dnames, dgrads_k, dgrads_p)}
-    deform_max = float(torch.stack([g.abs().max() for n, g in zip(dnames, dgrads_k)
-                                    if n.startswith("deform_net")]).max())  # NaN propagates
-    nonfinite = {n: int((~torch.isfinite(g)).sum()) for n, g in zip(dnames, dgrads_k)
-                 if not bool(torch.isfinite(g).all())}
-    # tolerances as the NGP step: the loss to 1e-5 relative, every gradient
-    # to the bf16 limit 3e-2 norm-relative
-    if nonfinite or not deform_max > 0:
-        raise SystemExit(f"D-NeRF step: non-finite gradient entries {nonfinite}, deform-net max "
-                         f"|grad| {deform_max} (must be > 0); the batch: time "
-                         f"{float(dbatch['time']):.3f}, {dpts} samples, loss {dloss_k}")
-    if not abs(dloss_k - dloss_p) <= 1e-5 * abs(dloss_p):
-        raise SystemExit(f"D-NeRF step, kernels vs plain: loss {dloss_k} vs {dloss_p}")
-    if not max(drels.values()) <= 3e-2:
-        raise SystemExit(f"D-NeRF step, kernels vs plain: gradient errors {drels}")
-    dx_args = tuple(a.detach() for a in captured_dx["args"])
-    err_dx, worst_dx = check_dx(*dx_args, dmodel.encoder.spec, dmodel.encoder.block,
-                                "a D-NeRF step's inputs")
-    log(f"[dnerf] one step, kernels vs plain path: loss {dloss_k:.8f} vs {dloss_p:.8f}; "
-        f"gradient norm-relative errors " + ", ".join(f"{n} {v:.2e}" for n, v in drels.items())
-        + f" (<= 3e-2); deform-net max |grad| {deform_max:.3e}; window_encode_dx on this step's "
-        f"inputs (M_pad = {dx_args[0].shape[0]}) max|err| {err_dx:.3g}, worst err/bound "
-        f"{worst_dx:.3f}")
+    trained = dnerf_step_check(dtr, dmodel, "trained")
+    if trained["deform_max"] == 0:
+        log(f"[dnerf] the deform net died in training: its largest |grad| on this batch is 0 "
+            f"(reported, not a failure: the kernels were held on the fresh net above)")
 
     t0 = time.time()
     psnr_d = dtr.evaluate(dds)
@@ -402,7 +453,7 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
         raise SystemExit("D-NeRF: the evaluation PSNR is not finite")
     return dict(dt_dnerf=dt_dnerf, dt_ngp=dt_ngp, ratio=ratio,
                 rays_s=DNERF_TIMED * N_RAYS / dt_dnerf, psnr=psnr_d, launches=launches_dnerf,
-                dx_args=dx_args, err_dx=err_dx)
+                fresh=fresh_check, trained=trained)
 
 
 def main() -> int:
@@ -421,6 +472,7 @@ def main() -> int:
     from tngp_torch.data import full_image_rays, make_blob_field, make_synthetic_dataset, orbit_poses
     from tngp_torch.diagnostics import bench_grid_update, device_parity
     from tngp_torch.diagnostics.kernel_times import (
+        bin_dest_bytes,
         card,
         device_ms,
         encoder_bytes,
@@ -465,17 +517,21 @@ def main() -> int:
     x01 = torch.rand((3, M), generator=gen).to(dev)
     table = torch.randn((spec.n_windows, C, 128, 64), generator=gen).to(dev)
 
-    keyp = kw._padded_keys(sample_tiles(x01))
-    rank_k, tot_k = kw.bin_ranks(keyp)
-    rank_p, tot_p = kw.bin_ranks_plain(keyp)
-    err_rank = max(max_abs(rank_k, rank_p), max_abs(tot_k, tot_p))
-    if err_rank != 0.0:
-        raise SystemExit(f"bin_ranks disagrees with its plain version: {err_rank}")
-
+    # the bin sort, exactly: its destinations and block tiles against the
+    # plain bin_dest and its first stage's ranks and histograms against the
+    # plain ranks, on the eval's samples, every sample in one tile, and
+    # samples with NaN (and infinite) coordinates
+    x01_nan = x01.clone()
+    x01_nan[0, ::7], x01_nan[1, 1::5], x01_nan[2, 2::9] = float("nan"), float("inf"), -float("inf")
+    for what, x_b in (("eval samples", x01), ("one tile", x01 * 0.24),
+                      ("NaN and infinite coordinates", x01_nan)):
+        dest_b, tob_b, rank_b, tot_b = kw.bin_dest_stages(x_b)
+        d_ref, t_ref = kw.bin_dest_ref(x_b)
+        rank_p, tot_p = kw.bin_ranks_plain(kw._padded_keys(sample_tiles(x_b)))
+        if not (torch.equal(dest_b, d_ref) and torch.equal(tob_b, t_ref)
+                and torch.equal(rank_b, rank_p) and torch.equal(tot_b, tot_p)):
+            raise SystemExit(f"bin_dest ({what}) disagrees with the plain bin_dest")
     dest, tob = kw.bin_dest(x01)
-    d_ref, t_ref = kw.bin_dest_ref(x01)
-    if not (torch.equal(dest, d_ref) and torch.equal(tob, t_ref)):
-        raise SystemExit("bin_dest through the kernel disagrees with the plain bin_dest")
     M_pad = kw.padded_size(M, BLOCK)
     payload = torch.cat([x01, torch.ones((1, M), device=dev)]).T.contiguous()
     err_sort, _ = check_scatter_add(dest, payload, M_pad, "unique", "payload sort")
@@ -503,7 +559,8 @@ def main() -> int:
     sel_r = torch.cat([live, torch.full((Na - live.numel(),), N_RAYS - 1)]).to(dev)
     delta6 = torch.randn((Na, 6), generator=gen).to(dev)
     err_round, worst_round = check_scatter_add(sel_r, delta6, N_RAYS, "sorted", "round update")
-    log(f"[check] eval shapes: bin_ranks exact, bin_dest exact, payload sort "
+    log(f"[check] eval shapes: bin_dest exact (and its ranks and histograms) on the eval's "
+        f"samples, one tile and NaN coordinates, payload sort "
         f"(scatter_add_unique, C = 4) exact, window_encode_fwd max|err| {err_enc:.3g} "
         f"(<= 6e-6); per-ray reduction (scatter_add_sorted, C = 5) max|err| vs plain "
         f"{err_comp:.3g}, worst err/bound vs the exact sum {worst_comp:.3f}, bitwise the same "
@@ -591,9 +648,11 @@ def main() -> int:
         if not err_f <= 6e-6:
             raise SystemExit(f"window_encode_fwd ({what}) vs plain: {err_f}")
         err_b, _ = check_bwd(xyz4_c, wob_c, g_sorted_c, what)
+        err_x, worst_x = check_dx(xyz4_c, wob_c, table, g_sorted_c, spec, BLOCK, what)
         log(f"[check] {what} (M = {int((xyz4_c[:, 3] > 0).sum())}, M_pad = {xyz4_c.shape[0]}): "
             f"window_encode_fwd max|err| {err_f:.3g} (<= 6e-6), window_encode_bwd max|err| "
-            f"{err_b:.3g} (reordering bound, zero pattern equal)")
+            f"{err_b:.3g} (reordering bound, zero pattern equal), window_encode_dx max|err| "
+            f"{err_x:.3g}, worst err/bound {worst_x:.3f}")
 
     # the set-scatter, exactly: the occupancy update's resample write
     # (rand_idx ++ occ_idx, repeats concentrated on the occupied cells), all
@@ -699,7 +758,7 @@ def main() -> int:
         st = trainer.last_render_stats
         if img.shape != (R, R, 3) or not np.isfinite(img).all():
             raise SystemExit(f"{label}: rendered image is not a finite [R, R, 3] array")
-        for name in ("scatter_add_unique", "scatter_add_sorted", "bin_ranks",
+        for name in ("scatter_add_unique", "scatter_add_sorted", "bin_dest",
                      "window_encode_fwd"):
             if counts[name] <= 0:
                 raise SystemExit(f"{label}: a kernel of the eval path never launched: {counts}")
@@ -768,7 +827,7 @@ def main() -> int:
         f"{float(kept_t.mean()):,.0f} of {N_RAYS} rays kept; loss first 16 steps "
         f"{first16:.6f}, last 16 {last16:.6f}; occupancy at the end {occ_end:.4f}; "
         f"launches {launches_train}")
-    if min(launches_train[n] for n in ("scatter_add_unique", "scatter_add_sorted", "bin_ranks",
+    if min(launches_train[n] for n in ("scatter_add_unique", "scatter_add_sorted", "bin_dest",
                                        "window_encode_fwd", "window_encode_bwd")) <= 0:
         raise SystemExit(f"a kernel of the training path never launched: {launches_train}")
 
@@ -873,8 +932,8 @@ def main() -> int:
     dn = dnerf_phase(dev, ds, args.seed)
     dt_dnerf, dt_ngp, ratio = dn["dt_dnerf"], dn["dt_ngp"], dn["ratio"]
     dnerf_rays_s, psnr_d, launches_dnerf = dn["rays_s"], dn["psnr"], dn["launches"]
-    xyz4_x, wob_x, table_x, g_sorted_x = dn["dx_args"]
-    err_dx_real = dn["err_dx"]
+    xyz4_x, wob_x, table_x, g_sorted_x = dn["trained"]["dx_args"]
+    err_dx_real = dn["trained"]["err_dx"]
 
     # ---- 7. timing at the paths' shapes ------------------------------------
     # per callable: ms (CUDA events around 20 back-to-back calls), host_us
@@ -923,13 +982,19 @@ def main() -> int:
         shapes=enc_shapes("fwd", ("small_bucket", "crowded", "train")),
         shape=f"xyz4 [{M_pad}, 4], table [749, 2, 128, 64] ({visited} windows visited)"
               f" -> [32, {M_pad}]")
-    NBk = keyp.numel() // kw.RANK_BS
-    row("bin_ranks", "bin_ranks", launches_eval["bin_ranks"], err_rank,
-        lambda: kw.bin_ranks(keyp), lambda: kw.bin_ranks_plain(keyp),
-        lambda: torch.argsort(keyp, stable=True),
-        keyp.numel() * 8 + NBk * 64 * 4, keyp.numel() * 20, INT32_OPS_PER_S, path="eval",
-        launches_train=launches_train["bin_ranks"],
-        shape=f"keys [{NBk}, 512] -> rank [{NBk}, 512], tot [{NBk}, 64]")
+    # the whole bin sort, its three kernels in one call: bytes of x01 in and
+    # dest and tob out, the histograms once; a handful of integer operations
+    # per sample.  Its device time is the sum over its device operations,
+    # counted in `device_events`
+    keys_top = sample_tiles(x01)
+    NBk = -(-M // kw.RANK_BS)
+    row("bin_dest", "bin_dest", launches_eval["bin_dest"], 0.0,
+        lambda: kw.bin_dest(x01), lambda: kw.bin_dest_ref(x01),
+        lambda: torch.argsort(keys_top, stable=True), bin_dest_bytes(M, BLOCK), M * 30,
+        INT32_OPS_PER_S, path="eval", launches_train=launches_train["bin_dest"],
+        library_call="argsort (stable) of the tile keys",
+        shape=f"x01 [3, {M}] -> dest [{M}], tob [{M_pad // BLOCK}] (key blocks [{NBk}, 512], "
+              f"histograms [{NBk}, 64])")
 
     def add_row(name, indices, launches_n, err, idx, vals, rows_out, **extra):
         """A scatter-add form.  Bytes: idx and vals read once, the output
@@ -1015,7 +1080,7 @@ def main() -> int:
         None, dx_bytes, dx_ops, F32_OPS_PER_S, path="dnerf",
         library_call="none: no single PyTorch call computes the derivative-weight encode "
         "and its contraction", ms_uniform_oor=ms_dx_uniform, max_abs_err_uniform_oor=err_dx_o,
-        bytes=dx_bytes,
+        bytes=dx_bytes, shapes=enc_shapes("dx", ("small_bucket", "crowded")),
         shape=f"xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples), g_sorted "
               f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
               f"{xyz4_x.shape[0]}]")

@@ -48,7 +48,7 @@ def test_every_kernel_is_registered_with_its_source():
     from tngp_torch.kernels import KERNELS
 
     assert set(KERNELS) == {"scatter_add_unique", "scatter_add_sorted", "scatter_add_any",
-                            "scatter_set", "bin_ranks", "window_encode_fwd",
+                            "scatter_set", "bin_dest", "window_encode_fwd",
                             "window_encode_bwd", "window_encode_dx", "int_mul_probe"}
     for info in KERNELS.values():
         assert (ROOT / info.source).is_file()

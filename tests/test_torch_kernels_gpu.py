@@ -30,13 +30,55 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [37, 5000, 70_000])
 def test_bin_ranks_exact(cuda, M):
+    """The bin sort's first stage (ranks and histograms per key block,
+    which `bin_dest_stages` hands back) exactly as `bin_ranks_plain`, and
+    its destinations and block tiles exactly as the plain `bin_dest`."""
     rng = np.random.default_rng(M)
     x = torch.from_numpy(rng.uniform(0, 1, (3, M)).astype(np.float32) ** 3).to(cuda)
     keyp = kw._padded_keys(wt.sample_tiles(x))
-    for a, b in zip(kw.bin_ranks(keyp), kw.bin_ranks_plain(keyp)):
+    dest, tob, rank, tot = kw.bin_dest_stages(x)
+    for a, b in zip((rank, tot), kw.bin_ranks_plain(keyp)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    for a, b in zip(kw.bin_dest(x), kw.bin_dest_ref(x)):
+    for a, b in zip((dest, tob), kw.bin_dest_ref(x)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _bin_inputs(case, M, cuda):
+    rng = np.random.default_rng(M + 1)
+    x = rng.uniform(0, 1, (3, M)).astype(np.float32)
+    if case == "one_tile":
+        x *= 0.24
+    elif case == "nan_inf":
+        x[0, ::7], x[1, 1::5], x[2, 2::9] = np.nan, np.inf, -np.inf
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,M", [("uniform", M) for M in (1, 511, 512, 4096, 393_216)]
+                         + [("one_tile", 70_000), ("nan_inf", 70_000), ("uniform", 0)])
+@pytest.mark.parametrize("block", [512, 64])
+def test_bin_dest_exact(cuda, case, M, block):
+    """dest and tob exactly as the plain `bin_dest`, at sample counts around
+    the 512-key blocks up to the eval's top width, every sample in one tile,
+    NaN and infinite coordinates, no samples, and x01 as a strided view."""
+    x = _bin_inputs(case, M, cuda)
+    for a, b in zip(kw.bin_dest(x, block), kw.bin_dest_ref(x, block)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    strided = torch.empty((M, 5), device=cuda)
+    strided[:, 1:4] = x.T
+    for a, b in zip(kw.bin_dest(strided[:, 1:4].T, block), kw.bin_dest_ref(x, block)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_bin_dest_is_at_most_three_device_operations(cuda):
+    """One call: the rank, scan and destination kernels and nothing else on
+    the device (the profiler's device events per call)."""
+    from tngp_torch.diagnostics.kernel_times import device_ms
+
+    x = _bin_inputs("uniform", 393_216, cuda)
+    _, events, method = device_ms(lambda: kw.bin_dest(x))
+    assert method == "profiler" and events <= 3
 
 
 @pytest.mark.gpu
@@ -508,3 +550,61 @@ def test_encoder_kernels_take_unaligned_scalar_inputs(cuda):
                        kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, kw.DEFAULT_BLOCK))
     with pytest.raises(ValueError):  # the forward stages the table with 16-byte loads
         kw.window_encode_fwd(xyz4, wob, table_odd, spec, kw.DEFAULT_BLOCK)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interpolation", ["linear", "smoothstep"])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("crowd", [False, True])
+def test_input_gradient_kernel_channels_and_one_tile(cuda, interpolation, C, crowd):
+    """The input gradient within `check_dx`'s reordering bound of its plain
+    version (2 (L*C) 2^-24 sum|g * d| per sample and dimension), zero in
+    every padding slot and bitwise the same on a second call, for each
+    channel count, both interpolations, and every sample in one tile."""
+    spec = wt.WindowSpec.create(**{**SPEC_KW, "level_dim": C}, interpolation=interpolation)
+    rng = np.random.default_rng(29 + C)
+    M = 20_000
+    x = rng.uniform(-0.06, 1.06, (3, M)).astype(np.float32) * (0.24 if crowd else 1.0)
+    x = torch.from_numpy(x).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, C, 128, 64))
+                             .astype(np.float32)).to(cuda)
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    block = kw.DEFAULT_BLOCK
+    got = kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block)
+    plain = kw.window_encode_dx_plain(xyz4, wob, table, g_sorted, spec, block)
+    d = kw.dx_features(xyz4, wob, table, spec, block)
+    tol = 2 * spec.output_dim * 2.0**-24 * (g_sorted.T[None].abs() * d.abs()).sum(1).double()
+    assert bool(((got.double() - plain.double()).abs() <= tol).all())
+    assert bool((got[:, xyz4[:, 3] == 0] == 0).all()) and float(plain.abs().max()) > 1.0
+    assert torch.equal(got, kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block))
+
+
+@pytest.mark.gpu
+def test_input_gradient_kernel_with_no_samples_and_in_a_cuda_graph(cuda):
+    """M_pad = 0 gives an empty gx; captured in a CUDA graph, the flagship
+    input gradient replays to the direct call's bits."""
+    from tngp_torch.diagnostics.kernel_times import graph_replay_ms
+
+    spec = wt.WindowSpec.create(**FLAGSHIP)
+    table = torch.zeros((spec.n_windows, spec.level_dim, 128, 64), device=cuda)
+    gx = kw.window_encode_dx(torch.zeros((0, 4), device=cuda),
+                             torch.zeros((spec.num_levels, 0), dtype=torch.int32, device=cuda),
+                             table, torch.zeros((0, spec.output_dim), device=cuda), spec,
+                             kw.DEFAULT_BLOCK)
+    assert gx.shape == (3, 0)
+    rng = np.random.default_rng(31)
+    M = 20_000
+    x = torch.from_numpy(rng.uniform(0, 1, (3, M)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(spec.output_dim, M)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, spec.level_dim, 128, 64))
+                             .astype(np.float32)).to(cuda)
+    xyz4, wob, _, g_sorted = _sorted_inputs(x, g, spec, cuda)
+    out = {}
+
+    def dx():
+        out["x"] = kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, kw.DEFAULT_BLOCK)
+
+    assert graph_replay_ms(dx) > 0
+    assert torch.equal(out["x"], kw.window_encode_dx(xyz4, wob, table, g_sorted, spec,
+                                                     kw.DEFAULT_BLOCK))

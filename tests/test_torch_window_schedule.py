@@ -236,3 +236,81 @@ def test_encoder_bytes_count_the_table_entries_read(input_name):
     if input_name == "tiny":
         visited = sum(int(torch.unique(wob[l]).numel()) for l in range(spec.num_levels))
         assert fwd - samples < visited * C * WIN_ROWS * 4 // 4
+
+
+def _dx_mirror(xyz4, wob, table, g_sorted, spec, block):
+    """`window_dx_kernel` and `window_dx_sum_kernel` line by line: per
+    (chunk of S blocks, group of LG levels) and level, the chunk's runs of
+    one window (heads where the window changes, as the warp ballot finds
+    them), each live sample's terms g * d of that level added to its three
+    sums in channel order (f32, one rounding per product and per add, as
+    the kernel's `__fmul_rn` / `__fadd_rn`), the group's sums stored, then
+    the groups added in order.  Returns (gx, visits [L, M_pad]: how often
+    each (level, sample) was taken)."""
+    L, C = spec.num_levels, spec.level_dim
+    M_pad = xyz4.shape[0]
+    NB = M_pad // block
+    S, LG = kw.dx_schedule(NB, L, block)
+    G = -(-L // LG)
+    d = kw.dx_features(xyz4, wob, table, spec, block)  # the kernel's d, bit for bit
+    part = torch.full((G, 3, M_pad), float("nan"))
+    visits = torch.zeros((L, M_pad), dtype=torch.int64)
+    live = xyz4[:, 3] != 0
+    for c in range(-(-NB // S)):
+        b0 = c * S
+        n = min(S, NB - b0)
+        for grp in range(G):
+            acc = torch.zeros((3, n * block))
+            for l in range(grp * LG, min(L, grp * LG + LG)):
+                row = wob[l, b0:b0 + n].tolist()
+                heads = [r for r in range(n) if r == 0 or row[r] != row[r - 1]]
+                for r0, r1 in zip(heads, heads[1:] + [n]):
+                    m = slice((b0 + r0) * block, (b0 + r1) * block)
+                    a = slice(r0 * block, r1 * block)
+                    visits[l, m] += 1
+                    for ch in range(C):
+                        term = g_sorted[m, l * C + ch] * d[:, l * C + ch, m]
+                        acc[:, a] = torch.where(live[m], acc[:, a] + term, acc[:, a])
+            part[grp, :, b0 * block:(b0 + n) * block] = acc
+    gx = part[0]
+    for grp in range(1, G):
+        gx = gx + part[grp]
+    return gx, visits
+
+
+@pytest.mark.parametrize("spec_name,input_name",
+                         [("small", name) for name in INPUTS]
+                         + [("flagship", "uniform"), ("flagship", "crowded")])
+def test_input_gradient_schedule_matches_plain(spec_name, input_name):
+    """The input-gradient kernel's chunk and level-group walk takes every
+    (level, sample) once, writes zeros in the padding slots, and its fixed
+    summation order lands within `check_dx`'s reordering bound of
+    `window_encode_dx_plain`: 2 (L*C) 2^-24 sum|g * d| per sample and
+    dimension."""
+    spec, xyz4, wob, g_sorted = _sorted(spec_name, input_name, seed=2)
+    block = kw.DEFAULT_BLOCK
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(spec.n_windows, spec.level_dim, 128, 64))
+                             .astype(np.float32))
+    got, visits = _dx_mirror(xyz4, wob, table, g_sorted, spec, block)
+    assert bool((visits == 1).all())
+    plain = kw.window_encode_dx_plain(xyz4, wob, table, g_sorted, spec, block)
+    d = kw.dx_features(xyz4, wob, table, spec, block)
+    tol = 2 * spec.output_dim * 2.0**-24 * (g_sorted.T[None].abs() * d.abs()).sum(1).double()
+    assert bool(((got.double() - plain.double()).abs() <= tol).all())
+    assert bool((got[:, xyz4[:, 3] == 0] == 0).all()) and float(plain.abs().max()) > 1.0
+
+
+def test_input_gradient_schedule_from_the_sample_count():
+    """(S, LG) from the sample count alone: LG = 2 levels per CUDA block
+    (L = 16: eight groups), S = the forward's chunk blocks (~128 chunks) as
+    far as the kernel's room for S * block sums allows; for a D-NeRF step's
+    M_pad 163,840 (320 blocks of 512) that is 107 chunks of 3 blocks,
+    856 CUDA blocks."""
+    assert kw.dx_schedule(320, 16, 512) == (3, 2)
+    for NB, L, block in [(1, 16, 512), (72, 16, 512), (320, 16, 512), (832, 16, 512),
+                         (40, 5, 512), (313, 5, 64), (10_000, 16, 512), (9, 1, 4096)]:
+        S, LG = kw.dx_schedule(NB, L, block)
+        assert LG == min(2, L) and 1 <= S <= kw.chunk_blocks(NB)
+        assert S * block <= kw.DX_MAX_CHUNK_SAMPLES
+        assert S == kw.chunk_blocks(NB) or S == kw.DX_MAX_CHUNK_SAMPLES // block

@@ -56,20 +56,35 @@
 // (tngp_torch/diagnostics/kernel_times.py): the forward 0.074 ms at 425,984
 // samples, 45% of its bytes bound (the coarse levels' windows are staged by
 // every chunk, ~3x the table's bytes from L2); the table gradient 0.16 ms
-// on a training step's inputs, 14% of its bound (the shared adds' loops).
+// on a training step's inputs, 14% of its bound (the shared adds' loops);
+// the input gradient 0.077 ms on a D-NeRF step's inputs (M_pad 163,840),
+// 19% of its bound (each (chunk, level) piece restages its window from L2,
+// and its arithmetic is of the order of its bytes).
 // Shared-memory rows are swizzled (`swz`) so that a dense level's
 // neighbouring rows fall in different banks.  Sums land through shared (and,
 // for split windows, global) atomics in an order that changes from run to
 // run: each table entry matches an ordered sum to f32 reordering error.
 //
-// Input gradient: one thread per sample that loops over the levels and keeps
-// its three sums in registers (one launch, no atomics, deterministic).  Its
-// loads of the cotangent rows are strided across a warp (one 4*L*C-byte row
-// per thread) and its corners are gathered from global memory; staging a
-// chunk's window and rows as above is its redesign.
+// Input gradient: one CUDA block per (chunk of S tile-sorted blocks, pair
+// of levels), the forward's chunks (`dx_schedule`).  Per level it stages each
+// run's window once, as the forward does but with all of a thread's loads
+// in flight at once, and gathers the 8 corners there (a one-block run with
+// few live samples gathers from global memory); each sample's three sums
+// wait in shared memory across the pair.  Deterministic: a sample's terms
+// are added in (level, channel) order within a pair, and the pairs' partial
+// sums [G, 3, M_pad] in order by a small second kernel in the same call.
+// Its arithmetic is of the order of its bytes, so it is cut where no
+// rounding changes: the derivative weights of two corners that differ in
+// bit j are exact negatives (35 products per sample and level, not 96);
+// each corner product of two bf16 values is exact in f32, so one FMA
+// rounds as the separate add does; and a hashed level's swizzled slot is an
+// XOR of three per-dimension parts, the offset's bit rotation and the
+// swizzle being linear over XOR.
 //
-// All three compute the corner rows and weights with one device function
-// (`corner_geometry`), so a sample lands in the same cells in every pass.
+// All three compute a sample's cell with the same arithmetic (the forward
+// and table gradient in `corner_geometry`, the input gradient in
+// `dx_level_weights` and `row_offset`, the same rows), so a sample lands in
+// the same cells in every pass.
 // Positions use explicit round-to-nearest intrinsics so that nvcc does not
 // contract x * scale + shift into an FMA, which would move samples across
 // cell boundaries relative to the plain versions.
@@ -81,7 +96,8 @@
 // product w * g is formed in f32 and rounded to bf16 ONCE (the TPU kernel
 // rounds the product before its exact one-hot matmul), then summed in f32.
 // Input gradient: the forward's numerics with the derivative weights, then
-// f32 products with the cotangents summed in (level, channel) order.
+// f32 products with the cotangents summed in (level, channel) order within a
+// group of levels and the groups' sums added in order.
 // Padding slots carry validity 0 as the first factor of w and so add
 // nothing.  The cotangents arrive as g_sorted [M_pad, L*C] row-major (the
 // scatter-add sort of the [M, L*C] cotangent rows).
@@ -89,6 +105,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #define WIN_ROWS 8192
 #define WIN_LANES 128
@@ -99,11 +117,8 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // Offsets (within one channel of the window, lo * 64 + hi) and f32 weights
-// (validity folded in first) of the 8 corners of sample p at one level, and
-// with DERIV also each weight's derivative along x01_j, dw[j][k], as the TPU
-// kernel's `deriv=j` pass builds it (`_level_corner_geometry`): the validity
-// times, in dimension order, ±1 (linear) or ±(6 f)(1 - f) of the raw fraction
-// f (smoothstep) for dimension j and f or 1 - f for the others, times scale.
+// (validity folded in first) of the 8 corners of sample p at one level, as
+// the plain version builds them (`_corner_rows` in ops/window_table.py).
 //
 // A corner row of a dense level outside [0, WIN_ROWS) contributes nothing:
 // its weights are 0 and its offset points at the valid row row & 8191.  The
@@ -111,27 +126,18 @@ __device__ __forceinline__ float bf16_round(float x) {
 // [0, 64), so such a row matches none; samples outside the unit cube (D-NeRF
 // encodes x + dx) reach them.  Cell coordinates are 64-bit, so no product
 // overflows before the range test.
-template <bool DERIV>
-__device__ __forceinline__ void corner_geometry(const float4 p, float scale,
-                                                int side, int dense,
-                                                float shift, int smooth,
-                                                int off[8], float w[8],
-                                                float dw[3][8]) {
+__device__ __forceinline__ void corner_geometry(const float4 p, float scale, int side, int dense,
+                                                float shift, int smooth, int off[8],
+                                                float w[8]) {
   const float x[3] = {p.x, p.y, p.z};
   long long pg[3];
-  float f[3], df[3];
+  float f[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const float pos = __fadd_rn(__fmul_rn(x[d], scale), shift);
     const float g = floorf(pos);
     const float fr = __fsub_rn(pos, g);
-    if (smooth) {
-      f[d] = __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr)));
-      df[d] = __fmul_rn(__fmul_rn(6.0f, fr), __fsub_rn(1.0f, fr));
-    } else {
-      f[d] = fr;
-      df[d] = 1.0f;
-    }
+    f[d] = smooth ? __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr))) : fr;
     pg[d] = (long long)g;
   }
 #pragma unroll
@@ -153,21 +159,6 @@ __device__ __forceinline__ void corner_geometry(const float4 p, float scale,
     for (int d = 0; d < 3; ++d)
       wk = __fmul_rn(wk, ((k >> d) & 1) ? f[d] : __fsub_rn(1.0f, f[d]));
     w[k] = in_range ? wk : 0.0f;
-    if constexpr (DERIV) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        float v = p.w;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const bool bit = (k >> d) & 1;
-          if (d == j)
-            v = smooth ? __fmul_rn(v, bit ? df[d] : -df[d]) : (bit ? v : -v);
-          else
-            v = __fmul_rn(v, bit ? f[d] : __fsub_rn(1.0f, f[d]));
-        }
-        dw[j][k] = in_range ? __fmul_rn(v, scale) : 0.0f;
-      }
-    }
     off[k] = (r & (WIN_LANES - 1)) * WIN_HI + (r >> 7);
   }
 }
@@ -250,6 +241,49 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
 }
 
+// Stage the window at tw (C planes of WIN_ROWS f32) into shared memory as
+// bf16 channel pairs, NP = (C + 1) / 2 planes of WIN_ROWS words, rows
+// swizzled: 16-byte loads where tw is 16-byte aligned (the forward's table
+// always is), else 4-byte ones.  The whole block calls it.  With THREADS,
+// the block's size, each thread issues all of its loads before it converts
+// and stores any (one trip to L2 per staging, for registers that the input
+// gradient has to spare and the forward has not); else a loop over the
+// 16-byte groups.
+template <int C, int THREADS = 0>
+__device__ __forceinline__ void stage_window(uint4* stage4, const float* __restrict__ tw) {
+  constexpr int NP = (C + 1) / 2, PER = THREADS ? WIN_ROWS / 4 / THREADS : 1;
+  static_assert(THREADS == 0 || WIN_ROWS / 4 % THREADS == 0, "the block must divide the window");
+  const bool vec = (reinterpret_cast<uintptr_t>(tw) & 15) == 0;
+  const int step = THREADS ? THREADS : blockDim.x;
+  for (int q0 = threadIdx.x; q0 < WIN_ROWS / 4; q0 += PER * step) {
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      float4 a[PER], b[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float* ta = tw + 2 * np * WIN_ROWS + 4 * (q0 + i * step);
+        const float* tb = ta + WIN_ROWS;
+        b[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (vec) {
+          a[i] = __ldg(reinterpret_cast<const float4*>(ta));
+          if (2 * np + 1 < C) b[i] = __ldg(reinterpret_cast<const float4*>(tb));
+        } else {
+          a[i] = make_float4(__ldg(ta), __ldg(ta + 1), __ldg(ta + 2), __ldg(ta + 3));
+          if (2 * np + 1 < C)
+            b[i] = make_float4(__ldg(tb), __ldg(tb + 1), __ldg(tb + 2), __ldg(tb + 3));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int r = 4 * (q0 + i * step);
+        stage4[(np * WIN_ROWS + swz(r)) / 4] =
+            make_uint4(pack_bf16(a[i].x, b[i].x), pack_bf16(a[i].y, b[i].y),
+                       pack_bf16(a[i].z, b[i].z), pack_bf16(a[i].w, b[i].w));
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
@@ -297,19 +331,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
     const int live = __syncthreads_count(p.w != 0.0f);
     const bool staged = p1 - p0 > 1 || live >= STAGE_MIN_LIVE;
     if (staged) {
-      for (int q = threadIdx.x; q < WIN_ROWS / 4; q += blockDim.x) {
-        const int r = 4 * q;
-#pragma unroll
-        for (int np = 0; np < NP; ++np) {
-          const float4 a = __ldg(reinterpret_cast<const float4*>(tw + 2 * np * WIN_ROWS + r));
-          float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (2 * np + 1 < C)
-            b = __ldg(reinterpret_cast<const float4*>(tw + (2 * np + 1) * WIN_ROWS + r));
-          stage4[(np * WIN_ROWS + swz(r)) / 4] =
-              make_uint4(pack_bf16(a.x, b.x), pack_bf16(a.y, b.y), pack_bf16(a.z, b.z),
-                         pack_bf16(a.w, b.w));
-        }
-      }
+      stage_window<C>(stage4, tw);
       __syncthreads();
     }
     while (m < m1) {
@@ -319,7 +341,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
       if (p.w != 0.0f) {  // a padding slot gathers nothing and writes zeros
         int off[8];
         float w[8];
-        corner_geometry<false>(p, scale, side, dense, shift, smooth, off, w, nullptr);
+        corner_geometry(p, scale, side, dense, shift, smooth, off, w);
         if (staged) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
@@ -442,7 +464,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 3)
         const float4 p = m < p1 * block ? xyz4[m] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         int off[8];
         float w[8];
-        corner_geometry<false>(p, scale, side, dense, shift, smooth, off, w, nullptr);
+        corner_geometry(p, scale, side, dense, shift, smooth, off, w);
         float v[8][CG];
 #pragma unroll
         for (int j = 0; j < CG; ++j) {
@@ -503,51 +525,237 @@ __global__ void __launch_bounds__(ZERO_THREADS)
     dst[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
+// ---------------------------------------------------------------------------
+// Input gradient
+// ---------------------------------------------------------------------------
+
+#define DX_THREADS 512
+#define DX_MIN_BLOCKS 2  // resident blocks per SM: at most 64 registers a thread
+#define DX_MAX_CHUNK_SAMPLES 4096  // S * block, at most (the accumulators' room)
+
+// The derivative weights of sample p's corners at one level, rounded to
+// bf16, as the TPU kernel's `deriv=j` pass and the plain version
+// (`_corner_rows(deriv=True)`) form them: dw[j][k] is the f32 product, in
+// this order, of the validity, per dimension d the factor of corner bit
+// b_d (f or 1 - f, or for d = j: +-df, +-1 when linear) and the scale.  The
+// two corners that differ only in bit j get factors df and -df, so their
+// dw[j] are exact negatives (each product then only flips its sign, and so
+// does the rounding to bf16): dwp[j][i] holds the four corners with bit j
+// set, i the other two bits in order, and the kernel negates for the rest.
+// That is 35 products per sample and level, not 96.  Also the cell
+// coordinates pg, from which the corners' rows follow.
+__device__ __forceinline__ void dx_level_weights(const float4 p, float scale, float shift,
+                                                 int smooth, long long pg[3],
+                                                 float dwp[3][4]) {
+  const float x[3] = {p.x, p.y, p.z};
+  float a[3][2], df[3];  // per dimension: the weight factors of bit 0 and 1, and df
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float pos = __fadd_rn(__fmul_rn(x[d], scale), shift);
+    const float g = floorf(pos);
+    const float fr = __fsub_rn(pos, g);
+    float f = fr;
+    df[d] = 1.0f;  // linear: the factor is +-1, a sign flip
+    if (smooth) {
+      f = __fmul_rn(__fmul_rn(fr, fr), __fsub_rn(3.0f, __fmul_rn(2.0f, fr)));
+      df[d] = __fmul_rn(__fmul_rn(6.0f, fr), __fsub_rn(1.0f, fr));
+    }
+    a[d][0] = __fsub_rn(1.0f, f);
+    a[d][1] = f;
+    pg[d] = (long long)g;
+  }
+  const float u0 = __fmul_rn(p.w, df[0]);                                   // j = 0, b0 = 1
+  const float v0[2] = {__fmul_rn(p.w, a[0][0]), __fmul_rn(p.w, a[0][1])};  // j = 1, 2
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int lo = i & 1, hi = i >> 1;  // the other two bits, lower dimension first
+    // j = 0: bits (b1, b2) = (lo, hi); j = 1: (b0, b2); j = 2: (b0, b1)
+    const float w0 = __fmul_rn(__fmul_rn(u0, a[1][lo]), a[2][hi]);
+    const float w1 = __fmul_rn(__fmul_rn(v0[lo], df[1]), a[2][hi]);
+    const float w2 = __fmul_rn(__fmul_rn(v0[lo], a[1][hi]), df[2]);
+    dwp[0][i] = bf16_round(__fmul_rn(w0, scale));
+    dwp[1][i] = bf16_round(__fmul_rn(w1, scale));
+    dwp[2][i] = bf16_round(__fmul_rn(w2, scale));
+  }
+}
+
+// Corner k's derivative weight along dimension j from dx_level_weights'
+// four: the one with bit j set, negated where bit j is clear.
+__device__ __forceinline__ float dx_weight(const float dwp[3][4], int j, int k) {
+  const int i = j == 0 ? k >> 1 : j == 1 ? (k & 1) | ((k >> 2) << 1) : k & 3;
+  return (k >> j) & 1 ? dwp[j][i] : -dwp[j][i];
+}
+
+// Window offset lo * 64 + hi of row r & 8191: a rotation of its 13 bits.
+__device__ __forceinline__ uint32_t row_offset(uint32_t r) {
+  return ((r & (WIN_LANES - 1)) << 6) | ((r >> 7) & (WIN_HI - 1));
+}
+
+// One corner's terms: its 8192-row table values t_c (from the stage, or
+// from global memory) times its derivative weights dw[j], added to d[c][j].
+// dw and t are bf16 values, so each product is exact in f32 and one FMA
+// rounds once, as the separate multiply and add of the plain version do.
+template <int C>
+__device__ __forceinline__ void dx_corner_terms(int off, const float dw[3], bool staged,
+                                                const uint32_t* stage,
+                                                const float* __restrict__ tw,
+                                                float (&d)[C][3]) {
+  constexpr int NP = (C + 1) / 2;
+  float t[2 * NP];
+  if (staged) {
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      const uint32_t v = stage[np * WIN_ROWS + off];  // off is the swizzled slot here
+      t[2 * np] = __uint_as_float(v << 16);
+      t[2 * np + 1] = __uint_as_float(v & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) t[c] = bf16_round(__ldg(tw + c * WIN_ROWS + off));
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) d[c][j] = __fmaf_rn(dw[j], t[c], d[c][j]);
+}
+
 // Input gradient: per tile-sorted sample, gx[j] = sum over (l, c) of
 // g[l, c] * d[l, c, j], where d[l, c, j] = sum over corners k of
 // bf16(dw[j][k]) * bf16(table value), in corner order, in f32 — the value the
-// TPU kernel's `deriv=j` forward pass gives — and the (l, c) terms are added
-// in that order.  One thread per sample loops over the levels: no atomics,
-// one write of gx [3, M_pad].
+// TPU kernel's `deriv=j` forward pass gives.  One CUDA block per (chunk of S
+// tile-sorted blocks, group of LG levels): per level it walks the chunk's
+// runs of one window as the forward does, stages each run's window once as
+// bf16 channel pairs (a one-block run with few live samples gathers from
+// global memory), and adds each live sample's terms for that level, in
+// channel order, to the sample's three sums, which sit in shared memory
+// (one slot per sample and j, only ever touched by one thread at a time)
+// until the group's levels are done.  Then the sums go to part[group, j,
+// m]; with one group that is gx itself.  Padding slots add nothing and
+// write zeros.
 template <int C>
-__global__ void window_dx_kernel(const float4* __restrict__ xyz4,
-                                 const int32_t* __restrict__ wob,
-                                 const float* __restrict__ table,
-                                 const float* __restrict__ g_sorted,
-                                 const float* __restrict__ scales,
-                                 const int32_t* __restrict__ iconst,
-                                 float* __restrict__ gx, int M_pad, int block,
-                                 int L, float shift, int smooth) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M_pad) return;
-  const float4 p = xyz4[m];
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  if (p.w != 0.0f) {  // padding slots: every derivative weight is 0
-    const int NB = M_pad / block;
-    for (int l = 0; l < L; ++l) {
-      const int win = iconst[2 * L + l] + wob[(size_t)l * NB + m / block];
-      const float* tw = table + (size_t)win * C * WIN_ROWS;
-      int off[8];
-      float w[8], dw[3][8];
-      corner_geometry<true>(p, scales[l], iconst[l], iconst[L + l], shift, smooth, off, w, dw);
+__global__ void __launch_bounds__(DX_THREADS, DX_MIN_BLOCKS)
+    window_dx_kernel(const float4* __restrict__ xyz4, const int32_t* __restrict__ wob,
+                     const float* __restrict__ table, const float* __restrict__ g_sorted,
+                     const float* __restrict__ scales, const int32_t* __restrict__ iconst,
+                     float* __restrict__ part, int M_pad, int block, int L, int S, int LG,
+                     float shift, int smooth) {
+  constexpr int NP = (C + 1) / 2;
+  extern __shared__ uint4 smem4[];  // [NP][WIN_ROWS] words, then [3][S * block] f32
+  const uint32_t* stage = reinterpret_cast<const uint32_t*>(smem4);
+  float* acc = reinterpret_cast<float*>(smem4 + NP * WIN_ROWS / 4);
+  const int cap = S * block;
+  const int NB = M_pad / block, lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * S, n = min(S, NB - b0);
+  const int m0 = b0 * block, len = n * block;
+  const int l0 = blockIdx.y * LG, l1 = min(L, l0 + LG);
+  for (int i = threadIdx.x; i < len; i += blockDim.x) acc[i] = acc[cap + i] = acc[2 * cap + i] = 0.0f;
+  for (int l = l0; l < l1; ++l) {
+    const float scale = scales[l];
+    const int dense = iconst[L + l], woff = iconst[2 * L + l];
+    const unsigned long long side1 = (unsigned long long)iconst[l], side2 = side1 * side1;
+    const float* gl = g_sorted + l * C;
+    // the chunk's runs of one window, as the forward finds them
+    const int wl = lane < n ? wob[(size_t)l * NB + b0 + lane] : -1;
+    const int wprev = __shfl_up_sync(0xffffffffu, wl, 1);
+    unsigned heads = __ballot_sync(0xffffffffu, lane < n && (lane == 0 || wl != wprev));
+    while (heads) {
+      const int r0 = __ffs(heads) - 1;
+      heads &= heads - 1;
+      const int r1 = heads ? __ffs(heads) - 1 : n;
+      const float* tw =
+          table + (size_t)(woff + __shfl_sync(0xffffffffu, wl, r0)) * C * WIN_ROWS;
+      const int pm1 = (b0 + r1) * block;
+      int m = (b0 + r0) * block + threadIdx.x;
+      float4 p = m < pm1 ? xyz4[m] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      // the barrier also keeps the stage and the sums until the previous run
+      // is done with them
+      const int live = __syncthreads_count(p.w != 0.0f);
+      const bool staged = r1 - r0 > 1 || live >= STAGE_MIN_LIVE;
+      if (staged) {
+        stage_window<C, DX_THREADS>(smem4, tw);
+        __syncthreads();
+      }
+      while (m < pm1) {
+        if (p.w != 0.0f) {  // a padding slot adds nothing
+          long long pg[3];
+          float dwp[3][4];
+          dx_level_weights(p, scale, shift, smooth, pg, dwp);
+          float d[C][3];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float t[8];
+          for (int c = 0; c < C; ++c) d[c][0] = d[c][1] = d[c][2] = 0.0f;
+          if (dense) {
+            const unsigned long long row0 = (unsigned long long)pg[0] +
+                                            (unsigned long long)pg[1] * side1 +
+                                            (unsigned long long)pg[2] * side2;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) t[k] = bf16_round(tw[c * WIN_ROWS + off[k]]);
-        const float g = g_sorted[(size_t)m * (L * C) + l * C + c];
+            for (int k = 0; k < 8; ++k) {
+              const long long row = (long long)(row0 + (k & 1) + ((k >> 1) & 1) * side1 +
+                                                (k >> 2) * side2);
+              const bool in = row >= 0 && row < WIN_ROWS;  // else the corner weighs nothing
+              const uint32_t off = row_offset((uint32_t)row);
+              const float dw[3] = {in ? dx_weight(dwp, 0, k) : 0.0f,
+                                   in ? dx_weight(dwp, 1, k) : 0.0f,
+                                   in ? dx_weight(dwp, 2, k) : 0.0f};
+              dx_corner_terms<C>(staged ? swz(off) : off, dw, staged, stage, tw, d);
+            }
+          } else {
+            // the hash is an XOR of one part per dimension, and the offset's
+            // bit rotation and the stage's swizzle are linear over XOR: each
+            // corner's slot is an XOR of three precomputed parts
+            uint32_t xp[3][2];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          float d = 0.0f;
+            for (int b = 0; b < 2; ++b) {
+              xp[0][b] = row_offset((uint32_t)pg[0] + b);
+              xp[1][b] = row_offset(((uint32_t)pg[1] + b) * 2654435761u);
+              xp[2][b] = row_offset(((uint32_t)pg[2] + b) * 805459861u);
+              if (staged) xp[0][b] = swz(xp[0][b]), xp[1][b] = swz(xp[1][b]),
+                          xp[2][b] = swz(xp[2][b]);
+            }
 #pragma unroll
-          for (int k = 0; k < 8; ++k) d = __fadd_rn(d, __fmul_rn(bf16_round(dw[j][k]), t[k]));
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(g, d));
+            for (int k = 0; k < 8; ++k) {
+              const float dw[3] = {dx_weight(dwp, 0, k), dx_weight(dwp, 1, k),
+                                   dx_weight(dwp, 2, k)};
+              dx_corner_terms<C>(xp[0][k & 1] ^ xp[1][(k >> 1) & 1] ^ xp[2][k >> 2], dw,
+                                 staged, stage, tw, d);
+            }
+          }
+          float* am = acc + (m - m0);
+          float s[3] = {am[0], am[cap], am[2 * cap]};
+          const float* gm = gl + (size_t)m * (L * C);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float g = __ldg(gm + c);
+#pragma unroll
+            for (int j = 0; j < 3; ++j) s[j] = __fadd_rn(s[j], __fmul_rn(g, d[c][j]));
+          }
+          am[0] = s[0];
+          am[cap] = s[1];
+          am[2 * cap] = s[2];
         }
+        m += blockDim.x;
+        if (m < pm1) p = xyz4[m];
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) gx[(size_t)j * M_pad + m] = acc[j];
+  __syncthreads();
+  float* out = part + (size_t)blockIdx.y * 3 * M_pad + m0;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    out[i] = acc[i];
+    out[(size_t)M_pad + i] = acc[cap + i];
+    out[2 * (size_t)M_pad + i] = acc[2 * cap + i];
+  }
+}
+
+// gx = the level groups' partial sums added in group order: [G, 3 * M_pad]
+// -> [3 * M_pad].
+__global__ void window_dx_sum_kernel(const float* __restrict__ part, float* __restrict__ gx,
+                                     int64_t n, int G) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float s = part[i];
+    for (int g = 1; g < G; ++g) s = __fadd_rn(s, part[g * n + i]);
+    gx[i] = s;
+  }
 }
 
 // Dynamic shared memory above the 48 KB default must be allowed per kernel
@@ -599,11 +807,25 @@ static int launch_bwd(const float4* x4, const int32_t* wob, const float* g_sorte
 template <int C>
 static int launch_dx(const float4* x4, const int32_t* wob, const float* table,
                      const float* g_sorted, const float* scales, const int32_t* iconst,
-                     float* gx, int M_pad, int block, int L, float shift, int smooth,
-                     cudaStream_t stream) {
-  const int threads = 128;
-  window_dx_kernel<C><<<(M_pad + threads - 1) / threads, threads, 0, stream>>>(
-      x4, wob, table, g_sorted, scales, iconst, gx, M_pad, block, L, shift, smooth);
+                     float* part, float* gx, int M_pad, int block, int L, int S, int LG,
+                     float shift, int smooth, cudaStream_t stream) {
+  static unsigned long long done = 0;
+  const int stage_bytes = (C + 1) / 2 * WIN_ROWS * 4;
+  // the attribute is set once, for the largest chunk the launcher takes
+  const cudaError_t err =
+      allow_smem(window_dx_kernel<C>, stage_bytes + 3 * DX_MAX_CHUNK_SAMPLES * 4, done);
+  if (err != cudaSuccess) return (int)err;
+  const int G = (L + LG - 1) / LG;
+  const dim3 grid((M_pad / block + S - 1) / S, G);
+  window_dx_kernel<C><<<grid, DX_THREADS, stage_bytes + 3 * S * block * 4, stream>>>(
+      x4, wob, table, g_sorted, scales, iconst, G > 1 ? part : gx, M_pad, block, L, S, LG, shift,
+      smooth);
+  if (G > 1) {
+    const int64_t n = 3 * (int64_t)M_pad;
+    const int threads = 256;
+    const int blocks = (int)std::min<int64_t>((n + threads - 1) / threads, 4096);
+    window_dx_sum_kernel<<<blocks, threads, 0, stream>>>(part, gx, n, G);
+  }
   return 0;
 }
 
@@ -656,17 +878,22 @@ extern "C" int tngp_window_encode_bwd(const float* xyz4, const int32_t* wob,
 }
 
 // As the forward, with g_sorted [M_pad, L * C] f32 (the sorted cotangent
-// rows) and gx [3, M_pad] f32, every entry written.
+// rows, any alignment; the table too), LG levels per CUDA block (1..L), S
+// blocks per chunk with S * block <= DX_MAX_CHUNK_SAMPLES, part [G, 3, M_pad]
+// f32 scratch for G = ceil(L / LG) > 1 groups (unused for one), and gx
+// [3, M_pad] f32, every entry written.
 extern "C" int tngp_window_encode_dx(const float* xyz4, const int32_t* wob,
                                      const float* table, const float* g_sorted,
-                                     const float* scales, const int32_t* iconst,
-                                     float* gx, int M_pad, int block, int L,
-                                     int C, float shift, int smooth,
-                                     cudaStream_t stream) {
+                                     const float* scales, const int32_t* iconst, float* part,
+                                     float* gx, int M_pad, int block, int L, int C, int S,
+                                     int LG, float shift, int smooth, cudaStream_t stream) {
+  if (S < 1 || S > 32 || LG < 1 || block <= 0 || M_pad % block ||
+      (int64_t)S * block > DX_MAX_CHUNK_SAMPLES)
+    return (int)cudaErrorInvalidValue;
   int rc = 0;
   if (M_pad > 0 && L > 0) {
     DISPATCH_LAUNCH(launch_dx, reinterpret_cast<const float4*>(xyz4), wob, table, g_sorted,
-                    scales, iconst, gx, M_pad, block, L, shift, smooth, stream)
+                    scales, iconst, part, gx, M_pad, block, L, S, LG, shift, smooth, stream)
   }
   return rc ? rc : (int)cudaGetLastError();
 }

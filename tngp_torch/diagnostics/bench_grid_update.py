@@ -57,7 +57,7 @@ CHUNK = 2**17  # density-query chunk
 DENSITY_THRESH = 10.0
 WARMUP, ITERS = 2, 10
 # the kernels this bench's stages launch (a caller checks that each ran)
-KERNELS = ("scatter_set", "bin_ranks", "scatter_add_unique", "window_encode_fwd")
+KERNELS = ("scatter_set", "bin_dest", "scatter_add_unique", "window_encode_fwd")
 
 
 class BenchReport(NamedTuple):

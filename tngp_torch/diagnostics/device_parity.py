@@ -175,7 +175,7 @@ def probe_inputs(spec, n: int, seed: int, device):
 
 
 # the kernels `run_probes` launches (a caller checks that each ran)
-KERNELS = ("int_mul_probe", "bin_ranks", "scatter_add_unique", "scatter_add_sorted",
+KERNELS = ("int_mul_probe", "bin_dest", "scatter_add_unique", "scatter_add_sorted",
            "scatter_add_any", "window_encode_fwd", "window_encode_bwd", "window_encode_dx")
 
 

@@ -11,8 +11,15 @@ with --vary-seed) and a `DNeRFTrainer` under the phase's pinned config
 16 x 128^3 updated every 16 steps, 4096 rays/step, no budget tiers) on the
 same 12 views of 128x128 of the dynamic blob scene, trains it for 180 steps
 (the phase's 64 + 100 + 16), then puts one more batch through the loss and
-its backward (the phase's one-step check).  With one seed the runs differ
+its backward (the phase's trained step).  With one seed the runs differ
 only where the kernels add in an order that changes from run to run.
+
+The bias-free 5x128 ReLU deform MLP dies in some of these trainings: its
+largest |grad| is then 0 from some step on.  The phase holds the kernels on
+a freshly built net, where the gradient must reach the deform net, and only
+reports a dead net after training; so this counts dead nets as a finding of
+its own, apart from the phase's failures (the loss not halving, a
+non-finite gradient).
 
 Per run it records the loss, the sample count and the deform net's largest
 |grad| of every step (and the step from which that stays 0, if it does),
@@ -20,10 +27,10 @@ the mean loss of the first and last 16 steps and whether the last fell
 below half the first (the phase's check), the time grid's occupied share,
 the deform net's largest |dx| over 4096 fixed points at each frame's time,
 and for the extra batch its time, sample count and loss, the deform net's
-largest |grad| and the count of non-finite entries of each gradient (the
-phase's check wants the first > 0 and the second empty).  It prints one
-JSON line per run, then a summary line with the failure count and the
-failing runs' values; --out writes every record to a file.  It needs a
+largest |grad| (0: a dead net) and the count of non-finite entries of each
+gradient (the phase wants none).  It prints one JSON line per run, then a
+summary line with the failure count, the dead-net count and the failing
+and dead runs' values; --out writes every record to a file.  It needs a
 CUDA card.
 """
 
@@ -85,13 +92,13 @@ def one_run(dds, seed: int) -> dict:
                  if g is not None and not bool(torch.isfinite(g).all())}
     tr.optimizer.zero_grad(set_to_none=True)
     halved = bool(last16 < 0.5 * first16)
-    step_ok = bool(deform_max > 0 and not nonfinite)
     return dict(seed=seed, wall_s=wall, first16=first16, last16=last16, halved=halved,
                 occupied=occupied, deform_dead_from=dead_from, probe_dx_max=dx_max,
                 batch_time=float(batch["time"]), batch_samples=int(npts),
                 batch_loss=float(loss.detach()), deform_max_grad=deform_max,
-                nonfinite=nonfinite, step_ok=step_ok, failed=not (halved and step_ok),
-                losses=losses, samples=pts, deform_grad_max=gmax)
+                dead=deform_max == 0, nonfinite=nonfinite,
+                failed=not halved or bool(nonfinite), losses=losses, samples=pts,
+                deform_grad_max=gmax)
 
 
 def main(runs: int = 20, seed: int = 0, vary_seed: bool = False, out: str | None = None) -> int:
@@ -110,18 +117,17 @@ def main(runs: int = 20, seed: int = 0, vary_seed: bool = False, out: str | None
         brief = {k: v for k, v in rec.items()
                  if k not in ("losses", "samples", "deform_grad_max")}
         print(json.dumps(brief), flush=True)
-    failed = [rec for rec in records if rec["failed"]]
     last16 = [r["last16"] for r in records]
-    summary = dict(runs=runs, failed=len(failed),
+    keys = ("run", "seed", "first16", "last16", "occupied", "deform_dead_from", "probe_dx_max",
+            "batch_time", "batch_samples", "batch_loss", "deform_max_grad", "nonfinite")
+    summary = dict(runs=runs, failed=sum(r["failed"] for r in records),
                    halving_failed=sum(not r["halved"] for r in records),
-                   step_check_failed=sum(not r["step_ok"] for r in records),
+                   nonfinite=sum(bool(r["nonfinite"]) for r in records),
                    last16_range=[min(last16), max(last16)],
+                   dead_at_batch=sum(r["dead"] for r in records),
                    deform_dead=sum(r["deform_dead_from"] is not None for r in records),
-                   failing_runs=[{k: r[k] for k in ("run", "seed", "first16", "last16", "occupied",
-                                                    "deform_dead_from", "probe_dx_max",
-                                                    "batch_time", "batch_samples", "batch_loss",
-                                                    "deform_max_grad", "nonfinite")}
-                                 for r in failed])
+                   failing_runs=[{k: r[k] for k in keys} for r in records if r["failed"]],
+                   dead_runs=[{k: r[k] for k in keys} for r in records if r["dead"]])
     print(json.dumps(summary), flush=True)
     if out:
         with open(out, "w") as f:

@@ -1,16 +1,17 @@
-"""Kernel timing on the card, three numbers per callable, and the scatter
-kernels timed with them at the main path's shapes.
+"""Kernel timing on the card, three numbers per callable, and the kernels
+timed with them at the main path's shapes.
 
     python3 tngp_torch/diagnostics/kernel_times.py [--root DIR] [--seed 0]
-        [--train-inputs FILE]
+        [--train-inputs FILE] [--dnerf-inputs FILE]
 
 - `events_ms`: CUDA events around 20 back-to-back calls after 3 warm-ups,
   per call: the wall a caller sees per call, max(host, device);
-- `device_ms`: the summed device time of the call's own kernels, memsets
-  included, per call, from `torch.profiler`'s device events over 20 calls;
-  where the profiler records none (it records nothing once an earlier
-  large profile has run in the process, as `chip_smoke.py --profile`'s
-  do), CUDA events around 20 replays of a CUDA graph of one call;
+- `device_ms`: the summed device time of the call's own device operations
+  (kernels, memsets, copies) per call, and their count per call, from
+  `torch.profiler`'s device events over 20 calls; where the profiler
+  records none (it records nothing once an earlier large profile has run
+  in the process, as `chip_smoke.py --profile`'s do), CUDA events around
+  20 replays of a CUDA graph of one call;
 - `host_us`: `time.perf_counter` around 200 calls with no synchronize, per
   call: the enqueue cost.
 
@@ -18,20 +19,24 @@ kernels timed with them at the main path's shapes.
 scatter-adds (payload sort [393,216, 4] -> [425,984, 4], per-ray reduction
 [393,216, 5] -> [4096, 5], cotangent sort [131,072, 32] -> [163,840, 32],
 round update [1024, 6] -> [4096, 6]), the set-scatter (1,048,576 writes into
-128^3 cells), the int-mul probe, and the encoder forward and table gradient
-of the flagship spec at four inputs (`encoder_calls` on `encoder_inputs`:
-the eval's top width, a small eval bucket, samples all in one tile, and one
-training step's inputs) through whichever `tngp_torch` it imports:
-`--root DIR` takes the package from another checkout (say the parent
-commit's, unpacked into a git-ignored directory), so two versions of the
-kernels and of the launch path are timed on one card in one call.  The
-training step's inputs come from `--train-inputs FILE` where that file
-exists; else they are captured from `TRAIN_STEPS` steps of bench.py's
-training loop and saved there with how they were made (a file made with
-another seed or step count is refused), so the runs of one call time the
-same inputs; keep the file in a git-ignored directory of the checkout, such
-as `_archive/`.  It prints the card's name and power limit and one JSON
-line (encoder rows carry their bound, `bound_ms`).  It needs a CUDA card.
+128^3 cells), the int-mul probe, the whole bin sort `bin_dest` at the
+eval's top width (393,216 samples; a stable `argsort` of their tile keys
+beside it), and the encoder forward, table gradient and input gradient of
+the flagship spec at four inputs (`encoder_calls` on `encoder_inputs`: the
+eval's top width, a small eval bucket, samples all in one tile, and one
+training step's inputs; the input gradient also on one D-NeRF step's)
+through whichever `tngp_torch` it imports: `--root DIR` takes the package
+from another checkout (say the parent commit's, unpacked into a
+git-ignored directory), so two versions of the kernels and of the launch
+path are timed on one card in one call.  The training step's inputs come
+from `--train-inputs FILE` and the D-NeRF step's from `--dnerf-inputs FILE`
+where those files exist; else they are captured (`TRAIN_STEPS` steps of
+bench.py's training loop; `DNERF_STEPS` steps of `chip_smoke.py`'s D-NeRF
+phase) and saved there with how they were made (a file made with another
+seed or step count is refused), so the runs of one call time the same
+inputs; keep the files in a git-ignored directory of the checkout, such as
+`_archive/`.  It prints the card's name and power limit and one JSON line
+(rows carry their bound, `bound_ms`).  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 REPS, WARMUP, HOST_CALLS = 20, 3, 200
 TRAIN_STEPS = 300  # training steps before the captured table gradient
+DNERF_STEPS = 64  # D-NeRF steps before the captured input gradient
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 
 
@@ -173,6 +179,99 @@ def scatter_calls(seed: int = 0) -> dict:
     }
 
 
+def bin_dest_bytes(M: int, block: int) -> int:
+    """Bytes the bin sort must move: x01 in (12 B) and dest out (8 B) per
+    sample, the 64-bin histogram of each 512-key block (256 B) and tob out
+    (8 B per block)."""
+    from tngp_torch.kernels import window_encoder as kw
+
+    return M * 20 + -(-M // 512) * 256 + kw.padded_size(M, block) // block * 8
+
+
+def bin_dest_calls(seed: int = 0) -> dict:
+    """name -> (call, stable `argsort` of the same tile keys, bound ms): the
+    whole bin sort at the eval's top width (393,216 uniform samples)."""
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.ops.window_table import sample_tiles
+
+    gen = torch.Generator(device="cpu").manual_seed(seed + 4)
+    M = 393_216
+    x01 = torch.rand((3, M), generator=gen).to("cuda")
+    keys = sample_tiles(x01)
+    return {"bin_dest_top": (lambda: kw.bin_dest(x01), lambda: torch.argsort(keys, stable=True),
+                             bin_dest_bytes(M, kw.DEFAULT_BLOCK) / HBM_BYTES_PER_S * 1e3)}
+
+
+def _load_made(path: str, seed: int, steps_key: str, steps: int):
+    """The tensors saved at `path`, refused unless made with `seed` after
+    `steps` steps; None where there is no file."""
+    if not (path and os.path.exists(path)):
+        return None
+    d = torch.load(path, map_location="cuda")
+    made = d.get("made", {})
+    print(f"inputs: {path} made by {made}")
+    if made.get("seed") != seed or made.get(steps_key) != steps:
+        raise SystemExit(f"{path} holds inputs made by {made}, not seed {seed} after "
+                         f"{steps} steps: remove it or pass another path")
+    return d
+
+
+def _save_made(path: str | None, tensors: dict, seed: int, steps_key: str, steps: int) -> None:
+    import tngp_torch
+
+    if path:
+        made = {"seed": seed, steps_key: steps,
+                "package": os.path.dirname(tngp_torch.__file__), "time": time.ctime()}
+        torch.save({**tensors, "made": made}, path)
+        print(f"inputs: saved to {path}, made by {made}")
+
+
+def dnerf_inputs(path: str | None, seed: int = 0):
+    """(xyz4, wob, table, g_sorted) that one D-NeRF step gave the input
+    gradient: loaded from `path` where it exists, else captured after
+    DNERF_STEPS steps of `chip_smoke.py`'s D-NeRF phase (the flagship encoder
+    with position gradients, the 5x128 deform MLP, 12 views of 128x128 of the
+    dynamic blob scene, 4096 rays/step, bench.py's render config, a 16 x
+    128^3 time grid) and saved to `path` if one is given, as `train_inputs`
+    saves its own."""
+    d = _load_made(path, seed, "dnerf_steps", DNERF_STEPS)
+    if d is not None:
+        return d["xyz4"], d["wob"], d["table"], d["g_sorted"]
+    from tngp_torch.data import make_synthetic_dynamic_dataset
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.models import DNeRFNetwork
+    from tngp_torch.render import RenderConfig
+    from tngp_torch.train import DNeRFTrainer
+    from tngp_torch.utils import TrainConfig
+
+    dev = torch.device("cuda")
+    dds = make_synthetic_dynamic_dataset(n_frames=12, H=128, W=128, seed=0, device=dev)
+    cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
+                       compact_fraction=0.25, density_thresh=1.0, march_dense=True)
+    model = DNeRFNetwork(bound=1.0, encoding="hashgrid_window", compute_dtype=torch.bfloat16,
+                         device=dev, seed=seed)
+    tr = DNeRFTrainer(model, dds, cfg, TrainConfig(num_rays=4096, iters=100_000,
+                                                   adaptive_budget=False, seed=seed),
+                      time_size=16, update_interval=16, device=dev)
+    tr.run_steps(DNERF_STEPS)
+    captured = {}
+    real = kw.window_encode_dx
+
+    def capturing(xyz4, wob, table, g_sorted, *a, **k):
+        captured["args"] = tuple(t.detach() for t in (xyz4, wob, table, g_sorted))
+        return real(xyz4, wob, table, g_sorted, *a, **k)
+
+    kw.window_encode_dx = capturing
+    try:
+        tr.run_steps(1)
+    finally:
+        kw.window_encode_dx = real
+    args = captured["args"]
+    _save_made(path, dict(zip(("xyz4", "wob", "table", "g_sorted"), args)), seed,
+               "dnerf_steps", DNERF_STEPS)
+    return args
+
+
 def encoder_bytes(direction: str, xyz4, wob, spec, block: int) -> int:
     """Bytes the encoder function must move.  Per sample: xyz4 (16 B) and
     its L*C features (out for "fwd", cotangents in for "bwd" and "dx"; "dx"
@@ -202,15 +301,9 @@ def train_inputs(path: str | None, seed: int = 0):
     the blob scene, 4096 rays/step) and saved to `path` if one is given,
     with what made it (seed, steps, capturing package, time).  A file made
     with another seed or step count is refused."""
-    if path and os.path.exists(path):
-        d = torch.load(path, map_location="cuda")
-        made = d.get("made", {})
-        print(f"train inputs: {path} made by {made}")
-        if made.get("seed") != seed or made.get("train_steps") != TRAIN_STEPS:
-            raise SystemExit(f"{path} holds inputs made by {made}, not seed {seed} after "
-                             f"{TRAIN_STEPS} steps: remove it or pass another path")
+    d = _load_made(path, seed, "train_steps", TRAIN_STEPS)
+    if d is not None:
         return d["xyz4"], d["wob"], d["g_sorted"]
-    import tngp_torch
     from tngp_torch.data import make_synthetic_dataset
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.models import NGPNetwork
@@ -239,11 +332,8 @@ def train_inputs(path: str | None, seed: int = 0):
     finally:
         kw.window_encode_bwd = real
     xyz4, wob, g_sorted = captured["args"]
-    if path:
-        made = dict(seed=seed, train_steps=TRAIN_STEPS,
-                    package=os.path.dirname(tngp_torch.__file__), time=time.ctime())
-        torch.save({"xyz4": xyz4, "wob": wob, "g_sorted": g_sorted, "made": made}, path)
-        print(f"train inputs: saved to {path}, made by {made}")
+    _save_made(path, {"xyz4": xyz4, "wob": wob, "g_sorted": g_sorted}, seed, "train_steps",
+               TRAIN_STEPS)
     return xyz4, wob, g_sorted
 
 
@@ -277,12 +367,14 @@ def encoder_inputs(seed: int = 0, labels=tuple(ENCODER_INPUTS)) -> dict:
     return out
 
 
-def encoder_calls(seed: int = 0, train=None, table=None, inputs=None) -> dict:
-    """name -> (kernel call, None, bound ms): the encoder forward and table
-    gradient of the flagship spec on `table` (749 windows; default a table
-    drawn as the init draws it) at each of `inputs` (label -> (xyz4, wob,
-    g_sorted); default `encoder_inputs(seed)`) and at `train`, one training
-    step's (xyz4, wob, g_sorted), where given."""
+def encoder_calls(seed: int = 0, train=None, table=None, inputs=None, dnerf=None) -> dict:
+    """name -> (kernel call, None, bound ms): the encoder forward, table
+    gradient and input gradient of the flagship spec on `table` (749
+    windows; default a table drawn as the init draws it) at each of
+    `inputs` (label -> (xyz4, wob, g_sorted); default `encoder_inputs(seed)`),
+    the forward and table gradient at `train`, one training step's (xyz4,
+    wob, g_sorted), and the input gradient at `dnerf`, one D-NeRF step's
+    (xyz4, wob, table, g_sorted), where given."""
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.ops.window_table import WindowSpec
 
@@ -293,29 +385,43 @@ def encoder_calls(seed: int = 0, train=None, table=None, inputs=None) -> dict:
         gen = torch.Generator(device="cpu").manual_seed(seed + 2)
         table = (torch.rand((spec.n_windows, spec.level_dim, 128, 64), generator=gen) * 2e-4
                  - 1e-4).to(dev)
+
+    def bound(direction, xyz4, wob):
+        return encoder_bytes(direction, xyz4, wob, spec, block) / HBM_BYTES_PER_S * 1e3
+
+    def dx_call(xyz4, wob, tab, g_sorted):
+        return (lambda: kw.window_encode_dx(xyz4, wob, tab, g_sorted, spec, block), None,
+                bound("dx", xyz4, wob))
+
+    calls = {}
     inputs = dict(encoder_inputs(seed) if inputs is None else inputs)
+    for shape, (xyz4, wob, g_sorted) in inputs.items():
+        calls[f"window_encode_dx_{shape}"] = dx_call(xyz4, wob, table, g_sorted)
     if train is not None:
         inputs["train"] = train
-    calls = {}
     for shape, (xyz4, wob, g_sorted) in inputs.items():
         calls[f"window_encode_fwd_{shape}"] = (
             lambda xyz4=xyz4, wob=wob: kw.window_encode_fwd(xyz4, wob, table, spec, block), None,
-            encoder_bytes("fwd", xyz4, wob, spec, block) / HBM_BYTES_PER_S * 1e3)
+            bound("fwd", xyz4, wob))
         calls[f"window_encode_bwd_{shape}"] = (
             lambda xyz4=xyz4, wob=wob, g_sorted=g_sorted:
                 kw.window_encode_bwd(xyz4, wob, g_sorted, spec, block), None,
-            encoder_bytes("bwd", xyz4, wob, spec, block) / HBM_BYTES_PER_S * 1e3)
+            bound("bwd", xyz4, wob))
+    if dnerf is not None:
+        calls["window_encode_dx_dnerf"] = dx_call(*dnerf)
     return calls
 
 
-def main(seed: int = 0, train_path: str | None = None) -> int:
+def main(seed: int = 0, train_path: str | None = None, dnerf_path: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA card visible; this run needs one", file=sys.stderr)
         return 2
     import tngp_torch
 
     calls = {name: (k, lib, None) for name, (k, lib) in scatter_calls(seed).items()}
-    calls.update(encoder_calls(seed, train_inputs(train_path, seed)))
+    calls.update(bin_dest_calls(seed))
+    calls.update(encoder_calls(seed, train_inputs(train_path, seed),
+                               dnerf=dnerf_inputs(dnerf_path, seed)))
     rows = {name: dict(ms=events_ms(k), host_us=host_us(k), bound_ms=b_ms,
                        library_ms=None if lib is None else events_ms(lib),
                        library_host_us=None if lib is None else host_us(lib))
@@ -338,7 +444,10 @@ if __name__ == "__main__":
     ap.add_argument("--train-inputs", default=None,
                     help="load one training step's table-gradient inputs from this file, "
                          "or capture and save them there where it does not exist")
+    ap.add_argument("--dnerf-inputs", default=None,
+                    help="load one D-NeRF step's input-gradient inputs from this file, "
+                         "or capture and save them there where it does not exist")
     args = ap.parse_args()
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.root) if args.root else here)
-    sys.exit(main(args.seed, args.train_inputs))
+    sys.exit(main(args.seed, args.train_inputs, args.dnerf_inputs))

@@ -7,7 +7,6 @@ from .int_mul import int_mul_hash
 from .scatter import scatter_add, scatter_set_flat
 from .window_encoder import (
     bin_dest,
-    bin_ranks,
     window_encode_binned,
     window_encode_bwd,
     window_encode_dx,
@@ -17,6 +16,6 @@ from .window_encoder import (
 __all__ = [
     "KERNELS", "load_all", "plain_versions", "reset_launch_counts", "int_mul_hash",
     "scatter_add", "scatter_set_flat",
-    "bin_dest", "bin_ranks", "window_encode_binned", "window_encode_bwd",
+    "bin_dest", "window_encode_binned", "window_encode_bwd",
     "window_encode_dx", "window_encode_fwd",
 ]

@@ -51,8 +51,9 @@ _SIGNATURES = {
           _c.c_int64, _c.c_float, _c.c_void_p]),
     ],
     "bin_rank.cu": [
-        ("tngp_bin_ranks", _c.c_int,
-         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p]),
+        ("tngp_bin_dest", _c.c_int,
+         [_c.c_void_p, _c.c_int64, _c.c_int64, _c.c_int64, _c.c_int, _c.c_int,
+          *[_c.c_void_p] * 6, _c.c_void_p]),
     ],
     "window_encoder.cu": [
         *[(f"tngp_window_encode_{d}", _c.c_int,
@@ -61,9 +62,8 @@ _SIGNATURES = {
             _c.c_float, _c.c_int, _c.c_void_p])
           for d in ("fwd", "bwd")],
         ("tngp_window_encode_dx", _c.c_int,
-         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-          _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-          _c.c_float, _c.c_int, _c.c_void_p]),
+         [*[_c.c_void_p] * 8, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+          _c.c_int, _c.c_float, _c.c_int, _c.c_void_p]),
     ],
     "int_mul_probe.cu": [
         ("tngp_int_mul_probe", _c.c_int,

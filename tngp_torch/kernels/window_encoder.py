@@ -5,7 +5,7 @@ its forward `_binned_fwd` and its table-gradient backward `_binned_bwd`).
 Forward pipeline, as `_binned_fwd` does it:
   1. bin: counting-sort the M samples into 64 spatial tiles, each tile's
      region padded to whole blocks, so every block of `block` samples is
-     tile-pure (`bin_dest`, through the bin-rank kernel);
+     tile-pure (`bin_dest`, through the bin-sort kernels);
   2. sort: scatter the (x, y, z, 1) payload rows to `dest` — unique indices,
      so the scatter-add IS the sort, and padding slots stay zero, which is
      the validity channel;
@@ -27,12 +27,13 @@ cube) contributes nothing in all three passes, as in the TPU kernels
 (`ops/window_table.py` `_corner_rows`).
 
 Kernels (CUDA sources in `tngp_torch/csrc/`; each header says what bounds it):
-  `bin_ranks`          -> bin_rank.cu        (replaces `_make_bin_rank_kernel`)
+  `bin_dest`           -> bin_rank.cu        (replaces `_make_bin_rank_kernel`
+                          and the scans around it)
   `window_encode_fwd`  -> window_encoder.cu  (replaces `_make_fwd_kernel`)
   `window_encode_bwd`  -> window_encoder.cu  (replaces `_make_bwd_kernel`)
   `window_encode_dx`   -> window_encoder.cu  (replaces `_make_fwd_kernel`
                           with `deriv=0,1,2` and the contraction after it)
-Each has its plain PyTorch version beside it (`*_plain`).
+Each has its plain PyTorch version beside it (`*_plain`; `bin_dest_ref`).
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ from .scatter import scatter_add
 DEFAULT_BLOCK = 512
 RANK_BS = 512  # keys per bin-rank block (fixed in bin_rank.cu)
 
-BIN_RANK = _lib.register(
-    "bin_ranks", "bin_rank.cu", "tngp/kernels/window_encoder.py:131", "tngp_bin_ranks"
+BIN_DEST = _lib.register(
+    "bin_dest", "bin_rank.cu", "tngp/kernels/window_encoder.py:131", "tngp_bin_dest"
 )
 WINDOW_FWD = _lib.register(
     "window_encode_fwd", "window_encoder.cu", "tngp/kernels/window_encoder.py:336",
@@ -106,25 +107,6 @@ def bin_ranks_plain(keyp: torch.Tensor):
     return (own - 1).to(torch.int32).reshape(-1), cum[:, -1, :].to(torch.int32)
 
 
-def bin_ranks(keyp: torch.Tensor):
-    """Per-block stable tile ranks and histograms (see `bin_ranks_plain`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if _lib.use_plain(keyp):
-        return bin_ranks_plain(keyp)
-    n = keyp.shape[0]
-    if n % RANK_BS:
-        raise ValueError(f"keys length {n} is not a multiple of {RANK_BS}")
-    _lib.check(keyp, "keyp", torch.int32, (n,))
-    NBk = n // RANK_BS
-    rank = torch.empty((n,), dtype=torch.int32, device=keyp.device)
-    tot = torch.empty((NBk, N_TILES), dtype=torch.int32, device=keyp.device)
-    _lib.launch(
-        BIN_RANK, keyp.device,
-        keyp.data_ptr(), rank.data_ptr(), tot.data_ptr(), NBk,
-    )
-    return rank, tot
-
-
 def _dest_from_ranks(key, rank, tot, M: int, block: int):
     """Counting-sort destinations from per-block ranks and histograms (the
     host-side half of `bin_dest_pallas`).  All integer, exact."""
@@ -152,12 +134,49 @@ def bin_dest_ref(x01_cf: torch.Tensor, block: int = DEFAULT_BLOCK):
                             x01_cf.shape[1], block)
 
 
+def bin_dest_stages(x01_cf: torch.Tensor, block: int = DEFAULT_BLOCK):
+    """`bin_dest` through the bin-sort kernels, with what their first stage
+    left behind: (dest, tob, rank [NBk * RANK_BS] int32, tot [NBk, 64]
+    int32), the last two as `bin_ranks_plain` gives them for the padded
+    keys.  One call of three kernels (ranks and histograms per key block,
+    the scans, the destinations) and nothing in torch between them; x01_cf
+    [3, M] f32 on the card, any strides."""
+    if x01_cf.device.type != "cuda":
+        raise ValueError(f"x01_cf: expected a CUDA tensor, got {x01_cf.device}")
+    if x01_cf.dtype != torch.float32:
+        raise TypeError(f"x01_cf: expected torch.float32, got {x01_cf.dtype}")
+    if x01_cf.dim() != 2 or x01_cf.shape[0] != 3:
+        raise ValueError(f"x01_cf: expected shape (3, M), got {tuple(x01_cf.shape)}")
+    if block <= 0:
+        raise ValueError(f"block {block} is not positive")
+    M = x01_cf.shape[1]
+    NB = padded_size(M, block) // block
+    NBk = -(-M // RANK_BS)
+    n_rank, n_tot = NBk * RANK_BS, NBk * N_TILES
+    # one int64 buffer: dest, tob, then the int32 scratch (rank, tot, base
+    # [NBk, 64], the tile counts [64])
+    buf = torch.empty((M + NB + (n_rank + 2 * n_tot + N_TILES) // 2,), dtype=torch.int64,
+                      device=x01_cf.device)
+    dest, tob = buf[:M], buf[M:M + NB]
+    scratch = buf[M + NB:].view(torch.int32)
+    rank, tot = scratch[:n_rank], scratch[n_rank:n_rank + n_tot]
+    _lib.launch(
+        BIN_DEST, x01_cf.device,
+        x01_cf.data_ptr(), x01_cf.stride(0), x01_cf.stride(1), M, block, NB,
+        rank.data_ptr(), tot.data_ptr(), scratch[n_rank + n_tot:].data_ptr(),
+        scratch[n_rank + 2 * n_tot:].data_ptr(), dest.data_ptr(), tob.data_ptr(),
+    )
+    return dest, tob, rank, tot.view(NBk, N_TILES)
+
+
 def bin_dest(x01_cf: torch.Tensor, block: int = DEFAULT_BLOCK):
-    """`bin_dest` through the bin-rank kernel (the counterpart of
-    `bin_dest_pallas`); same contract as `bin_dest_ref`."""
-    key = sample_tiles(x01_cf)
-    return _dest_from_ranks(key, *bin_ranks(_padded_keys(key)),
-                            x01_cf.shape[1], block)
+    """Counting-sort destinations of the samples into tile-pure blocks (the
+    counterpart of `bin_dest_pallas`); same contract as `bin_dest_ref`,
+    which CPU tensors take.  CUDA tensors launch the bin-sort kernels
+    (`bin_dest_stages`)."""
+    if _lib.use_plain(x01_cf):
+        return bin_dest_ref(x01_cf, block)
+    return bin_dest_stages(x01_cf, block)[:2]
 
 
 # ---------------------------------------------------------------------------
@@ -371,22 +390,49 @@ def window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec: WindowSpec, blo
     return (g_sorted.float().T[None] * d).sum(1)
 
 
+DX_GROUP_LEVELS = 2  # levels per CUDA block of the input gradient
+DX_MAX_CHUNK_SAMPLES = 4096  # S * block, at most (DX_MAX_CHUNK_SAMPLES in window_encoder.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def dx_schedule(n_blocks: int, n_levels: int, block: int) -> tuple[int, int]:
+    """(S, LG) of the input-gradient kernel: one CUDA block per (chunk of S
+    tile-sorted blocks, group of LG levels), the chunks as the forward's
+    (`chunk_blocks`, within the kernel's room for S * block sums), from the
+    sample count alone."""
+    return (max(1, min(chunk_blocks(n_blocks), DX_MAX_CHUNK_SAMPLES // block)),
+            min(DX_GROUP_LEVELS, n_levels))
+
+
 def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int):
     """Input gradient over tile-sorted samples (see `window_encode_dx_plain`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    adds each sample's L*C terms in (level, channel) order."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel: one
+    CUDA block per (chunk, group of levels) that stages each run's window
+    once in shared memory as bf16, then, with more than one group, a second
+    kernel adds the groups' partial sums in group order.  Each sample's L*C
+    terms are added in (level, channel) order within a group and the groups
+    in order, so two calls give the same bits.  Raises on what the kernel does not
+    take (`_check_encoder_call`; blocks of more than DX_MAX_CHUNK_SAMPLES)."""
     if _lib.use_plain(xyz4):
         return window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block)
     L, C = spec.num_levels, spec.level_dim
     M_pad = _check_encoder_call(xyz4, wob, spec, block, table_win=table_win,
                                 g_sorted=g_sorted)
+    if block > DX_MAX_CHUNK_SAMPLES:
+        raise ValueError(f"block {block}: the input-gradient kernel takes at most "
+                         f"{DX_MAX_CHUNK_SAMPLES} samples per block")
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
-    gx = torch.empty((3, M_pad), dtype=torch.float32, device=xyz4.device)
+    S, LG = dx_schedule(M_pad // block, L, block)
+    groups = -(-L // LG)
+    # gx, then the groups' partial sums where there is more than one
+    buf = torch.empty((3 * M_pad * (1 + groups * (groups > 1)),), dtype=torch.float32,
+                      device=xyz4.device)
+    gx = buf[:3 * M_pad].view(3, M_pad)
     _lib.launch(
         WINDOW_DX, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(), g_sorted.data_ptr(),
-        scales.data_ptr(), iconst.data_ptr(), gx.data_ptr(),
-        M_pad, block, L, C, spec.shift, int(spec.interpolation == "smoothstep"),
+        scales.data_ptr(), iconst.data_ptr(), buf[3 * M_pad:].data_ptr(), gx.data_ptr(),
+        M_pad, block, L, C, S, LG, spec.shift, int(spec.interpolation == "smoothstep"),
     )
     return gx
 
