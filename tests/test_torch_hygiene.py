@@ -1,5 +1,7 @@
-"""Boundaries of the port: `tngp_torch` and `chip_smoke.py` import neither
-JAX nor the JAX package, and a CUDA tensor never reaches a plain version."""
+"""Boundaries of the port: `tngp_torch`, `chip_smoke.py` and `bench_torch.py`
+import neither JAX nor the JAX package, nor `flax`, `msgpack`, `cv2` or
+`imageio`, whose work the port does with its own code, and a CUDA tensor
+never reaches a plain version."""
 
 import importlib
 import pkgutil
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|tngp)(?:[.\s,]|$)", re.M)
+_LIBS = ("jax", "flax", "tngp", "msgpack", "cv2", "imageio")
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:" + "|".join(_LIBS) + r")(?:[.\s,]|$)", re.M)
 
 
 def test_importing_every_module_loads_no_jax():
@@ -21,7 +24,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, pkgutil, sys, tngp_torch\n"
         "for m in pkgutil.walk_packages(tngp_torch.__path__, 'tngp_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'tngp'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_LIBS!r})\n"
         "print(len(list(pkgutil.walk_packages(tngp_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -31,13 +34,34 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_no_source_imports_jax_or_tngp():
-    files = sorted((ROOT / "tngp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "tngp_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                            ROOT / "bench_torch.py"]
     assert len(files) > 10
-    assert any(f.parent.name == "diagnostics" for f in files)
+    assert {"diagnostics", "cli", "native"} <= {f.parent.name for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
-    assert _FORBIDDEN.search("from tngp.ops import x\n")
+    for line in ("from tngp.ops import x\n", "import msgpack\n", "import cv2, numpy\n",
+                 "    import imageio.v2 as imageio\n", "from flax import serialization\n"):
+        assert _FORBIDDEN.search(line), line
     assert not _FORBIDDEN.search("from tngp_torch.ops import x\n")
+    assert not _FORBIDDEN.search("from ..utils import msgpack_codec\n")
+
+
+def test_scripts_train_from_scratch():
+    """`TrainConfig`'s default resumes from `<workspace>/checkpoints`, as the
+    CLI wants; every script that builds a trainer of random weights asks for
+    a fresh one, so that no checkpoint left in its directory loads into it."""
+    import ast
+
+    files = sorted((ROOT / "tngp_torch" / "diagnostics").glob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    calls = [(f.name, node) for f in files for node in ast.walk(ast.parse(f.read_text()))
+             if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "TrainConfig"]
+    assert len(calls) >= 7
+    loose = [(name, node.lineno) for name, node in calls
+             if not any(k.arg == "use_checkpoint" and getattr(k.value, "value", None) == "scratch"
+                        for k in node.keywords)]
+    assert not loose, loose
 
 
 def test_every_kernel_is_registered_with_its_source():
@@ -54,6 +78,16 @@ def test_every_kernel_is_registered_with_its_source():
         assert (ROOT / info.source).is_file()
         path, line = info.replaces.split(":")
         assert "pallas_call" in (ROOT / path).read_text() and int(line) > 0
+
+
+def test_native_library_is_registered_with_its_source():
+    """The mesh library is the port's own copy of the JAX package's C++
+    source, byte for byte, built from the port's tree at first use."""
+    from tngp_torch import native
+
+    src = ROOT / native.SOURCE
+    assert src.is_file() and src.read_bytes() == (ROOT / native.COPY_OF).read_bytes()
+    assert native._SRC == src and native._BUILD_DIR == ROOT / "tngp_torch" / "_build"
 
 
 def test_diagnostics_declare_registered_kernels():

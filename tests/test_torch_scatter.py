@@ -125,13 +125,15 @@ def test_callers_indices_hold_their_statements(monkeypatch):
     train march's and the eval march's, where the padding used to fall back
     to the first sample's ray; the eval round update's
     `nonzero_static(alive, Na, N - 1)` ascends, with fewer and with more
-    alive rays than Na."""
+    alive rays than Na; the frame renderer's round update (the same
+    compaction at each tier width) is unique, its unused slots given
+    distinct rows past the frame, which the scatter drops."""
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.ops import composite
     from tngp_torch.ops.grid_utils import packbits
     from tngp_torch.ops.march import nonzero_static
     from tngp_torch.render import FieldFns, RenderConfig, render_rays_eval, render_rays_train
-    from tngp_torch.render import renderer
+    from tngp_torch.render import frame_eval, renderer
 
     gen = torch.Generator().manual_seed(0)
     x01 = torch.rand((3, 5000), generator=gen) ** 2
@@ -166,9 +168,21 @@ def test_callers_indices_hold_their_statements(monkeypatch):
     render_rays_train(field, None, o, d, bitfield,
                       RenderConfig(**kw_cfg, compact_fraction=0.5, march_dense=True),
                       noise=torch.rand((n,), generator=gen))
+    _recording(monkeypatch, frame_eval, calls)
+    fr = frame_eval.FrameRenderer(field, RenderConfig(**kw_cfg, eval_budget=0.05,
+                                                      eval_tiers=(16, 64)), chunk=32)
+    fr.render(None, o, d, bitfield)
     comp = [(i, r) for m, i, s, r in calls if m == composite.__name__]
     rounds = [(i, r) for m, i, s, r in calls if m == renderer.__name__]
-    assert {s for _, _, s, _ in calls} == {"sorted"} and comp and rounds
+    frame_rounds = [(i, r) for m, i, s, r in calls if m == frame_eval.__name__]
+    assert {s for m, _, s, _ in calls if m != frame_eval.__name__} == {"sorted"}
+    assert {s for m, _, s, _ in calls if m == frame_eval.__name__} == {"unique"}
+    assert comp and rounds and frame_rounds
+    assert fr.last_rounds == len(frame_rounds) and {i.numel() for i, _ in frame_rounds} <= {16, 64}
+    for i, r in frame_rounds:
+        assert torch.unique(i).numel() == i.numel() and int(i.min()) >= 0
+    # some round left slots unused, which carry rows past the frame
+    assert any(bool((i >= r).any()) for i, r in frame_rounds)
     # some march left padding slots, which now carry the dropped row n_rays
     assert any(bool((i == r).any()) for i, r in comp)
     for i, _ in comp + rounds:

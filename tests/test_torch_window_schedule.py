@@ -12,7 +12,8 @@ long run's pieces add; a line-by-line mirror of the device walk (`ChunkWalk`,
 with its bounded stretch of `wob[l]` in shared memory) gives the same
 pieces; and an emulation of the table gradient's accumulation per piece
 (store or add flush, zeroing of long and unvisited windows) matches
-`window_encode_bwd_plain` within the per-entry reordering bound.  No JAX:
+`window_encode_bwd_plain` within the per-entry reordering bound; an entry
+of at most two terms has one f32 sum in any order.  No JAX:
 `tests/test_torch_window_encoder*.py` hold the plain versions against the
 JAX package."""
 
@@ -202,6 +203,39 @@ def test_accumulation_per_piece_matches_plain(spec_name, input_name):
     tol = 2.0 * torch.clamp(n - 1, min=0).double() * 2.0**-24 * sabs.double()
     assert bool(((got.double() - plain.double()).abs() <= tol).all())
     assert bool(((got == 0) == (plain == 0)).all()) and float(plain.abs().max()) > 0
+
+
+@pytest.mark.parametrize("input_name", ["uniform", "crowded"])
+def test_entries_of_two_terms_do_not_depend_on_the_order(input_name):
+    """What `chip_smoke.py` holds the table-gradient kernel to, whose
+    atomics order an entry's terms as they land: the plain version's sums
+    taken in reverse order equal its own bitwise on every entry of at most
+    two terms (`bwd_zero_pattern.term_counts`; an entry no sample touches
+    is 0 in both) and stay within the reordering bound from three terms on,
+    where the order can decide whether a cancellation leaves exactly 0."""
+    from tngp_torch.diagnostics.bwd_zero_pattern import term_counts
+
+    spec, xyz4, wob, g_sorted = _sorted("small", input_name, seed=2)
+    L, C, block = spec.num_levels, spec.level_dim, kw.DEFAULT_BLOCK
+    plain = kw.window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block).reshape(-1)
+    sabs = kw.window_encode_bwd_plain(xyz4, wob, g_sorted.abs(), spec, block).reshape(-1)
+    g = g_sorted.reshape(-1, L, C)
+    rev = torch.zeros_like(plain)
+    for l in range(L):
+        addr, ws = kw.sorted_corner_addresses(xyz4, wob, spec, block, l)
+        for c in range(C):
+            terms = wt._bf16_round(ws * g[:, l, c])
+            rev.index_add_(0, (addr + c * WIN_ROWS).reshape(-1).flip(0),
+                           terms.reshape(-1).flip(0))
+    n = term_counts(xyz4, wob, spec, block)
+    few = n <= 2
+    assert torch.equal(rev[few], plain[few])
+    assert bool((plain[n == 0] == 0).all()) and int((n >= 3).sum()) > 0
+    tol = 2.0 * torch.clamp(n - 1, min=0).double() * 2.0**-24 * sabs.double()
+    assert bool(((rev.double() - plain.double()).abs() <= tol).all())
+    # three terms whose order decides a zero: 1 + 2^-30 rounds to 1
+    one, tiny = torch.tensor(1.0), torch.tensor(2.0**-30)
+    assert float((one + tiny) - one) == 0.0 and float((one - one) + tiny) == 2.0**-30
 
 
 def test_level_consts_carry_the_window_counts():

@@ -7,9 +7,12 @@ kernel on a ported path is a hand-written CUDA kernel (`csrc/`), each with a
 plain PyTorch version beside it: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.
 
-Ported so far: the instant-NGP eval render (`render.render_rays_eval`) and
-training step (`render.render_rays_train`, `train.Trainer`), and D-NeRF
-training on the window encoder (`models.DNeRFNetwork`,
+Ported so far: the instant-NGP eval render (`render.render_rays_eval`, the
+frame renderer `render.FrameRenderer`) and training step
+(`render.render_rays_train`, `train.Trainer` with checkpoints in the JAX
+package's format), its entry point (`python -m tngp_torch.cli.main_nerf`:
+the transforms.json loader, training, validation, test renders and mesh
+export), and D-NeRF training on the window encoder (`models.DNeRFNetwork`,
 `train.DNeRFTrainer`); `diagnostics.device_parity` holds the kernels against
 independent plain versions on the card.
 """

@@ -71,3 +71,50 @@ def time_occupancy_grid_from_arrays(density_grid, bitfield, mean_density, iter_d
     the port's."""
     return TimeOccupancyGrid(**vars(occupancy_grid_from_arrays(
         density_grid, bitfield, mean_density, iter_density, device)))
+
+
+def adam_state_to_flax(optimizer: torch.optim.Adam, model: torch.nn.Module):
+    """The inverse of `load_adam_state`: (`count`, `mu`, `nu`), the moments
+    as flax-shaped trees of numpy arrays ({'params': {...}}); zeros before
+    the first step."""
+    mu, nu, count = {}, {}, 0
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        st = optimizer.state.get(p, {})
+        if st:
+            count = int(st["step"])
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+        else:
+            mu[name], nu[name] = torch.zeros_like(p), torch.zeros_like(p)
+    return count, flax_params_from_ngp_state_dict(mu), flax_params_from_ngp_state_dict(nu)
+
+
+def optax_adam_state_dict(optimizer: torch.optim.Adam, model: torch.nn.Module) -> dict:
+    """The flax state dict of the JAX trainer's optimizer state, optax
+    `adam` over `exponential_decay` (`tngp/train/trainer.py:51-59`): the
+    chain's first state is scale_by_adam's (count, mu, nu), its second
+    the schedule's count.  Counts are int32 0-d arrays."""
+    count, mu, nu = adam_state_to_flax(optimizer, model)
+    c = np.asarray(count, np.int32)
+    return {"0": {"count": c, "mu": mu, "nu": nu}, "1": {"count": c.copy()}}
+
+
+def load_optax_adam_state(optimizer: torch.optim.Adam, model: torch.nn.Module,
+                          state: Mapping) -> int:
+    """Put `optax_adam_state_dict`'s layout into `optimizer`.  Returns the
+    step count."""
+    count = int(np.asarray(state["0"]["count"]))
+    load_adam_state(optimizer, model, count, state["0"]["mu"], state["0"]["nu"])
+    return count
+
+
+def occupancy_grid_state_dict(grid: OccupancyGrid) -> dict:
+    """The flax state dict of the JAX package's `OccupancyGrid` (its field
+    order and dtypes: iter_density int32)."""
+    return {
+        "density_grid": grid.density_grid.detach().cpu().numpy().copy(),
+        "bitfield": grid.bitfield.detach().cpu().numpy().copy(),
+        "mean_density": np.asarray(grid.mean_density.detach().cpu().numpy(), np.float32),
+        "iter_density": np.asarray(grid.iter_density.detach().cpu().numpy(), np.int32),
+    }

@@ -1,4 +1,4 @@
-from .provider import NeRFDataset
+from .provider import NeRFDataset, nerf_matrix_to_ngp, rand_poses
 from .rays import full_image_rays, sample_rays
 from .synthetic import (
     make_blob_field,
@@ -10,7 +10,7 @@ from .synthetic import (
 )
 
 __all__ = [
-    "NeRFDataset", "full_image_rays", "sample_rays", "make_blob_field",
+    "NeRFDataset", "nerf_matrix_to_ngp", "rand_poses", "full_image_rays", "sample_rays", "make_blob_field",
     "make_synthetic_dataset", "make_synthetic_dynamic_dataset", "make_time_blob_field",
     "orbit_poses", "render_gt_images",
 ]

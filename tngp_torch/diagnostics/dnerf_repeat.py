@@ -60,7 +60,8 @@ def one_run(dds, seed: int) -> dict:
     model = DNeRFNetwork(bound=1.0, encoding="hashgrid_window", compute_dtype=torch.bfloat16,
                          device=dev, seed=seed)
     tr = DNeRFTrainer(model, dds, cfg, TrainConfig(num_rays=N_RAYS, iters=100_000,
-                                                   adaptive_budget=False, seed=seed),
+                                                   adaptive_budget=False, seed=seed,
+                                                   use_checkpoint="scratch"),
                       time_size=TIME_SIZE, update_interval=16, device=dev)
     deform = [p for n, p in model.named_parameters() if n.startswith("deform_net")]
     t0 = time.time()

@@ -251,7 +251,8 @@ def dnerf_inputs(path: str | None, seed: int = 0):
     model = DNeRFNetwork(bound=1.0, encoding="hashgrid_window", compute_dtype=torch.bfloat16,
                          device=dev, seed=seed)
     tr = DNeRFTrainer(model, dds, cfg, TrainConfig(num_rays=4096, iters=100_000,
-                                                   adaptive_budget=False, seed=seed),
+                                                   adaptive_budget=False, seed=seed,
+                                                   use_checkpoint="scratch"),
                       time_size=16, update_interval=16, device=dev)
     tr.run_steps(DNERF_STEPS)
     captured = {}
@@ -294,18 +295,11 @@ def encoder_bytes(direction: str, xyz4, wob, spec, block: int) -> int:
     return xyz4.shape[0] * per_sample + wob.numel() * 4 + table_entries * 4
 
 
-def train_inputs(path: str | None, seed: int = 0):
-    """(xyz4, wob, g_sorted) that one training step gave the table gradient:
-    loaded from `path` where it exists, else captured after TRAIN_STEPS
-    steps of bench.py's loop (the flagship network, 12 views of 128x128 of
-    the blob scene, 4096 rays/step) and saved to `path` if one is given,
-    with what made it (seed, steps, capturing package, time).  A file made
-    with another seed or step count is refused."""
-    d = _load_made(path, seed, "train_steps", TRAIN_STEPS)
-    if d is not None:
-        return d["xyz4"], d["wob"], d["g_sorted"]
+def bench_trainer(seed: int = 0, **render):
+    """A trainer of bench.py's loop on the card, untrained: the flagship
+    network, 12 views of 128x128 of the blob scene, 4096 rays/step;
+    `render` overrides fields of its `RenderConfig`."""
     from tngp_torch.data import make_synthetic_dataset
-    from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.models import NGPNetwork
     from tngp_torch.render import RenderConfig
     from tngp_torch.train import Trainer
@@ -314,11 +308,18 @@ def train_inputs(path: str | None, seed: int = 0):
     dev = torch.device("cuda")
     ds = make_synthetic_dataset(n_frames=12, H=128, W=128, seed=0, device=dev)
     cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
-                       compact_fraction=0.25, density_thresh=1.0, march_dense=True)
-    tr = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed), ds,
-                 cfg, TrainConfig(num_rays=4096, lr=1e-2, seed=seed, adaptive_overdrive=False),
-                 device=dev, constant_lr=True, full_grid_updates=2)
-    tr.run_steps(TRAIN_STEPS)
+                       compact_fraction=0.25, density_thresh=1.0, march_dense=True, **render)
+    return Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed),
+                   ds, cfg, TrainConfig(num_rays=4096, lr=1e-2, seed=seed,
+                                        adaptive_overdrive=False, use_checkpoint="scratch"),
+                   device=dev, constant_lr=True, full_grid_updates=2)
+
+
+def captured_bwd_inputs(tr):
+    """(xyz4, wob, g_sorted) that the table gradient of `tr`'s next step
+    is given (the step is taken)."""
+    from tngp_torch.kernels import window_encoder as kw
+
     captured = {}
     real = kw.window_encode_bwd
 
@@ -331,7 +332,22 @@ def train_inputs(path: str | None, seed: int = 0):
         tr.run_steps(1)
     finally:
         kw.window_encode_bwd = real
-    xyz4, wob, g_sorted = captured["args"]
+    return captured["args"]
+
+
+def train_inputs(path: str | None, seed: int = 0):
+    """(xyz4, wob, g_sorted) that one training step gave the table gradient:
+    loaded from `path` where it exists, else captured after TRAIN_STEPS
+    steps of bench.py's loop (the flagship network, 12 views of 128x128 of
+    the blob scene, 4096 rays/step) and saved to `path` if one is given,
+    with what made it (seed, steps, capturing package, time).  A file made
+    with another seed or step count is refused."""
+    d = _load_made(path, seed, "train_steps", TRAIN_STEPS)
+    if d is not None:
+        return d["xyz4"], d["wob"], d["g_sorted"]
+    tr = bench_trainer(seed)
+    tr.run_steps(TRAIN_STEPS)
+    xyz4, wob, g_sorted = captured_bwd_inputs(tr)
     _save_made(path, {"xyz4": xyz4, "wob": wob, "g_sorted": g_sorted}, seed, "train_steps",
                TRAIN_STEPS)
     return xyz4, wob, g_sorted

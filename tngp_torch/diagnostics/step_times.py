@@ -79,7 +79,8 @@ def main(seed: int = 0, profile: bool = False) -> int:
     model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed)
     cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True)
-    tc = TrainConfig(num_rays=4096, lr=1e-2, seed=seed, adaptive_overdrive=False)
+    tc = TrainConfig(num_rays=4096, lr=1e-2, seed=seed, adaptive_overdrive=False,
+                     use_checkpoint="scratch")
     tr = Trainer(model, ds, cfg, tc, device=dev, constant_lr=True, full_grid_updates=2)
     grid0 = tr.grid
     density = make_blob_field(0, device=dev).density(

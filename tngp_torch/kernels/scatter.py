@@ -8,7 +8,8 @@ only which CUDA form computes it:
 
 - `"unique"`: no index repeats (the payload sort around the window encoder
   and, in training, the cotangent sort of its backward: `bin_dest`'s
-  destinations).  A store per row, no atomics; exact.
+  destinations; the frame renderer's per-round state update,
+  `render/frame_eval.py`).  A store per row, no atomics; exact.
 - `"sorted"`: the indices are nondecreasing (the stream compositor's
   per-ray reduction, `ops/composite.py`, and the eval render's per-round
   state update, `render/renderer.py`).  A deterministic segmented reduce,

@@ -20,11 +20,16 @@ def _box(aabb: tuple, device: str) -> torch.Tensor:
 
 def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb,
                        min_near: float = 0.05):
-    """rays_o/rays_d [..., 3], aabb [6] = (xmin, ymin, zmin, xmax, ymax, zmax).
-    Returns (nears, fars) [...]; rays that miss get near = far = 3.4e38."""
+    """rays_o/rays_d [..., 3], aabb [6] = (xmin, ymin, zmin, xmax, ymax, zmax):
+    a tuple of floats, or a float32 tensor on the rays' device (a box
+    computed there).  Returns (nears, fars) [...]; rays that miss get
+    near = far = 3.4e38."""
     o = rays_o.float()
     d = rays_d.float()
-    box = _box(tuple(float(v) for v in aabb), str(o.device))
+    if isinstance(aabb, torch.Tensor):
+        box = aabb
+    else:
+        box = _box(tuple(float(v) for v in aabb), str(o.device))
     inv_d = 1.0 / d  # +-inf for axis-parallel rays, as IEEE and the CUDA code
     t0 = (box[:3] - o) * inv_d
     t1 = (box[3:] - o) * inv_d

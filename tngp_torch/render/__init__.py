@@ -1,3 +1,4 @@
+from .frame_eval import FrameRenderer
 from .occupancy import (
     GridDraws,
     OccupancyGrid,
@@ -24,6 +25,7 @@ from .renderer import (
 )
 
 __all__ = [
+    "FrameRenderer",
     "GridDraws", "OccupancyGrid", "TimeOccupancyGrid", "TimeSliceDraws", "cell_centers_cf",
     "create", "create_time", "mark_untrained_grid", "time_slice_index",
     "update_density_grid", "update_density_grid_from_draws", "update_time_density_grid",

@@ -300,13 +300,18 @@ def _bucket_ladder(M_total: int) -> list[int]:
 
 
 def _bucketed_stream_query(field, params, sel, sel_valid, rays_o, rays_d, t0,
-                           n_rays, cfg, stats=None):
+                           n_rays, cfg, stats=None, m_eff=None):
     """Field-query + stream-composite the selected sample prefix at the
     smallest bucketed width that holds it.  Returns (ws, depth_raw, image)
-    over n_rays; an empty selection skips the field entirely.  `stats`, if
-    given, accumulates the query width ('samples') and the number of real
-    samples ('valid_samples')."""
-    m_eff = int(sel_valid.sum().item())
+    over n_rays; an empty selection skips the field entirely.  `m_eff`, the
+    number of selected samples, is read from the device here (one host
+    read) unless the caller already read it.  `stats`, if given,
+    accumulates the query width ('samples'), the number of real samples
+    ('valid_samples') and the reads made here ('host_reads')."""
+    if m_eff is None:
+        m_eff = int(sel_valid.sum().item())
+        if stats is not None:
+            stats["host_reads"] += 1
     M_total = sel.shape[0]
     Mq = next((mq for mq in _bucket_ladder(M_total) if m_eff <= mq), M_total)
     if stats is not None:
@@ -328,11 +333,10 @@ def _bucketed_stream_query(field, params, sel, sel_valid, rays_o, rays_d, t0,
     )
 
 
-def _eval_stream_pass(field, params, rays_o, rays_d, nears, fars, bitfield, cfg,
-                      dgrid=None, G=None, stats=None):
-    """First eval pass: chunked march once, field-query the first M valid
-    samples (ray-major), stream-composite.  Returns (rays_t, ws, depth_raw,
-    image); rays with dropped samples resume at rays_t."""
+def _eval_stream_march(rays_o, rays_d, nears, fars, bitfield, cfg, dgrid=None, G=None):
+    """The first eval pass's march: the chunked march once, its sample
+    budget M the first M valid samples (ray-major).  Returns the
+    `ChunkedMarch`."""
     N = rays_o.shape[0]
     S = cfg.max_steps
     M = min(N * S, max(128, -(-int(N * cfg.K * cfg.eval_budget) // 128) * 128))
@@ -340,19 +344,35 @@ def _eval_stream_pass(field, params, rays_o, rays_d, nears, fars, bitfield, cfg,
     if not (cfg.march_chunk > 0 and S % G == 0):
         raise NotImplementedError("only the chunked eval march is ported (march_chunk > 0)")
     cb = -(-int(cfg.eval_cb_mult * M) // G)
-    cm = march_rays_chunked(
+    return march_rays_chunked(
         rays_o, rays_d, nears, fars, bitfield,
         bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
         dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
         M_budget=M, G=G, dilated_grid=dgrid, chunk_budget=cb,
         ray_chunk_cap=cfg.eval_ray_chunk_cap or None,
     )
+
+
+def _eval_stream_query(field, params, cm, rays_o, rays_d, nears, cfg, stats=None,
+                       m_eff=None):
+    """The first eval pass's field query and stream composite over the
+    march `cm`.  Returns (rays_t, ws, depth_raw, image); rays with dropped
+    samples resume at rays_t."""
     ws, depth_raw, image = _bucketed_stream_query(
-        field, params, cm.sel, cm.sel_valid, rays_o, rays_d, cm.t0, N, cfg, stats
+        field, params, cm.sel, cm.sel_valid, rays_o, rays_d, cm.t0, rays_o.shape[0], cfg,
+        stats, m_eff=m_eff,
     )
     # t_cum is relative to the ray start; the eval accumulators are absolute
     depth_raw = depth_raw + nears.float() * ws
     return cm.resume_t, ws, depth_raw, image
+
+
+def _eval_stream_pass(field, params, rays_o, rays_d, nears, fars, bitfield, cfg,
+                      dgrid=None, G=None, stats=None):
+    """First eval pass: `_eval_stream_march`, then `_eval_stream_query`.
+    Returns (rays_t, ws, depth_raw, image)."""
+    cm = _eval_stream_march(rays_o, rays_d, nears, fars, bitfield, cfg, dgrid, G)
+    return _eval_stream_query(field, params, cm, rays_o, rays_d, nears, cfg, stats)
 
 
 @torch.no_grad()
@@ -367,17 +387,20 @@ def render_rays_eval(
     dilated_grid=None,
 ):
     """Full-quality render: single-pass stream eval plus alive-compacted
-    residual rounds.  Returns dict(image [N, 3], depth [N], weights_sum [N],
-    rounds, samples, valid_samples) — the last three are host integers: the
-    residual rounds run, the field-query width summed over passes, and the
-    real samples among them."""
+    residual rounds, at most ceil(max_steps / K_eval) + 2 of them.  Returns
+    dict(image [N, 3], depth [N], weights_sum [N], cut [N], rounds,
+    samples, valid_samples, host_reads): `cut` marks the rays still alive
+    when the round cap ended the loop (a device tensor); the last four are
+    host integers: the residual rounds run, the field-query width summed
+    over passes, the real samples among them, and the device-to-host
+    reads."""
     if not (cfg.eval_stream and _use_chunk(cfg)):
         raise NotImplementedError("only the chunked stream eval is ported")
     N = rays_o.shape[0]
     K = cfg.K_eval
     nears, fars = near_far_from_aabb(rays_o, rays_d, cfg.aabb, cfg.min_near)
     bg = _resolve_bg(field, params, rays_o, rays_d, cfg, bg_color)
-    stats = {"samples": 0, "valid_samples": 0}
+    stats = {"samples": 0, "valid_samples": 0, "host_reads": 0}
 
     dgrid = dilated_grid if dilated_grid is not None else dilated_chunk_grid(bitfield, cfg)
     rays_t, ws, depth, image = _eval_stream_pass(
@@ -390,6 +413,7 @@ def render_rays_eval(
     rnd = 0
     while rnd < max_res_rounds:
         alive = (rays_t < fars) & (1.0 - ws >= cfg.T_thresh)
+        stats["host_reads"] += 1
         if not bool(alive.any().item()):
             break
         sel = nonzero_static(alive, Na, N - 1)
@@ -424,6 +448,8 @@ def render_rays_eval(
         image = image + upd[:, 3:6]
         rnd += 1
 
+    cut = (rays_t < fars) & (1.0 - ws >= cfg.T_thresh)  # alive when the round cap ended it
     image = image + (1.0 - ws)[:, None] * bg
     depth = torch.clamp(depth - nears, min=0.0) / torch.clamp(fars - nears, min=1e-6)
-    return {"image": image, "depth": depth, "weights_sum": ws, "rounds": rnd, **stats}
+    return {"image": image, "depth": depth, "weights_sum": ws, "cut": cut, "rounds": rnd,
+            **stats}

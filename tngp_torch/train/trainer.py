@@ -1,8 +1,10 @@
 """Trainer — the port of the base NGP grid path of `tngp/train/trainer.py`:
 per-step Adam(0.9, 0.99, eps 1e-15) with the exponential lr decay to 0.1x
 over `iters`, a per-step EMA, the density-grid update and the dilated-grid
-rebuild every `update_extra_interval` steps, adaptive sample-budget tiers,
-and chunked full-image eval with PSNR.
+rebuild every `update_extra_interval` steps, adaptive sample-budget tiers;
+full-image eval through the frame renderer with PSNR, validation images,
+test renders as PNG frames, mesh export, and checkpoints in the JAX
+package's format with rotation, the best checkpoint and resume.
 
 Images, poses and intrinsics live on the device and every step samples its
 own rays there.  A step is eager PyTorch: sample -> march -> field ->
@@ -17,23 +19,32 @@ Subclasses (`DNeRFTrainer`) override the hooks `make_grid`, `set_grid`,
 as the JAX package enables tiers for the base step only.
 
 Not ported yet: `mesh=` (data parallelism), `use_grid=False` (the uniform
-training path), the error map, the CLIP step, checkpoints, TensorBoard, and
-the frame-level eval renderer (`render_image` takes the per-chunk
-`render_rays_eval` loop).
+training path), the error map, the CLIP step, TensorBoard and the profiler
+(`TrainConfig` raises on their options).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..convert import (
+    flax_params_from_ngp_state_dict,
+    load_optax_adam_state,
+    ngp_state_dict_from_flax,
+    occupancy_grid_from_arrays,
+    occupancy_grid_state_dict,
+    optax_adam_state_dict,
+)
 from ..data.provider import NeRFDataset
 from ..data.rays import full_image_rays, sample_rays
+from ..render.frame_eval import FrameRenderer
 from ..render.occupancy import create as create_grid
 from ..render.occupancy import mark_untrained_grid, update_density_grid
 from ..render.renderer import (
@@ -44,7 +55,10 @@ from ..render.renderer import (
     render_rays_train,
     train_sample_budget,
 )
+from ..utils.colors import srgb_to_linear
 from ..utils.config import TrainConfig
+from ..utils.image_io import write_png
+from . import checkpoint as ckpt_io
 from .ema import ema_init, ema_update
 from .metrics import PSNRMeter
 
@@ -105,7 +119,11 @@ class Trainer:
         self.host_rng = np.random.default_rng(tc.seed)  # frame choice
 
         # device-resident data
-        self.images = torch.as_tensor(dataset.images, dtype=torch.float32, device=self.device)
+        images = dataset.images
+        if tc.color_space == "linear":
+            images = np.array(images, np.float32)
+            images[..., :3] = srgb_to_linear(images[..., :3])
+        self.images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         self.poses = torch.as_tensor(dataset.poses, dtype=torch.float32, device=self.device)
         self.intrinsics = torch.as_tensor(dataset.intrinsics, dtype=torch.float32,
                                           device=self.device)
@@ -126,6 +144,10 @@ class Trainer:
         self.host_reads = 0  # device -> host reads the trainer made
         self.stats = {"loss": [], "results": [], "best_result": None}
         self.last_render_stats: dict = {}
+        self.last_render_cut = None  # [H, W] rays the last render's round cap left alive
+        self._frame_renderers: dict = {}  # (chunk, cfg) -> FrameRenderer
+        # the log file, written once the workspace exists (the CLI makes it)
+        self.log_path = os.path.join(tc.workspace, f"log_{tc.name}.txt")
 
         # adaptive sample-budget tiers: fractions of the configured one, an
         # overdrive tier above it, each with its static sample budget
@@ -140,9 +162,17 @@ class Trainer:
         self._tier_M = [train_sample_budget(tc.num_rays, c) for c in self._tier_cfgs]
         self._tier = fracs.index(f)  # start at the configured fraction
 
+        if tc.use_checkpoint == "latest":
+            path = ckpt_io.latest_checkpoint(tc.workspace, tc.name)
+            if path:
+                self.load_checkpoint(path)
+
     # ------------------------------------------------------------------ logging
     def log(self, msg: str):
         print(msg, flush=True)
+        if os.path.isdir(self.tc.workspace):
+            with open(self.log_path, "a") as f:
+                f.write(msg + "\n")
 
     @property
     def tier_M(self) -> int:
@@ -158,7 +188,7 @@ class Trainer:
         N = self.tc.num_rays
         idx = int(self.host_rng.integers(self.n_frames))
         r = sample_rays(self.poses[idx], self.intrinsics, self.H, self.W, N,
-                        generator=self.gen)
+                        generator=self.gen, patch_size=self.tc.patch_size)
         gt = self.images[idx].reshape(-1, self.channels)[r["inds"]]  # [N, C]
         noise = torch.rand((N,), generator=self.gen, device=self.device)
         if self.channels == 4 and self.cfg.bg_radius <= 0:
@@ -269,10 +299,21 @@ class Trainer:
         return avg
 
     def train(self, max_epochs: int):
+        """Epochs up to `max_epochs` (or `iters` steps): every
+        `eval_interval`-th epoch evaluates the validation set and saves the
+        best checkpoint on a new best PSNR; every epoch saves a checkpoint."""
         steps = self.tc.steps_per_epoch or self.n_frames
         for _ in range(self.epoch, max_epochs):
             self.epoch += 1
             self.train_one_epoch(steps)
+            if self.epoch % self.tc.eval_interval == 0 and self.valid_dataset is not None:
+                result = self.evaluate(self.valid_dataset)
+                self.stats["results"].append(result)
+                best = self.stats["best_result"]
+                if best is None or result > best:
+                    self.stats["best_result"] = result
+                    self.save_checkpoint(best=True)
+            self.save_checkpoint(best=False)
             if self.global_step >= self.tc.iters:
                 break
 
@@ -289,20 +330,9 @@ class Trainer:
             for p, d in zip(self.params, live):
                 p.data = d
 
-    def render_image(self, pose, intrinsics=None, use_ema: bool = True,
-                     chunk: int = 4096, bg_color=None, W=None, H=None):
-        """Full-image eval render in `chunk`-ray pieces of `render_rays_eval`
-        (zero-padded to whole chunks).  W/H override the dataset resolution;
-        the intrinsics are rescaled to match.  Returns (image [H, W, 3],
-        depth [H, W]) as numpy; `last_render_stats` holds the samples
-        queried, the valid ones, the residual rounds and the chunk count."""
-        return self._render_frame(pose, intrinsics, use_ema, chunk, bg_color, W, H,
-                                  self.field, self.grid.bitfield)
-
-    def _render_frame(self, pose, intrinsics, use_ema, chunk, bg_color, W, H, field,
-                      bitfield, dgrid=None):
-        """`render_image` through `field` over `bitfield` (its dilated chunk
-        grid `dgrid`, built here when None)."""
+    def _frame_rays(self, pose, intrinsics, W, H):
+        """A full frame's rays; W/H override the dataset resolution and the
+        intrinsics are rescaled to match.  Returns (rays_o, rays_d, W, H)."""
         intr = self.intrinsics if intrinsics is None else torch.as_tensor(
             intrinsics, dtype=torch.float32, device=self.device)
         if W is None or H is None:
@@ -312,14 +342,63 @@ class Trainer:
                              dtype=torch.float32, device=self.device)
             intr = intr * s
         o, d = full_image_rays(pose, intr, H, W, device=self.device)
+        return o, d, W, H
+
+    def render_image(self, pose, intrinsics=None, use_ema: bool = True,
+                     chunk: int = 4096, bg_color=None, W=None, H=None):
+        """Full-image eval render.  With the stream eval and the chunked
+        march (the condition of the JAX package's `Trainer.render_image`) it
+        goes through the frame renderer (`render/frame_eval.py`), one per
+        (chunk, cfg); otherwise through `render_image_chunked`.  W/H override
+        the dataset resolution; the intrinsics are rescaled to match.
+        Returns (image [H, W, 3], depth [H, W]) as numpy; `last_render_stats`
+        holds the frame renderer's `last_stats` and `last_render_cut` its
+        `last_cut`."""
+        cfg = self.cfg
+        if not (cfg.eval_stream and cfg.march_chunk > 0
+                and cfg.max_steps % cfg.march_chunk == 0):
+            return self.render_image_chunked(pose, intrinsics, use_ema, chunk, bg_color, W, H)
+        fr = self.frame_renderer(chunk)
+        o, d, W, H = self._frame_rays(pose, intrinsics, W, H)
+        with self.ema_weights() if use_ema else contextlib.nullcontext():
+            img, dep = fr.render(None, o, d, self.grid.bitfield, self._dgrid, bg_color)
+        self.last_render_stats = fr.last_stats
+        self.last_render_cut = fr.last_cut.reshape(H, W)
+        return img.reshape(H, W, 3).cpu().numpy(), dep.reshape(H, W).cpu().numpy()
+
+    def frame_renderer(self, chunk: int = 4096) -> FrameRenderer:
+        """The frame renderer `render_image` uses for `chunk`-ray first-pass
+        chunks under the current cfg (one per (chunk, cfg), made on first
+        use)."""
+        key = (chunk, self.cfg)
+        if key not in self._frame_renderers:
+            self._frame_renderers[key] = FrameRenderer(self.field, self.cfg, chunk=chunk)
+        return self._frame_renderers[key]
+
+    def render_image_chunked(self, pose, intrinsics=None, use_ema: bool = True,
+                             chunk: int = 4096, bg_color=None, W=None, H=None):
+        """Full-image eval render in `chunk`-ray pieces of `render_rays_eval`
+        (zero-padded to whole chunks), each with its own residual rounds.
+        Arguments and return as `render_image`; `last_render_stats` holds
+        the samples queried, the valid ones, the residual rounds, the host
+        reads and the chunk count, `last_render_cut` (a device tensor
+        [H, W]) the rays a chunk's round cap left alive."""
+        return self._render_frame(pose, intrinsics, use_ema, chunk, bg_color, W, H,
+                                  self.field, self.grid.bitfield)
+
+    def _render_frame(self, pose, intrinsics, use_ema, chunk, bg_color, W, H, field,
+                      bitfield, dgrid=None):
+        """`render_image_chunked` through `field` over `bitfield` (its dilated
+        chunk grid `dgrid`, built here when None)."""
+        o, d, W, H = self._frame_rays(pose, intrinsics, W, H)
         n = o.shape[0]
         pad = (-n) % chunk
         o = torch.nn.functional.pad(o, (0, 0, 0, pad))
         d = torch.nn.functional.pad(d, (0, 0, 0, pad))
         if dgrid is None:
             dgrid = dilated_chunk_grid(bitfield, self.cfg)
-        imgs, deps = [], []
-        stats = {"samples": 0, "valid_samples": 0, "rounds": 0, "chunks": 0}
+        imgs, deps, cuts = [], [], []
+        stats = {"samples": 0, "valid_samples": 0, "rounds": 0, "host_reads": 0, "chunks": 0}
         with self.ema_weights() if use_ema else contextlib.nullcontext():
             for s in range(0, n + pad, chunk):
                 out = render_rays_eval(field, None, o[s:s + chunk], d[s:s + chunk],
@@ -327,24 +406,138 @@ class Trainer:
                                        dilated_grid=dgrid)
                 imgs.append(out["image"])
                 deps.append(out["depth"])
-                for k in ("samples", "valid_samples", "rounds"):
+                cuts.append(out["cut"])
+                for k in ("samples", "valid_samples", "rounds", "host_reads"):
                     stats[k] += out[k]
                 stats["chunks"] += 1
         self.last_render_stats = stats
+        self.last_render_cut = torch.cat(cuts)[:n].reshape(H, W)
         img = torch.cat(imgs)[:n].reshape(H, W, 3).cpu().numpy()
         dep = torch.cat(deps)[:n].reshape(H, W).cpu().numpy()
         return img, dep
 
-    def evaluate(self, dataset: NeRFDataset) -> float:
+    def evaluate(self, dataset: NeRFDataset, write_images: bool = False) -> float:
         """Mean PSNR of the EMA render over the dataset's frames (RGBA
-        targets composited on white)."""
+        targets composited on white); `write_images` writes each render to
+        `<workspace>/validation/` as a PNG."""
         meter = PSNRMeter()
+        out_dir = os.path.join(self.tc.workspace, "validation")
+        if write_images:
+            os.makedirs(out_dir, exist_ok=True)
         for i in range(dataset.num_frames):
             img, _ = self.render_image(dataset.poses[i])
             gt = dataset.images[i]
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1.0 - gt[..., 3:])
             meter.update(img, gt)
+            if write_images:
+                write_png(os.path.join(out_dir, f"{self.tc.name}_{self.epoch:04d}_{i:04d}.png"),
+                          (np.clip(img, 0, 1) * 255).astype(np.uint8))
         psnr = meter.measure()
         self.log(f"[eval epoch {self.epoch}] {meter.report()}")
         return psnr
+
+    def test(self, poses, out_dir: Optional[str] = None, write_video: bool = True):
+        """Render a pose path into `<workspace>/results/` as PNG frames (the
+        port has no mp4 writer; the JAX package falls back to the same
+        frames where it has none).  Returns the uint8 frames."""
+        out_dir = out_dir or os.path.join(self.tc.workspace, "results")
+        os.makedirs(out_dir, exist_ok=True)
+        frames = []
+        for pose in poses:
+            img, _ = self.render_image(pose)
+            frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        if write_video:
+            self.log("[test] mp4 writer unavailable (the port writes PNG frames)")
+        for i, fr in enumerate(frames):
+            write_png(os.path.join(out_dir, f"{self.tc.name}_{i:04d}.png"), fr)
+        return frames
+
+    @torch.no_grad()
+    def save_mesh(self, path: Optional[str] = None, resolution: int = 256,
+                  threshold: float = 10.0, chunk: int = 2**17):
+        """The density field (live weights) on a resolution^3 lattice over
+        [-bound, bound]^3, queried on the device in `chunk`-point pieces,
+        then its `threshold` isosurface by marching tetrahedra, written as
+        PLY (or OBJ for a .obj path).  Returns the path."""
+        from ..native import marching_tetrahedra, save_obj, save_ply
+
+        path = path or os.path.join(self.tc.workspace, "meshes",
+                                    f"{self.tc.name}_{self.epoch}.ply")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        b = self.cfg.bound
+        g = torch.linspace(-b, b, resolution, dtype=torch.float32, device=self.device)
+        X, Y, Z = torch.meshgrid(g, g, g, indexing="ij")
+        pts = torch.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)])
+        vals = [self.field.density(None, pts[:, s:s + chunk].contiguous()).float()
+                for s in range(0, pts.shape[1], chunk)]
+        field3d = torch.cat(vals).reshape((resolution,) * 3).cpu().numpy()
+        verts, faces = marching_tetrahedra(field3d, threshold)
+        verts = verts / (resolution - 1) * 2 * b - b
+        (save_obj if path.endswith(".obj") else save_ply)(path, verts, faces)
+        self.log(f"[save_mesh] {path}: {len(verts)} verts, {len(faces)} faces")
+        return path
+
+    # ------------------------------------------------------------- checkpoints
+    def _named(self, tensors) -> dict:
+        names = [n for n, p in self.model.named_parameters() if p.requires_grad]
+        return dict(zip(names, tensors))
+
+    def _payload(self) -> dict:
+        """The checkpoint payload under the JAX package's names
+        (`tngp/train/trainer.py:660-667`), as flax state dicts of numpy
+        arrays."""
+        return {
+            "params": flax_params_from_ngp_state_dict(self._named(self.params)),
+            "opt_state": optax_adam_state_dict(self.optimizer, self.model),
+            "ema": flax_params_from_ngp_state_dict(self._named(self.ema_params)),
+            "grid": occupancy_grid_state_dict(self.grid),
+            "error_map": np.zeros(0, np.float32),
+        }
+
+    def save_checkpoint(self, best: bool = False):
+        payload = self._payload()
+        if best:
+            # the best checkpoint drops the density grid: cheap to rebuild,
+            # and most of the file
+            payload = {k: v for k, v in payload.items() if k != "grid"}
+        return ckpt_io.save_checkpoint(
+            self.tc.workspace, self.tc.name, self.epoch, self.global_step, payload,
+            stats={"best_result": self.stats["best_result"]},
+            max_keep=self.tc.max_keep_ckpt, best=best,
+        )
+
+    def load_checkpoint(self, path: str):
+        """Restore weights, Adam state, EMA, grid, epoch and step from a
+        checkpoint of either package (non-strict: entries the file lacks
+        keep their current values, each reported).  Returns the report."""
+        payload, meta = ckpt_io.load_checkpoint(path, self._payload())
+        rep = meta.get("_load_report", {})
+        for kind in ("missing", "unexpected", "mismatched"):
+            for item in rep.get(kind, []):
+                self.log(f"[load_checkpoint] {kind}: {item}")
+        named = dict(self.model.named_parameters())
+        for name, value in ngp_state_dict_from_flax(payload["params"]).items():
+            named[name].data.copy_(value)
+        ema = self._named(self.ema_params)
+        for name, value in ngp_state_dict_from_flax(payload["ema"]).items():
+            ema[name].copy_(value)
+        count = load_optax_adam_state(self.optimizer, self.model, payload["opt_state"])
+        if self.scheduler is not None:
+            lr = self.tc.lr * 0.1 ** min(count / self.tc.iters, 1.0)
+            self.scheduler.last_epoch = count
+            self.scheduler._last_lr = [lr] * len(self.optimizer.param_groups)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+        g = payload["grid"]
+        self.set_grid(occupancy_grid_from_arrays(g["density_grid"], g["bitfield"],
+                                                 g["mean_density"], g["iter_density"],
+                                                 device=self.device))
+        self._grid_updates = int(np.asarray(g["iter_density"]))
+        self.epoch = meta.get("epoch", 0)
+        self.global_step = meta.get("global_step", 0)
+        best = (meta.get("stats") or {}).get("best_result")
+        if best is not None:
+            self.stats["best_result"] = best
+        self.log(f"[load_checkpoint] {path} (epoch {self.epoch}, step {self.global_step})")
+        return rep
