@@ -69,7 +69,8 @@ def main() -> dict:
     z = np.load(CACHE)
     ds = NeRFDataset(poses=z["poses"], intrinsics=z["intrinsics"], H=int(z["H"]),
                      W=int(z["W"]), images=z["images"])
-    model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=0)
+    model = NGPNetwork(encoding="hashgrid_window",
+                       bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=0)
     cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True,
                        march_group=16)

@@ -26,6 +26,12 @@ Phases (any failure exits non-zero and prints no result line):
      of 524,288 samples into 65,536 rays), and the set-scatter exactly on
      the occupancy update's resample-shaped input (rand_idx ++ occ_idx on a
      ~10% occupied 128^3 grid), an all-skip input, a ragged M and M = 0;
+     and the general (atomic) scatter-add at the golden hash grid's
+     table-gradient shapes (`hash_any_inputs`: level 0 of the default tiled
+     grid, 1,048,576 entries into 4,920 rows; its level 15, into 2^19 rows;
+     a level of the hyper variant's 5-D grid, 4,194,304 entries; level 0 of
+     the background grid, 16,384 entries into 296 rows), each row within
+     (n-1) 2^-24 sum|v| of the exact sum;
   2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
      (the int-mul probe exact, the encoder kernels against independent plain
      versions, each scatter-add form against the exact sum);
@@ -48,6 +54,11 @@ Phases (any failure exits non-zero and prints no result line):
      different points; rays a round cap left alive apart); show that
      every eval kernel launched in each, and hold one 4096-ray chunk
      against the plain path on the card;
+  3b. one 800x800 frame of NGP on the golden hash grid (`encoding="hashgrid"`)
+     with the background model (bg_radius 2), random weights, through
+     `Trainer.render_image` on phase 3's occupancy grid: timed, held to the
+     same frame through the plain versions at phase 3's tolerances, and
+     no table-gradient scatter (`scatter_add_any`) launched in it;
   4. training path: the same network trained on 12 views of 128x128 of the
      blob scene (rendered here, on the card) with bench.py's loop: 4096
      rays/step, lr 1e-2, grid update and budget-tier read every 16 steps;
@@ -78,7 +89,26 @@ Phases (any failure exits non-zero and prints no result line):
      rotated, the path's kernels launched; `--ckpt latest` resumes at the
      saved epoch and step with a first EMA render bitwise equal to the
      first run's last and trains on; `--test` writes PNG frames and a mesh
-     with faces;
+     with faces; then `--encoding tiledgrid --bg_radius 2` for 96
+     iterations: the loss falls, a validation PSNR, scatter_add_any once
+     per level of both grids in every backward;
+  6d. D-NeRF at its defaults (`dnerf_default_phase`): `DNeRFNetwork(bound=1)`
+     on the golden tiled grid (16 levels x 2^19 rows, position gradients)
+     with bf16 MLPs, on phase 6's scene, time grid (16 slices, cut from the
+     CLI's 64 for time) and pinned config: one step through the kernels
+     against the plain versions on a freshly built net (a nonzero deform
+     gradient; each level's table-gradient scatter within the reordering
+     bound), the first full time-grid update's wall, 64 untimed and 100
+     timed steps (ms/step and rays/s beside phase 6's), the loss halving,
+     scatter_add_any once per level in every backward, no host sync in a
+     step, the EMA PSNR; then the basis and hyper variants for 32 steps
+     each (finite, falling loss; the kernel once per level per backward);
+  6e. the D-NeRF entry point (`dnerf_cli_phase`): phase 6's dynamic scene
+     written as a D-NeRF dataset (a `time` per frame), then
+     `tngp_torch.cli.main_dnerf.main` with the CLI's default flags and -O
+     for 300 iterations with --time_size 16 (cut from 64): the loss
+     halves, a validation PSNR, the kernel once per level per backward,
+     `--ckpt latest` resumes bitwise and trains on, `--test` writes frames;
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes (the
      scatter-adds' at the frame round's, the first pass's under `shapes`;
@@ -92,13 +122,18 @@ Phases (any failure exits non-zero and prints no result line):
      whole `bin_dest` call, its device operations counted; the encoder rows
      also time the small width, one tile and (forward) a training step's
      inputs under `shapes` (`kernel_times.encoder_calls` on
-     `encoder_inputs`, the inputs `kernel_times.py` times);
+     `encoder_inputs`, the inputs `kernel_times.py` times); the golden
+     grid's table-gradient rows count the launches at their own level's
+     shape (one a step), the whole path's under `launches_all_levels`, and
+     phase 3b's frame's under `launches_per_frame`;
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
 `--profile` adds a profiled partial grid update (resample, H = 128), a
-profiled eval frame and ten profiled training steps with device time by
-kernel and the idle share.
+profiled eval frame, ten profiled training steps, a profiled golden-grid
+frame (3b) and a profiled full D-NeRF time-grid update on the golden grid
+(6d), with device time by kernel, the idle share and the golden grid's
+share (its profiler ranges `hash_grid.forward` / `hash_grid.backward`).
 
 It needs a CUDA card and the rest of the repository next to it.
 """
@@ -107,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -166,11 +202,36 @@ def n_syncs(caught) -> int:
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+def step_host_syncs(tr, steps: int):
+    """`steps` further steps of trainer `tr` under torch's sync debug mode.
+    Returns (the syncs inside each `train_step`, the syncs in all)."""
+    step_syncs = []
+    with host_sync_log() as caught:
+        plain_step = tr.train_step
+
+        def counted_step():
+            before = n_syncs(caught)
+            out = plain_step()
+            step_syncs.append(n_syncs(caught) - before)
+            return out
+
+        tr.train_step = counted_step
+        try:
+            tr.run_steps(steps)
+        finally:
+            tr.train_step = plain_step
+        total = n_syncs(caught)
+    return step_syncs, total
+
+
 def profile_device(fn, label: str, wall_off: float) -> None:
     """Run `fn` under torch.profiler; print device time by kernel, the
     idle share of `wall_off`, the same work's wall time with the profiler
-    off (the profiler's host cost inflates the profiled wall), and the
-    cumsums' device time by input shape."""
+    off (the profiler's host cost inflates the profiled wall), the
+    cumsums' device time by input shape, and the device time inside the
+    golden grid's profiler ranges (`hash_grid.forward` and
+    `hash_grid.backward`, opened in `tngp_torch.ops.hashgrid`) with its
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     from tngp_torch.diagnostics.step_times import ops_by_shape
@@ -185,10 +246,12 @@ def profile_device(fn, label: str, wall_off: float) -> None:
     # device-side events only (kernels, memsets, copies): the aten ops above
     # them report the same time again
     cuda_t = torch.autograd.DeviceType.CUDA
-    # and not the optimizer's annotation span, which covers its kernels' time
+    # and not the annotation spans (the optimizer's, the golden grid's),
+    # whose device-side rows cover the device timeline from their first
+    # kernel to their last, gaps included
     dev_us = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
               if e.device_type == cuda_t and e.device_time_total > 0
-              and not e.key.startswith("Optimizer.")]
+              and not e.key.startswith(("Optimizer.", "hash_grid."))]
     dev_us.sort(key=lambda kv: -kv[1])
     busy = sum(t for _, t, _ in dev_us) / 1e6
     n_ev = sum(c for _, _, c in dev_us)
@@ -199,6 +262,14 @@ def profile_device(fn, label: str, wall_off: float) -> None:
         log(f"[profile]   {t / 1e3:10.3f} ms  {100 * t / 1e6 / busy:5.1f}%  x{c:<7d} {k[:96]}")
     for op, shapes, n, ms in ops_by_shape(prof)[:8]:
         log(f"[profile]   {op} {shapes[:80]}: {ms:.3f} ms over {n} calls")
+    # a span's host-side row sums the device time of the kernels launched
+    # inside it
+    for e in prof.key_averages():
+        if (e.key.startswith("hash_grid.") and e.device_type != cuda_t
+                and e.device_time_total > 0):
+            log(f"[profile]   span {e.key}: {e.device_time_total / 1e3:.3f} ms device time over "
+                f"{e.count} calls, {100 * e.device_time_total / 1e6 / busy:.1f}% of the device "
+                f"busy time")
 
 
 @torch.no_grad()
@@ -272,26 +343,36 @@ def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
     return float(err.max()), float((err / tol.clamp(min=1e-30)).max())
 
 
-def dnerf_step_check(tr, model, what: str) -> dict:
-    """One D-NeRF batch through the loss and its backward, through the
-    kernels and again through the plain versions, and the input-gradient
-    kernel on that step's own inputs (`check_dx`).  Fails on a non-finite
-    gradient entry, a loss beyond 1e-5 relative, a gradient beyond 3e-2
-    norm-relative (the NGP step's tolerances: the kernels' f32 summation
-    order flips single bf16 roundings in the MLPs) or an input gradient
-    beyond its reordering bound.  Returns the deform net's largest |grad|
-    through the kernels (`deform_max`: the caller decides what a zero
-    means), the errors and the input gradient's inputs (`dx_args`)."""
+@contextlib.contextmanager
+def capturing(module, name: str, store: list):
+    """Inside this scope `module.<name>` appends each call's positional
+    arguments to `store` and calls through."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        store.append(a)
+        return real(*a, **k)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def step_kernels_vs_plain(tr, model, label: str, capture) -> dict:
+    """One batch of D-NeRF trainer `tr` through the loss and its backward,
+    through the kernels (inside the scope `capture`) and again through the
+    plain versions.  Fails on a non-finite gradient entry, a loss beyond
+    1e-5 relative or a gradient beyond 3e-2 norm-relative (the NGP step's
+    tolerances: the kernels' f32 summation order flips single bf16
+    roundings in the MLPs).  Returns the losses, the gradient errors, the
+    deform net's largest |grad| through the kernels (`deform_max`, None for
+    a model without one: the caller decides what a zero means) and a line
+    about the batch."""
     from tngp_torch import kernels
-    from tngp_torch.kernels import window_encoder as kw
 
     batch = tr.sample_batch()
-    captured = {}
-    real_dx = kw.window_encode_dx
-
-    def capturing_dx(*a, **k):
-        captured["args"] = a[:4]
-        return real_dx(*a, **k)
 
     def grads():
         tr.optimizer.zero_grad(set_to_none=True)
@@ -299,41 +380,49 @@ def dnerf_step_check(tr, model, what: str) -> dict:
         loss.backward()
         return float(loss.detach()), [p.grad.clone() for p in tr.params], int(npts)
 
-    kw.window_encode_dx = capturing_dx
-    try:
+    with capture:
         loss_k, grads_k, npts = grads()
-    finally:
-        kw.window_encode_dx = real_dx
     with kernels.plain_versions():
         loss_p, grads_p, _ = grads()
     tr.optimizer.zero_grad(set_to_none=True)
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     rels = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
-    deform_max = float(torch.stack([g.abs().max() for n, g in zip(names, grads_k)
-                                    if n.startswith("deform_net")]).max())  # NaN propagates
+    deform = [g.abs().max() for n, g in zip(names, grads_k) if n.startswith("deform_net")]
+    deform_max = float(torch.stack(deform).max()) if deform else None  # NaN propagates
     nonfinite = {n: int((~torch.isfinite(g)).sum()) for n, g in zip(names, grads_k)
                  if not bool(torch.isfinite(g).all())}
     about = (f"the batch: time {float(batch['time']):.3f}, {npts} samples, loss {loss_k}, "
              f"deform-net max |grad| {deform_max}")
     if nonfinite or deform_max != deform_max:
-        raise SystemExit(f"D-NeRF step ({what} net): non-finite gradient entries {nonfinite}; "
-                         + about)
+        raise SystemExit(f"{label}: non-finite gradient entries {nonfinite}; " + about)
     if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
-        raise SystemExit(f"D-NeRF step ({what} net), kernels vs plain: loss {loss_k} vs "
-                         f"{loss_p}; " + about)
+        raise SystemExit(f"{label}, kernels vs plain: loss {loss_k} vs {loss_p}; " + about)
     if not max(rels.values()) <= 3e-2:
-        raise SystemExit(f"D-NeRF step ({what} net), kernels vs plain: gradient errors {rels}; "
-                         + about)
-    dx_args = tuple(a.detach() for a in captured["args"])
+        raise SystemExit(f"{label}, kernels vs plain: gradient errors {rels}; " + about)
+    return dict(loss_k=loss_k, loss_p=loss_p, rels=rels, deform_max=deform_max)
+
+
+def dnerf_step_check(tr, model, what: str) -> dict:
+    """`step_kernels_vs_plain` on the window encoder, and the input-gradient
+    kernel on that step's own inputs (`check_dx`), which fails beyond its
+    reordering bound.  Returns the deform net's largest |grad| through the
+    kernels (`deform_max`), the errors and the input gradient's inputs
+    (`dx_args`)."""
+    from tngp_torch.kernels import window_encoder as kw
+
+    calls = []
+    st = step_kernels_vs_plain(tr, model, f"D-NeRF step ({what} net)",
+                               capturing(kw, "window_encode_dx", calls))
+    dx_args = tuple(a.detach() for a in calls[-1][:4])
     err_dx, worst_dx = check_dx(*dx_args, model.encoder.spec, model.encoder.block,
                                 f"a D-NeRF step's inputs, {what} net")
-    log(f"[dnerf] one step on the {what} net, kernels vs plain path: loss {loss_k:.8f} vs "
-        f"{loss_p:.8f}; gradient norm-relative errors "
-        + ", ".join(f"{n} {v:.2e}" for n, v in rels.items())
-        + f" (<= 3e-2); deform-net max |grad| {deform_max:.3e}; window_encode_dx on this "
+    log(f"[dnerf] one step on the {what} net, kernels vs plain path: loss {st['loss_k']:.8f} vs "
+        f"{st['loss_p']:.8f}; gradient norm-relative errors "
+        + ", ".join(f"{n} {v:.2e}" for n, v in st["rels"].items())
+        + f" (<= 3e-2); deform-net max |grad| {st['deform_max']:.3e}; window_encode_dx on this "
         f"step's inputs (M_pad = {dx_args[0].shape[0]}) max|err| {err_dx:.3g}, worst "
         f"err/bound {worst_dx:.3f}, bitwise the same on a second call")
-    return dict(deform_max=deform_max, rels=rels, err_dx=err_dx, worst_dx=worst_dx,
+    return dict(deform_max=st["deform_max"], rels=st["rels"], err_dx=err_dx, worst_dx=worst_dx,
                 dx_args=dx_args)
 
 
@@ -405,7 +494,8 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
                          f"{fresh_check['deform_max']} (must be > 0): no gradient reaches it")
     del fresh, fresh_model
 
-    ngp_p = Trainer(NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed),
+    ngp_p = Trainer(NGPNetwork(encoding="hashgrid_window",
+                               bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed),
                     ds, cfg_p, pinned, device=dev)
     _, dt_ngp, _ = pinned_run(ngp_p, "NGP, pinned config")
     del ngp_p
@@ -454,19 +544,7 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
     if not all(bool(torch.isfinite(p).all()) for p in dtr.params + dtr.ema_params):
         raise SystemExit("D-NeRF: a parameter is not finite after training")
 
-    step_syncs = []
-    with host_sync_log() as caught:
-        plain_step = dtr.train_step
-
-        def counted_dstep():
-            before = n_syncs(caught)
-            out = plain_step()
-            step_syncs.append(n_syncs(caught) - before)
-            return out
-
-        dtr.train_step = counted_dstep
-        dtr.run_steps(DNERF_SYNC_STEPS)
-        dtr.train_step = plain_step
+    step_syncs, _ = step_host_syncs(dtr, DNERF_SYNC_STEPS)
     log(f"[dnerf] host syncs over {DNERF_SYNC_STEPS} further steps: inside train_step "
         f"{sum(step_syncs)} ({max(step_syncs)} max per step)")
     if sum(step_syncs) != 0:
@@ -485,10 +563,388 @@ def dnerf_phase(dev, ds, seed: int) -> dict:
         raise SystemExit("D-NeRF: the evaluation PSNR is not finite")
     return dict(dt_dnerf=dt_dnerf, dt_ngp=dt_ngp, ratio=ratio,
                 rays_s=DNERF_TIMED * N_RAYS / dt_dnerf, psnr=psnr_d, launches=launches_dnerf,
-                fresh=fresh_check, trained=trained)
+                fresh=fresh_check, trained=trained, dds=dds, cfg=cfg_p, tc=pinned)
+
+
+def hash_any_inputs(dev, gen) -> dict:
+    """The golden grid's table gradient at the shapes its backward hands
+    `scatter_add(..., indices="any")`: label -> (idx, vals, rows) of one
+    level, vals = corner weight x an N(0, 1) cotangent, C = 2.  A D-NeRF
+    training step's 131,072 samples through level 0 of the default tiled
+    spec (dense: 8 corners into 4,920 rows, ~213 adds a row) and through
+    level 15 (wrapped into 2^19 rows); the hyper variant's 5-D grid at
+    level 8 (32 corners into 2^19 rows); level 0 of the background grid (4
+    corners x 4,096 rays into 296 rows)."""
+    from tngp_torch.ops import hashgrid as hg
+
+    d3 = hg.HashGridSpec.create(desired_resolution=2048, gridtype="tiled")
+    d5 = hg.HashGridSpec.create(input_dim=5, desired_resolution=2048, gridtype="tiled")
+    bg = hg.HashGridSpec.create(input_dim=2, num_levels=4, desired_resolution=2048)
+    out = {}
+    for label, spec, level, m in (("level0_dense", d3, 0, 131_072),
+                                  ("level15_wrapped", d3, 15, 131_072),
+                                  ("hyper5d_level8", d5, 8, 131_072),
+                                  ("bg_level0", bg, 0, N_RAYS)):
+        x = torch.rand((spec.input_dim, m), generator=gen).to(dev)
+        idx, w, _, _ = hg._level_geometry(spec, level, x)
+        g = torch.randn((m, spec.level_dim), generator=gen).to(dev)
+        vals = (w[:, :, None] * g[None]).reshape(-1, spec.level_dim).contiguous()
+        out[label] = (idx.reshape(-1), vals, spec.offsets[level + 1] - spec.offsets[level])
+    return out
+
+
+def hash_step_check(tr, model, what: str) -> dict:
+    """`step_kernels_vs_plain` on the golden grid, and each level's
+    table-gradient scatter (`scatter_add_any`) on that step's own inputs
+    within the reordering bound (`check_scatter_add`).  Returns the deform
+    net's largest |grad| (`deform_max`, None for the variants), the
+    gradient errors and the worst err/bound over the levels."""
+    from tngp_torch.ops import hashgrid as hg
+
+    calls = []
+    st = step_kernels_vs_plain(tr, model, f"golden-grid step ({what})",
+                               capturing(hg, "scatter_add", calls))
+    levels = model.encoder.spec.num_levels
+    if len(calls) != levels:
+        raise SystemExit(f"golden-grid step ({what}): {len(calls)} table-gradient scatters, "
+                         f"not one per level ({levels})")
+    checks = [check_scatter_add(i.detach(), v.detach(), r, "any", f"{what}, level {lv}")
+              for lv, (i, v, r) in enumerate(calls)]
+    worst = max(w for _, w in checks)
+    log(f"[dnerf-default] one step on the {what} net, kernels vs plain path: loss "
+        f"{st['loss_k']:.8f} vs {st['loss_p']:.8f}; gradient norm-relative errors "
+        + ", ".join(f"{n} {v:.2e}" for n, v in st["rels"].items())
+        + f" (<= 3e-2); deform-net max |grad| {st['deform_max']}; the {levels} levels' "
+        f"scatter_add_any on this step's inputs ({calls[0][0].numel():,} entries a level): "
+        f"max|err| vs plain {max(e for e, _ in checks):.3g}, worst err/bound {worst:.3f}")
+    return dict(deform_max=st["deform_max"], rels=st["rels"], worst_any=worst)
+
+
+VARIANT_STEPS = 32  # the basis and hyper variants' steps in phase 6d
+
+
+def dnerf_default_phase(dev, dn: dict, seed: int, profile: bool) -> dict:
+    """D-NeRF at its defaults (the golden tiled grid of 16 levels x 2^19
+    rows with position gradients, bf16 MLPs) at full width under phase 6's
+    pinned config, scene and time grid: one step through the kernels
+    against the plain versions on a freshly built net (`hash_step_check`,
+    fatal unless the deform net gets a gradient), the first full time-grid
+    update's wall, DNERF_WARM untimed and DNERF_TIMED timed steps (ms/step
+    and rays/s beside phase 6's window-encoder D-NeRF), the loss halving,
+    scatter_add_any once per level in every backward, no host sync in a
+    step, the EMA PSNR; then the basis and hyper variants for VARIANT_STEPS
+    steps each, their loss finite and falling, the kernel once per level in
+    every backward.  `profile`: one full time-grid update under the
+    profiler with the golden grid's share."""
+    from tngp_torch import kernels
+    from tngp_torch.models import DNeRFBasisNetwork, DNeRFHyperNetwork, DNeRFNetwork
+    from tngp_torch.train import DNeRFTrainer
+
+    dds, cfg_p, pinned = dn["dds"], dn["cfg"], dn["tc"]
+    t_phase = time.time()
+
+    def trainer(cls):
+        model = cls(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed)
+        return model, DNeRFTrainer(model, dds, cfg_p, pinned, time_size=DNERF_TIME_SIZE,
+                                   update_interval=16, device=dev)
+
+    fresh_model, fresh = trainer(DNeRFNetwork)
+    spec = fresh_model.encoder.spec
+    if (type(fresh_model.encoder).__name__, spec.gridtype, spec.total_params) != (
+            "GridEncoder", "tiled", 6_119_864):
+        raise SystemExit(f"DNeRFNetwork's default encoder is not the tiled grid: {spec}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fresh.update_grid()
+    torch.cuda.synchronize()
+    dt_update = time.time() - t0
+    log(f"[dnerf-default] first full time-grid update ({DNERF_TIME_SIZE} slices x "
+        f"{GRID_SIZE}^3 cells through the golden grid): {dt_update:.3f} s")
+    if profile:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fresh.update_grid()
+        torch.cuda.synchronize()
+        profile_device(fresh.update_grid, "one full D-NeRF time-grid update, golden tiled grid",
+                       time.time() - t0)
+    fresh_check = hash_step_check(fresh, fresh_model, "fresh")
+    if not fresh_check["deform_max"] > 0:
+        raise SystemExit(f"golden-grid D-NeRF step on the fresh net: the deform net's largest "
+                         f"|grad| is {fresh_check['deform_max']} (must be > 0)")
+    del fresh, fresh_model
+
+    def run(tr, label, warm, timed):
+        """`warm` untimed and `timed` timed steps; returns (losses, wall of
+        the timed steps, launches in them)."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        lw = tr.run_steps(warm)[0] if warm else torch.zeros(0, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t1 = time.time()
+        lt, pts, kept = tr.run_steps(timed)
+        torch.cuda.synchronize()
+        dt = time.time() - t1
+        counts = {name: k.launches for name, k in kernels.KERNELS.items()}
+        levels = tr.model.encoder.spec.num_levels
+        log(f"[dnerf-default] {label}: {warm} untimed steps {t1 - t0:.2f} s, {timed} timed "
+            f"steps {dt:.3f} s, {1e3 * dt / timed:.2f} ms/step, {timed * N_RAYS / dt:,.1f} train "
+            f"rays/s; demand {float(pts.float().mean()):,.0f} rungs/step, "
+            f"{float(kept.mean()):,.0f} of {N_RAYS} rays kept; launches {counts}")
+        if counts["scatter_add_any"] != levels * timed:
+            raise SystemExit(f"{label}: scatter_add_any launched {counts['scatter_add_any']} "
+                             f"times, not once per level ({levels}) in each of {timed} backwards")
+        return torch.cat([lw, lt]), dt, counts
+
+    model, tr = trainer(DNeRFNetwork)
+    losses, dt, launches = run(tr, "DNeRFNetwork (tiledgrid)", DNERF_WARM, DNERF_TIMED)
+    first16, last16 = float(losses[:16].mean()), float(losses[-16:].mean())
+    log(f"[dnerf-default] loss first 16 steps {first16:.6f}, last 16 {last16:.6f}; window-encoder "
+        f"D-NeRF (phase 6) {1e3 * dn['dt_dnerf'] / DNERF_TIMED:.2f} ms/step, "
+        f"{dn['rays_s']:,.1f} rays/s")
+    if not (np.isfinite(first16) and last16 < 0.5 * first16):
+        raise SystemExit(f"golden-grid D-NeRF: the loss did not fall below half: {first16} -> "
+                         f"{last16}")
+    step_syncs, _ = step_host_syncs(tr, DNERF_SYNC_STEPS)
+    log(f"[dnerf-default] host syncs over {DNERF_SYNC_STEPS} further steps: inside train_step "
+        f"{sum(step_syncs)} ({max(step_syncs)} max per step)")
+    if sum(step_syncs) != 0:
+        raise SystemExit(f"golden-grid D-NeRF train_step made host syncs: {step_syncs}")
+    if not all(bool(torch.isfinite(p).all()) for p in tr.params + tr.ema_params):
+        raise SystemExit("golden-grid D-NeRF: a parameter is not finite after training")
+    t0 = time.time()
+    psnr = tr.evaluate(dds)
+    log(f"[dnerf-default] PSNR with the EMA weights over the {DNERF_FRAMES} views at their own "
+        f"times after {tr.global_step} steps: {psnr:.2f} dB ({time.time() - t0:.2f} s)")
+    if not np.isfinite(psnr):
+        raise SystemExit("golden-grid D-NeRF: the evaluation PSNR is not finite")
+    levels = model.encoder.spec.num_levels
+    del model, tr
+
+    variants = {}
+    for cls in (DNeRFBasisNetwork, DNeRFHyperNetwork):
+        vmodel, vtr = trainer(cls)
+        vl, vdt, vcounts = run(vtr, f"{cls.__name__} ({vmodel.encoder.spec.input_dim}-D tiledgrid)",
+                               0, VARIANT_STEPS)
+        a, b = float(vl[:8].mean()), float(vl[-8:].mean())
+        log(f"[dnerf-default] {cls.__name__}: loss first 8 steps {a:.6f}, last 8 {b:.6f}")
+        if not (np.isfinite(vl.cpu().numpy()).all() and b < a):
+            raise SystemExit(f"{cls.__name__}: the loss is not finite and falling: {a} -> {b}")
+        variants[cls.__name__] = dict(dt=vdt, launches=vcounts, loss=(a, b),
+                                      levels=vmodel.encoder.spec.num_levels)
+        del vmodel, vtr
+    wall = time.time() - t_phase
+    log(f"[dnerf-default] phase 6d wall {wall:.1f} s")
+    return dict(dt=dt, rays_s=DNERF_TIMED * N_RAYS / dt, launches=launches, psnr=psnr,
+                levels=levels, fresh=fresh_check, variants=variants, dt_update=dt_update, wall=wall)
+
+
+def resumed_run(label: str, run, render, img_last, end1, more_steps: int) -> None:
+    """`run()`, a CLI run with --ckpt latest, must resume at `end1` (epoch,
+    step) with a first EMA render (`render(trainer)`, taken as
+    `Trainer.train` begins) bitwise equal to `img_last`, the previous run's
+    last, and train `more_steps` steps on."""
+    from tngp_torch.train import Trainer
+
+    seen = {}
+    real_train = Trainer.train
+
+    def train_seen(self, max_epochs):
+        seen["at"] = (self.epoch, self.global_step)
+        seen["img"] = render(self)
+        return real_train(self, max_epochs)
+
+    Trainer.train = train_seen
+    try:
+        tr = run()
+    finally:
+        Trainer.train = real_train
+    same = bool(np.array_equal(seen["img"], img_last))
+    log(f"{label} run 2 (--ckpt latest): resumed at epoch {seen['at'][0]}, step "
+        f"{seen['at'][1]} (run 1 ended at {end1}); its first EMA render bitwise equal to run "
+        f"1's last: {same}; trained on to epoch {tr.epoch}, step {tr.global_step}")
+    if seen["at"] != end1 or not same:
+        raise SystemExit(f"{label} the resumed run did not start where run 1 ended")
+    if tr.global_step != end1[1] + more_steps:
+        raise SystemExit(f"{label} the resumed run did not train on: {tr.global_step}")
+
+
+DNERF_CLI_ITERS = 300  # the D-NeRF CLI phase's first run: 25 epochs of the 12 views
+
+
+def dnerf_cli_phase(dev, dds, seed: int) -> dict:
+    """The D-NeRF entry point at its defaults: the dynamic blob scene `dds`
+    written as a D-NeRF dataset (blender-format PNGs, a `time` per frame;
+    val and test: 4 held views at their own times), then
+    `tngp_torch.cli.main_dnerf.main` with the CLI's default flags (bound 2:
+    2 cascades; dt_gamma 1/128; the default tiled-grid model; the time grid
+    updated every 100 steps) and -O for DNERF_CLI_ITERS iterations with
+    --time_size DNERF_TIME_SIZE.  Checks that the loss halves, a validation
+    PSNR, scatter_add_any once per level in every backward, that --ckpt
+    latest resumes at the saved epoch and step with a first EMA render
+    bitwise equal to the first run's last and trains on, and that --test
+    writes the training poses' PNG frames."""
+    import shutil
+    import tempfile
+
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_dnerf
+    from tngp_torch.data import make_time_blob_field, orbit_poses, render_gt_images
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="tngp_dnerf_cli_")
+    try:
+        H = W = dds.H
+        held = orbit_poses(4, radius=2.35, elevation=0.3)
+        held_t = np.array([0.1, 0.4, 0.6, 0.9], np.float32)
+        held_imgs = np.stack([
+            render_gt_images(make_time_blob_field(float(t), 0, device=dev), pose[None],
+                             dds.intrinsics, H, W, 1.0, 256, device=dev)[0]
+            for pose, t in zip(held, held_t)])
+        write_blender_dataset(root, {"train": (dds.poses, dds.images, dds.times),
+                                     "val": (held, held_imgs, held_t),
+                                     "test": (held, held_imgs, held_t)},
+                              W, float(dds.intrinsics[0]))
+        ws = os.path.join(root, "ws")
+        argv = [root, "-O", "--workspace", ws, "--seed", str(seed), "--eval_interval", "10",
+                "--time_size", str(DNERF_TIME_SIZE)]
+        log(f"[dnerf-cli] D-NeRF-format dynamic blob scene ({dds.num_frames} train views at "
+            f"times 0..1, 4 val and test views at times {held_t.tolist()}, {H}x{W} PNGs) -> "
+            f"python -m tngp_torch.cli.main_dnerf {' '.join(argv[1:])} --iters {DNERF_CLI_ITERS}")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr1 = main_dnerf.main(argv + ["--iters", str(DNERF_CLI_ITERS)])
+        torch.cuda.synchronize()
+        dt1 = time.time() - t0
+        launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        losses, results = tr1.stats["loss"], tr1.stats["results"]
+        psnr = tr1.evaluate(tr1.valid_dataset)
+        levels = tr1.model.encoder.spec.num_levels
+        log(f"[dnerf-cli] run 1: {tr1.global_step} steps over {tr1.epoch} epochs in {dt1:.1f} s "
+            f"(validation and checkpoints included); epoch loss {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f}; validation PSNR {', '.join(f'{r:.2f}' for r in results)} dB, "
+            f"at the end {psnr:.2f} dB; time grid {tuple(tr1.grid.density_grid.shape)}, "
+            f"{tr1._grid_updates} updates; launches {launches}")
+        if (tr1.cfg.cascades, tr1.cfg.bound, tr1.time_size) != (2, 2.0, DNERF_TIME_SIZE):
+            raise SystemExit(f"[dnerf-cli] not the CLI's default config: {tr1.cfg}")
+        if not (np.isfinite(losses[0]) and losses[-1] < 0.5 * losses[0]):
+            raise SystemExit(f"[dnerf-cli] the loss did not fall below half: {losses[0]} -> "
+                             f"{losses[-1]}")
+        if not (results and all(np.isfinite(results)) and np.isfinite(psnr)):
+            raise SystemExit(f"[dnerf-cli] no finite validation PSNR: {results}, {psnr}")
+        if launches["scatter_add_any"] != levels * tr1.global_step:
+            raise SystemExit(f"[dnerf-cli] scatter_add_any launched {launches['scatter_add_any']} "
+                             f"times, not {levels} per step over {tr1.global_step} steps")
+        t_val = float(held_t[0])
+        img_last, _ = tr1.render_image(held[0], time=t_val)
+        end1 = (tr1.epoch, tr1.global_step)
+        del tr1
+
+        resumed_run("[dnerf-cli]", lambda: main_dnerf.main(
+            argv + ["--iters", str(DNERF_CLI_ITERS + 2 * dds.num_frames), "--ckpt", "latest"]),
+            lambda tr: tr.render_image(held[0], time=t_val)[0], img_last, end1,
+            2 * dds.num_frames)
+
+        main_dnerf.main(argv + ["--test"])
+        frames = sorted(f for f in os.listdir(os.path.join(ws, "results")) if f.endswith(".png"))
+        log(f"[dnerf-cli] --test: {len(frames)} PNG frames of the training poses")
+        if len(frames) != dds.num_frames:
+            raise SystemExit(f"[dnerf-cli] --test wrote {len(frames)} frames")
+        wall = time.time() - t_phase
+        log(f"[dnerf-cli] phase 6e wall {wall:.1f} s")
+        return dict(dt=dt1, psnr=psnr, launches=launches, wall=wall)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+CLI_SCALE = 0.33  # the CLI's default --scale
+
+
+def write_blender_dataset(root: str, splits: dict, W: int, focal: float) -> float:
+    """Write `splits` (name -> (poses, images, times or None)) under `root`
+    as a blender-format dataset of PNGs (`utils/image_io.py`) whose
+    transform_matrixes give back the poses through `nerf_matrix_to_ngp` at
+    the CLI's --scale, each frame with its `time` where times are given (a
+    D-NeRF dataset).  Returns the largest pose error after the round trip;
+    fails beyond 1e-6."""
+    from tngp_torch.data import nerf_matrix_to_ngp
+    from tngp_torch.utils.image_io import write_png
+
+    scale = CLI_SCALE
+
+    def ngp_to_nerf(p):
+        """The inverse of `nerf_matrix_to_ngp` at `scale`, zero offset."""
+        m = np.eye(4)
+        m[1, :3], m[1, 3] = [p[0, 0], -p[0, 1], -p[0, 2]], p[0, 3] / scale
+        m[2, :3], m[2, 3] = [p[1, 0], -p[1, 1], -p[1, 2]], p[1, 3] / scale
+        m[0, :3], m[0, 3] = [p[2, 0], -p[2, 1], -p[2, 2]], p[2, 3] / scale
+        return m
+
+    worst = 0.0
+    for split, (poses, imgs, times) in splits.items():
+        os.makedirs(os.path.join(root, split))
+        frames = []
+        for i, (pose, img) in enumerate(zip(poses, imgs)):
+            write_png(os.path.join(root, split, f"r_{i}.png"),
+                      np.clip(np.rint(np.asarray(img) * 255), 0, 255).astype(np.uint8))
+            m = ngp_to_nerf(np.asarray(pose, np.float64))
+            worst = max(worst, float(np.abs(nerf_matrix_to_ngp(m, scale) - pose).max()))
+            frame = {"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()}
+            if times is not None:
+                frame["time"] = float(times[i])
+            frames.append(frame)
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 2 * float(np.arctan(W / (2 * focal))),
+                       "frames": frames}, f)
+    if not worst <= 1e-6:
+        raise SystemExit(f"[cli] the written transform_matrixes miss the scene's poses by "
+                         f"{worst}")
+    return worst
 
 
 CLI_ITERS = 300  # the CLI phase's first run: 25 epochs of the 12 views
+CLI_TILED_ITERS = 96  # its golden-grid run: 8 epochs
+
+
+def cli_tiledgrid_run(root: str, seed: int) -> dict:
+    """Run 4 of the CLI phase: `main_nerf --encoding tiledgrid --bg_radius 2
+    -O` for CLI_TILED_ITERS iterations on the dataset at `root`, in a fresh
+    workspace.  Checks that the loss falls, the validation PSNR is finite,
+    and that every backward adds the table gradients of the 16 levels and
+    of the background grid's 4 through scatter_add_any."""
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_nerf
+
+    ws_t = os.path.join(root, "ws_tiled")
+    argv_t = [root, "-O", "--workspace", ws_t, "--seed", str(seed), "--eval_interval", "10",
+              "--encoding", "tiledgrid", "--bg_radius", "2", "--iters", str(CLI_TILED_ITERS)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr4 = main_nerf.main(argv_t)
+    torch.cuda.synchronize()
+    dt4 = time.time() - t0
+    launches_t = {name: k.launches for name, k in kernels.KERNELS.items()}
+    losses_t = tr4.stats["loss"]
+    psnr_t = tr4.evaluate(tr4.valid_dataset)
+    log(f"[cli] run 4 (--encoding tiledgrid --bg_radius 2): {tr4.global_step} steps over "
+        f"{tr4.epoch} epochs in {dt4:.1f} s (evaluation, test renders and mesh included); "
+        f"epoch loss {losses_t[0]:.6f} -> {losses_t[-1]:.6f}; validation PSNR "
+        f"{psnr_t:.2f} dB; launches {launches_t}")
+    if not (np.isfinite(losses_t).all() and losses_t[-1] < losses_t[0]):
+        raise SystemExit(f"[cli] run 4: the loss did not fall: {losses_t}")
+    if not (np.isfinite(psnr_t) and type(tr4.model.encoder).__name__ == "GridEncoder"
+            and tr4.model.bg_radius == 2.0):
+        raise SystemExit(f"[cli] run 4: PSNR {psnr_t}, encoder "
+                         f"{type(tr4.model.encoder).__name__}, bg {tr4.model.bg_radius}")
+    per_step = tr4.model.encoder.spec.num_levels + tr4.model.encoder_bg.spec.num_levels
+    if launches_t["scatter_add_any"] != per_step * tr4.global_step:
+        raise SystemExit(f"[cli] run 4: scatter_add_any launched "
+                         f"{launches_t['scatter_add_any']} times, not {per_step} per step "
+                         f"over {tr4.global_step} steps")
+    return dict(dt_tiled=dt4, psnr_tiled=psnr_t, launches_tiled=launches_t,
+                levels_tiled=per_step, steps_tiled=tr4.global_step)
 
 
 def cli_phase(dev, ds, seed: int) -> dict:
@@ -502,50 +958,26 @@ def cli_phase(dev, ds, seed: int) -> dict:
     newest two plus the best one, every kernel of the path launched; that a
     second run with --ckpt latest resumes at the saved epoch and step with a
     first EMA render bitwise equal to the first run's last one and trains
-    on; and that --test writes PNG frames and a mesh with faces."""
+    on; that --test writes PNG frames and a mesh with faces; then the
+    golden-grid run with the background model (`cli_tiledgrid_run`)."""
     import shutil
     import tempfile
 
     from tngp_torch import kernels
     from tngp_torch.cli import main_nerf
-    from tngp_torch.data import nerf_matrix_to_ngp, orbit_poses
+    from tngp_torch.data import orbit_poses
     from tngp_torch.data.synthetic import make_blob_field, render_gt_images
-    from tngp_torch.train import Trainer
-    from tngp_torch.utils.image_io import write_png
 
-    scale = 0.33  # the CLI's default --scale
     root = tempfile.mkdtemp(prefix="tngp_cli_")
     try:
-        def ngp_to_nerf(p):
-            """The inverse of `nerf_matrix_to_ngp` at `scale`, zero offset."""
-            m = np.eye(4)
-            m[1, :3], m[1, 3] = [p[0, 0], -p[0, 1], -p[0, 2]], p[0, 3] / scale
-            m[2, :3], m[2, 3] = [p[1, 0], -p[1, 1], -p[1, 2]], p[1, 3] / scale
-            m[0, :3], m[0, 3] = [p[2, 0], -p[2, 1], -p[2, 2]], p[2, 3] / scale
-            return m
-
         H = W = ds.H
-        focal = float(ds.intrinsics[0])
         held = orbit_poses(4, radius=2.35, elevation=0.3)  # val and test views
         held_imgs = render_gt_images(make_blob_field(0, device=dev), held, ds.intrinsics, H, W,
                                      1.0, 512, device=dev)
-        worst = 0.0
-        for split, poses, imgs in (("train", ds.poses, ds.images), ("val", held, held_imgs),
-                                   ("test", held, held_imgs)):
-            os.makedirs(os.path.join(root, split))
-            frames = []
-            for i, (pose, img) in enumerate(zip(poses, imgs)):
-                write_png(os.path.join(root, split, f"r_{i}.png"),
-                          np.clip(np.rint(np.asarray(img) * 255), 0, 255).astype(np.uint8))
-                m = ngp_to_nerf(np.asarray(pose, np.float64))
-                worst = max(worst, float(np.abs(nerf_matrix_to_ngp(m, scale) - pose).max()))
-                frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": m.tolist()})
-            with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
-                json.dump({"camera_angle_x": 2 * float(np.arctan(W / (2 * focal))),
-                           "frames": frames}, f)
-        if not worst <= 1e-6:
-            raise SystemExit(f"[cli] the written transform_matrixes miss the scene's poses by "
-                             f"{worst}")
+        worst = write_blender_dataset(root, {"train": (ds.poses, ds.images, None),
+                                             "val": (held, held_imgs, None),
+                                             "test": (held, held_imgs, None)},
+                                      W, float(ds.intrinsics[0]))
         ws = os.path.join(root, "ws")
         argv = [root, "-O", "--workspace", ws, "--seed", str(seed), "--eval_interval", "10"]
         log(f"[cli] blender-format blob scene ({ds.num_frames} train, {len(held)} val and test "
@@ -586,30 +1018,9 @@ def cli_phase(dev, ds, seed: int) -> dict:
         end1 = (tr1.epoch, tr1.global_step)
         del tr1
 
-        # run 2: resume, its first render taken as train() begins
-        seen = {}
-        real_train = Trainer.train
-
-        def train_seen(self, max_epochs):
-            seen["at"] = (self.epoch, self.global_step)
-            seen["img"] = self.render_image(val_pose)[0]
-            return real_train(self, max_epochs)
-
-        Trainer.train = train_seen
-        try:
-            tr2 = main_nerf.main(argv + ["--iters", str(CLI_ITERS + 2 * ds.num_frames),
-                                         "--ckpt", "latest"])
-        finally:
-            Trainer.train = real_train
-        same = bool(np.array_equal(seen["img"], img_last))
-        log(f"[cli] run 2 (--ckpt latest): resumed at epoch {seen['at'][0]}, step "
-            f"{seen['at'][1]} (run 1 ended at {end1}); its first EMA render bitwise equal to run "
-            f"1's last: {same}; trained on to epoch {tr2.epoch}, step {tr2.global_step}")
-        if seen["at"] != end1 or not same:
-            raise SystemExit("[cli] the resumed run did not start where run 1 ended")
-        if tr2.global_step != end1[1] + 2 * ds.num_frames:
-            raise SystemExit(f"[cli] the resumed run did not train on: {tr2.global_step}")
-        del tr2
+        resumed_run("[cli]", lambda: main_nerf.main(
+            argv + ["--iters", str(CLI_ITERS + 2 * ds.num_frames), "--ckpt", "latest"]),
+            lambda tr: tr.render_image(val_pose)[0], img_last, end1, 2 * ds.num_frames)
 
         # --test: the test poses as PNG frames and a mesh
         tr3 = main_nerf.main(argv + ["--test"])
@@ -622,7 +1033,9 @@ def cli_phase(dev, ds, seed: int) -> dict:
             f"{n_faces} faces (epoch {tr3.epoch})")
         if len(frames) != len(held) or n_faces <= 0:
             raise SystemExit(f"[cli] --test wrote {len(frames)} frames and {n_faces} faces")
-        return dict(dt=dt1, psnr=results[-1], launches=launches, faces=n_faces)
+
+        run4 = cli_tiledgrid_run(root, seed)
+        return dict(dt=dt1, psnr=results[-1], launches=launches, faces=n_faces, **run4)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -669,6 +1082,7 @@ def main() -> int:
     from tngp_torch.train import Trainer
     from tngp_torch.utils import TrainConfig
 
+    t_run = time.time()
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -747,6 +1161,16 @@ def main() -> int:
     vals5 = torch.rand((M, 5), generator=gen).to(dev)
     err_comp, worst_comp = check_scatter_add(rid, vals5, N_RAYS, "sorted", "per-ray reduction")
     err_any, worst_any = check_scatter_add(rid, vals5, N_RAYS, "any", "per-ray inputs")
+    # the golden grid's table gradient: scatter_add_any at the shapes its
+    # backward gives it, each row within the reordering bound
+    hash_any = hash_any_inputs(dev, gen)
+    hash_any_err = {label: check_scatter_add(i_h, v_h, r_h, "any", f"hash grid {label}")
+                    for label, (i_h, v_h, r_h) in hash_any.items()}
+    log("[check] the golden grid's table-gradient scatters through scatter_add_any (C = 2): "
+        + "; ".join(f"{label} [{hash_any[label][1].shape[0]:,}] -> [{hash_any[label][2]:,}] "
+                    f"max|err| vs plain {e:.3g}, worst err/bound {w:.3f}"
+                    for label, (e, w) in hash_any_err.items())
+        + " (bound (n-1) 2^-24 sum|v| per row)")
     # the eval round update: Na = 1024 alive-ray slots, ascending, fill N - 1
     Na = N_RAYS // 4
     live = torch.nonzero(torch.rand(N_RAYS, generator=gen) < 0.2)[:Na, 0]
@@ -954,7 +1378,8 @@ def main() -> int:
     if min(launches_grid[n] for n in bench_grid_update.KERNELS) <= 0:
         raise SystemExit(f"a kernel of the grid-update path never launched: {launches_grid}")
     if args.profile:
-        net_g = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
+        net_g = NGPNetwork(encoding="hashgrid_window",
+                           bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
         dens_g = FieldFns.from_model(net_g).density
 
         def grid_update():
@@ -969,7 +1394,8 @@ def main() -> int:
                        time.time() - t0)
 
     # ---- 3. eval path, random weights: 800x800 frames ----------------------
-    model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
+    model = NGPNetwork(encoding="hashgrid_window",
+                       bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
     cfg = RenderConfig(bound=1.0, grid_size=GRID_SIZE, max_steps=512, K=128, min_near=0.05,
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True,
                        march_group=16)
@@ -1135,6 +1561,54 @@ def main() -> int:
                                                     W=R, H=R),
                        "one 800x800 eval frame, random weights", dt_rand)
 
+    # ---- 3b. one frame of NGP on the golden hash grid with the background --
+    t_3b = time.time()
+    cfg_h = dataclasses.replace(cfg, bg_radius=2.0)
+    model_h = NGPNetwork(encoding="hashgrid", bg_radius=2.0, compute_dtype=torch.bfloat16,
+                         device=dev, seed=args.seed)
+    tr_h = Trainer(model_h, ds, cfg_h, tc, device=dev, constant_lr=True)
+    tr_h.set_grid(trainer.grid)  # the blob scene's occupancy grid
+    tr_h.render_image(poses[0], use_ema=False, chunk=N_RAYS, W=R, H=R)  # warm-up
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img_h, dep_h = tr_h.render_image(poses[1], use_ema=False, chunk=N_RAYS, W=R, H=R)
+    dt_hash = time.time() - t0
+    launches_hash = {name: k.launches for name, k in info.items()}
+    st_h = dict(tr_h.last_render_stats)
+    with kernels.plain_versions():
+        img_hp, dep_hp = tr_h.render_image(poses[1], use_ema=False, chunk=N_RAYS, W=R, H=R)
+    d_i = np.abs(img_h - img_hp).max(axis=-1)
+    d_d = np.abs(dep_h - dep_hp)
+    n_tight = int(((d_i > 1e-4) | (d_d > 1e-3)).sum())
+    log(f"[eval-hash] NGP on the golden hash grid with the background model (bg_radius 2), "
+        f"random weights: one {R}x{R} frame through the frame renderer {dt_hash:.3f} s, "
+        f"{R * R / dt_hash:,.1f} rays/s; {st_h['rounds']} residual rounds at tiers "
+        f"{st_h['tiers']}, {st_h['host_reads']} host reads, {st_h['valid_samples']:,} valid "
+        f"samples; launches {launches_hash}; kernels vs plain: max|err| image "
+        f"{float(d_i.max()):.3g}, depth {float(d_d.max()):.3g}, {n_tight} pixels beyond image "
+        f"1e-4 or depth 1e-3 (at most {int(1e-4 * R * R)}, those within 1e-2); image range "
+        f"[{img_h.min():.4f}, {img_h.max():.4f}]; phase 3b wall {time.time() - t_3b:.1f} s")
+    if img_h.shape != (R, R, 3) or not np.isfinite(img_h).all():
+        raise SystemExit("golden-grid frame: not a finite [R, R, 3] image")
+    if n_tight > 1e-4 * R * R or float(d_i.max()) > 1e-2 or float(d_d.max()) > 1e-2:
+        raise SystemExit(f"golden-grid frame, kernels vs plain versions: {n_tight} pixels beyond "
+                         f"image 1e-4 or depth 1e-3, image {float(d_i.max())}, depth "
+                         f"{float(d_d.max())}")
+    if min(launches_hash[n] for n in ("scatter_add_unique", "scatter_add_sorted")) <= 0:
+        raise SystemExit(f"golden-grid frame: a kernel of the eval path never launched: "
+                         f"{launches_hash}")
+    # an eval frame takes no gradient: the table-gradient scatter stays idle
+    launches_any_frame = launches_hash["scatter_add_any"]
+    if launches_any_frame != 0:
+        raise SystemExit(f"golden-grid frame: scatter_add_any launched {launches_any_frame} "
+                         f"times in an eval frame (no backward runs there)")
+    if args.profile:
+        profile_device(lambda: tr_h.render_image(poses[2], use_ema=False, chunk=N_RAYS, W=R,
+                                                 H=R),
+                       "one 800x800 eval frame, golden hash grid with the background", dt_hash)
+    del tr_h, model_h
+
     # ---- 4. training path ---------------------------------------------------
     trainer.set_grid(grid0)
     torch.cuda.synchronize()
@@ -1169,21 +1643,7 @@ def main() -> int:
     # host syncs, counted over two further grid-update intervals (outside the
     # timed steps, so that the counting costs them nothing)
     reads0 = trainer.host_reads
-    step_syncs = []
-    with host_sync_log() as caught:
-        plain_step = trainer.train_step
-
-        def counted_step():
-            before = n_syncs(caught)
-            out = plain_step()
-            step_syncs.append(n_syncs(caught) - before)
-            return out
-
-        trainer.train_step = counted_step
-        n_before = n_syncs(caught)
-        trainer.run_steps(SYNC_STEPS)
-        syncs_total = n_syncs(caught) - n_before
-        trainer.train_step = plain_step
+    step_syncs, syncs_total = step_host_syncs(trainer, SYNC_STEPS)
     log(f"[train] host syncs over {SYNC_STEPS} further steps: inside train_step "
         f"{sum(step_syncs)} ({max(step_syncs)} max per step); at the 16-step boundaries "
         f"{syncs_total - sum(step_syncs)} syncs for {trainer.host_reads - reads0} tier reads")
@@ -1297,6 +1757,12 @@ def main() -> int:
 
     # ---- 6c. the NGP entry point (tngp_torch.cli.main_nerf) ---------------
     cli = cli_phase(dev, ds, args.seed)
+
+    # ---- 6d. D-NeRF at its defaults: the golden tiled grid ------------------
+    dd = dnerf_default_phase(dev, dn, args.seed, args.profile)
+
+    # ---- 6e. the D-NeRF entry point (tngp_torch.cli.main_dnerf) -------------
+    dcli = dnerf_cli_phase(dev, dn["dds"], args.seed)
 
     # ---- 7. timing at the paths' shapes ------------------------------------
     # per callable: ms (CUDA events around 20 back-to-back calls), host_us
@@ -1422,8 +1888,34 @@ def main() -> int:
             max_abs_err_frame_fill=err_fill, worst_err_over_bound_frame_fill=worst_fill)
     add_row("scatter_add_any", "any", launches_parity["scatter_add_any"], err_any, rid, vals5,
             N_RAYS, path="device parity", worst_err_over_bound=worst_any,
-            call="general indices (atomics): no caller on the training or eval path yet; "
-                 "timed on the per-ray reduction's inputs, the atomics' contended case")
+            call="general indices (atomics) on the per-ray reduction's inputs, the device-parity "
+                 "probe's case; its path's shapes are the golden grid's rows below")
+    # the golden grid's table gradient, one launch per level in each
+    # backward: D-NeRF's default (16 levels, phase 6d), the hyper variant
+    # (16), NGP on the tiled grid with the background (16 + 4, phase 6c's
+    # run 4).  Each row's `launches` counts its own level's launches in that
+    # run (one a step: the phases check every level's); the whole path's
+    # are under `launches_all_levels`.  An eval frame launches none
+    # (phase 3b's frame, `launches_per_frame`)
+    hyper = dd["variants"]["DNeRFHyperNetwork"]
+    for label, counts, levels, steps, path, what in (
+            ("level0_dense", dd["launches"], dd["levels"], DNERF_TIMED, "dnerf tiledgrid",
+             "level 0 of the default tiled grid (dense, 8 corners of a training step's 131,072 "
+             "samples into 4,920 rows, ~213 adds a row)"),
+            ("level15_wrapped", dd["launches"], dd["levels"], DNERF_TIMED, "dnerf tiledgrid",
+             "level 15 of the default tiled grid (8 corners into 2^19 wrapped rows)"),
+            ("hyper5d_level8", hyper["launches"], hyper["levels"], VARIANT_STEPS, "dnerf hyper",
+             "level 8 of the hyper variant's 5-D tiled grid (32 corners into 2^19 rows)"),
+            ("bg_level0", cli["launches_tiled"], cli["levels_tiled"], cli["steps_tiled"],
+             "ngp tiledgrid + bg cli",
+             "level 0 of the background's 2-D grid (4 corners x 4,096 rays into 296 rows)")):
+        i_h, v_h, r_h = hash_any[label]
+        e_h, w_h = hash_any_err[label]
+        total = counts["scatter_add_any"]
+        add_row(f"scatter_add_any_hash_{label}", "any", total // levels, e_h, i_h, v_h, r_h,
+                path=path, worst_err_over_bound=w_h, launches_per_step=total // levels // steps,
+                launches_all_levels=total, levels=levels, steps=steps,
+                launches_per_frame=launches_any_frame, call=f"golden-grid table gradient: {what}")
 
     # the backward kernel, on the inputs a training step gave it (captured
     # above), on uniform samples at the top tier and on the other inputs.
@@ -1533,7 +2025,11 @@ def main() -> int:
         f"{cli['faces']} faces; "
         f"D-NeRF {dnerf_rays_s:,.1f} train rays/s ({1e3 * dt_dnerf / DNERF_TIMED:.2f} ms/step, "
         f"{ratio:.3f}x the pinned NGP step of {1e3 * dt_ngp / DNERF_TIMED:.2f} ms), PSNR "
-        f"{psnr_d:.2f} dB over 12 views")
+        f"{psnr_d:.2f} dB over 12 views; golden grid: NGP frame with the background "
+        f"{R * R / dt_hash:,.1f} rays/s, D-NeRF default {dd['rays_s']:,.1f} train rays/s "
+        f"({1e3 * dd['dt'] / DNERF_TIMED:.2f} ms/step, PSNR {dd['psnr']:.2f} dB), "
+        f"D-NeRF CLI PSNR {dcli['psnr']:.2f} dB, NGP tiledgrid + bg CLI PSNR "
+        f"{cli['psnr_tiled']:.2f} dB; run wall {time.time() - t_run:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -84,7 +84,8 @@ def jax_run(tmp_path_factory):
 def _port_trainer(ds, ws, name="ck", **tc_kw):
     pds = NeRFDataset(poses=np.asarray(ds.poses), intrinsics=np.asarray(ds.intrinsics),
                       H=ds.H, W=ds.W, images=np.asarray(ds.images))
-    model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device="cpu", seed=1, **NET_KW)
+    model = NGPNetwork(encoding="hashgrid_window",
+                       bound=1.0, compute_dtype=torch.bfloat16, device="cpu", seed=1, **NET_KW)
     tc = TrainConfig(name=name, workspace=str(ws), iters=100, num_rays=128, **tc_kw)
     return Trainer(model, pds, RenderConfig(**CFG_KW), tc, device="cpu")
 

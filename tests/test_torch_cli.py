@@ -1,15 +1,27 @@
-"""The port's NGP entry point end to end on the CPU: `python -m
+"""The port's entry points end to end on the CPU: `python -m
 tngp_torch.cli.main_nerf synthetic` in a subprocess with
-`TNGP_PLATFORM=cpu` and tests/test_cli.py:41-46's flags, a second run that
-resumes from its checkpoint, and the options the port has not ported,
-which raise."""
+`TNGP_PLATFORM=cpu` and tests/test_cli.py:41-46's flags and a second run
+that resumes from its checkpoint; in the process, `main_nerf` on the golden
+tiled grid with the background model, and `tngp_torch.cli.main_dnerf` on
+the tiny dynamic blob scene (its default model, and `--hyper`), with resume
+and `--test`; and the options the port has not ported, which raise.
 
+The in-process runs keep the CLIs' flags but narrow the models (2 levels
+of 2^12 rows, hidden widths 16) and the occupancy grid (32^3, a time
+slice's for D-NeRF): `small_models` swaps them in, so that a full grid
+update and each checkpoint stay small on the CPU."""
+
+import functools
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
+
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: the in-process runs)
 
 ROOT = Path(__file__).resolve().parent.parent
 FLAGS = ["--num_rays", "128", "--max_steps", "48", "--sample_budget", "16", "--bound", "1.0",
@@ -44,9 +56,137 @@ def test_main_nerf_synthetic_trains_checkpoints_and_resumes(tmp_path):
     assert sorted(p.name for p in ck.glob("*.npz")) == ["ngp_ep0002.npz", "ngp_ep0003.npz"]
 
 
+DNERF_FLAGS = ["--time_size", "4", "--num_rays", "128", "--max_steps", "48", "--sample_budget",
+               "16", "--bound", "1.0", "--dt_gamma", "0", "--min_near", "0.05",
+               "--eval_interval", "100"]
+
+
+@pytest.fixture
+def small_models(monkeypatch):
+    """The CLIs in the process, on the CPU, at small width (module
+    docstring)."""
+    import tngp_torch.models as models
+    from tngp_torch.cli import common
+
+    monkeypatch.setenv("TNGP_PLATFORM", "cpu")
+    monkeypatch.setenv("TNGP_SYNTH", "4,32,32")
+    small = dict(num_levels=2, log2_hashmap_size=12, hidden_dim=16, hidden_dim_color=16)
+    for name, extra in (("DNeRFNetwork", dict(hidden_dim_deform=16, num_layers_deform=3)),
+                        ("DNeRFBasisNetwork", dict(hidden_dim_basis=16, num_layers_basis=3)),
+                        ("DNeRFHyperNetwork", dict(hidden_dim_ambient=16)),
+                        ("NGPNetwork", dict(hidden_dim_bg=16))):
+        monkeypatch.setattr(models, name, functools.partial(getattr(models, name),
+                                                            **small, **extra))
+    build = common.build_configs
+
+    def small_grid(opt):
+        import dataclasses
+
+        cfg, tc = build(opt)
+        return dataclasses.replace(cfg, grid_size=32), tc
+
+    monkeypatch.setattr(common, "build_configs", small_grid)
+
+
+def test_main_nerf_tiledgrid_with_background_trains(small_models, tmp_path):
+    """`--encoding tiledgrid --bg_radius 2`: the golden tiled grid and the
+    background model train for 4 iterations (their weights move), checkpoint
+    the background's weights and export a mesh."""
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.models import NGPNetwork
+    from tngp_torch.utils import msgpack_codec
+
+    ref = NGPNetwork(encoding="tiledgrid", bg_radius=2.0, device="cpu", seed=0)
+    tr = main_nerf.main(["synthetic", "--iters", "4", "--encoding", "tiledgrid", "--bg_radius",
+                         "2", *FLAGS[:-2], "--workspace", str(tmp_path / "ws")])
+    assert tr.global_step == 4 and tr.model.encoder.spec.gridtype == "tiled"
+    assert np.isfinite(tr.stats["loss"]).all() and tr.stats["loss"][0] > 0
+    for name in ("encoder.embeddings", "encoder_bg.embeddings", "bg_net.dense_0"):
+        assert not torch.equal(dict(tr.model.named_parameters())[name].detach(),
+                               dict(ref.named_parameters())[name].detach()), name
+    ck = tmp_path / "ws" / "checkpoints" / "ngp_ep0001.npz"
+    params = msgpack_codec.unpackb(ck.read_bytes())["params"]["params"]
+    assert params["encoder"]["embeddings"].shape == tuple(ref.encoder.embeddings.shape)
+    assert params["encoder_bg"]["embeddings"].shape == (697_776, 2)
+    assert set(params["bg_net"]) == {"dense_0", "dense_1"}
+    assert list((tmp_path / "ws" / "meshes").glob("*.ply"))
+
+
+def test_main_dnerf_trains_resumes_and_tests(small_models, tmp_path, monkeypatch):
+    """The default model (tiledgrid): 8 iterations (2 epochs of the 4 frames),
+    a checkpoint per epoch and a validation PSNR at the frames' times; then
+    `--ckpt latest` loads epoch 2 at step 8 with run 1's weights, EMA and
+    time grid bit for bit and trains epoch 3; `--test` writes PNG frames."""
+    from tngp_torch.cli import main_dnerf
+    from tngp_torch.models import DNeRFNetwork
+    from tngp_torch.train import DNeRFTrainer
+
+    ws = str(tmp_path / "ws")
+    tr1 = main_dnerf.main(["synthetic", "--iters", "8", "--workspace", ws, *DNERF_FLAGS])
+    assert isinstance(tr1.model, DNeRFNetwork.func) and tr1.model.encoder.spec.gridtype == "tiled"
+    assert (tr1.epoch, tr1.global_step) == (2, 8) and tr1.time_size == 4
+    assert tr1.grid.bitfield.shape == (4, 32**3 // 8)
+    losses = tr1.stats["loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    log = (tmp_path / "ws" / "log_ngp.txt").read_text()
+    psnr = float(log.split("[dnerf eval epoch 2]")[1].split("PSNR = ")[1].split()[0])
+    assert np.isfinite(psnr)
+    ck = tmp_path / "ws" / "checkpoints"
+    assert sorted(p.name for p in ck.glob("*.npz")) == ["ngp_ep0001.npz", "ngp_ep0002.npz"]
+    end1 = [p.detach().clone() for p in tr1.params] + [e.clone() for e in tr1.ema_params]
+    grid1 = tr1.grid.density_grid.clone()
+
+    seen = {}
+    real_train = DNeRFTrainer.train
+
+    def train_seen(self, max_epochs):
+        seen["at"] = (self.epoch, self.global_step)
+        seen["state"] = [p.detach().clone() for p in self.params] + [
+            e.clone() for e in self.ema_params]
+        seen["grid"] = self.grid.density_grid.clone()
+        return real_train(self, max_epochs)
+
+    monkeypatch.setattr(DNeRFTrainer, "train", train_seen)
+    tr2 = main_dnerf.main(["synthetic", "--iters", "12", "--ckpt", "latest", "--workspace", ws,
+                           *DNERF_FLAGS])
+    assert seen["at"] == (2, 8) and tr2.global_step == 12
+    assert all(torch.equal(a, b) for a, b in zip(seen["state"], end1))
+    assert torch.equal(seen["grid"], grid1)
+
+    main_dnerf.main(["synthetic", "--test", "--workspace", ws, *DNERF_FLAGS])
+    assert len(list((tmp_path / "ws" / "results").glob("*.png"))) == 4
+
+
+def test_main_dnerf_hyper_trains(small_models, tmp_path):
+    """`--hyper`: the 5-D tiled grid and the ambient net train (its weights
+    move: the encoder's position gradient reaches them)."""
+    from tngp_torch.cli import main_dnerf
+    from tngp_torch.models import DNeRFHyperNetwork
+
+    ws = str(tmp_path / "ws")
+    torch.manual_seed(0)
+    ref = DNeRFHyperNetwork(device="cpu", seed=0).ambient_net.dense_0.detach().clone()
+    tr = main_dnerf.main(["synthetic", "--hyper", "--iters", "4", "--workspace", ws,
+                          *DNERF_FLAGS])
+    assert tr.model.encoder.spec.input_dim == 5 and tr.global_step == 4
+    assert np.isfinite(tr.stats["loss"]).all()
+    assert not torch.equal(tr.model.ambient_net.dense_0.detach(), ref)
+
+
+def test_main_dnerf_options_that_raise(monkeypatch):
+    """`--gui` raises before anything is built, naming its ROADMAP item;
+    `--basis` with `--hyper` is a usage error."""
+    from tngp_torch.cli import main_dnerf
+
+    monkeypatch.setenv("TNGP_PLATFORM", "cpu")
+    with pytest.raises(NotImplementedError, match="not ported to tngp_torch yet .*ROADMAP"):
+        main_dnerf.main(["synthetic", "--gui"])
+    with pytest.raises(SystemExit):
+        main_dnerf.main(["synthetic", "--basis", "--hyper"])
+
+
 @pytest.mark.parametrize("flag", [["--gui"], ["--no_grid"], ["--error_map"],
                                   ["--rand_pose", "4", "--clip_text", "a chair"],
-                                  ["--encoding", "hashgrid"], ["--bg_radius", "2"],
                                   ["--profile", "prof"]])
 def test_unported_options_raise(monkeypatch, flag):
     """Each raises before anything is built, naming its ROADMAP item."""

@@ -27,7 +27,6 @@ move the encoder's positions with them: field outputs 2e-2, gradients 3e-2
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from tngp.models.dnerf import _freq_cf as jax_freq_cf
@@ -135,7 +134,15 @@ def test_converter_round_trip_and_unported_options():
     assert tnet.deform_net.dense_0.shape == (76, 8)
     assert tnet.sigma_net.dense_0.shape == (4 + 13 + 63, 8)
     assert tnet.color_net.dense_0.shape == (16 + 15, 8)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DNeRFNetwork(device="cpu")  # the default tiledgrid encoder
-    with pytest.raises(NotImplementedError):
-        DNeRFNetwork(encoding="hashgrid_window", bg_radius=1.0, device="cpu")
+    # the defaults: the tiled golden grid at the JAX width (16 levels x 2,
+    # 2^19 rows a level, 6,119,864 rows), position gradients on; the
+    # background model's 2-D grid (4 levels, 697,776 rows) and 2x64 MLP
+    dnet = DNeRFNetwork(device="cpu")
+    spec = dnet.encoder.spec
+    assert (spec.gridtype, spec.num_levels, spec.level_dim, spec.input_grad) == (
+        "tiled", 16, 2, True)
+    assert dnet.encoder.embeddings.shape == (6_119_864, 2)
+    assert dnet.sigma_net.dense_0.shape == (32 + 13 + 63, 64)
+    bnet = DNeRFNetwork(encoding="hashgrid_window", bg_radius=1.0, device="cpu")
+    assert bnet.encoder_bg.embeddings.shape == (697_776, 2)
+    assert bnet.bg_net.dense_0.shape == (16 + 8, 64) and bnet.bg_net.dense_1.shape == (64, 3)

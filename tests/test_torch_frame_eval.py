@@ -48,7 +48,7 @@ def scene():
     emb = params["params"]["encoder"]["embeddings"]
     params["params"]["encoder"]["embeddings"] = np.random.default_rng(0).normal(
         0, 0.1, emb.shape).astype(np.float32)
-    tnet = NGPNetwork(compute_dtype=torch.bfloat16, device="cpu", **NET_KW)
+    tnet = NGPNetwork(encoding="hashgrid_window", compute_dtype=torch.bfloat16, device="cpu", **NET_KW)
     tnet.load_state_dict(ngp_state_dict_from_flax(params))
     ax = (np.arange(GRID) + 0.5) / GRID * 2.0 - 1.0
     gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
@@ -135,7 +135,7 @@ def test_trainer_render_image_goes_through_the_frame_renderer(scene):
     from tngp_torch.train import Trainer
     from tngp_torch.utils import TrainConfig
 
-    tnet = NGPNetwork(compute_dtype=torch.bfloat16, device="cpu", **NET_KW)
+    tnet = NGPNetwork(encoding="hashgrid_window", compute_dtype=torch.bfloat16, device="cpu", **NET_KW)
     tnet.load_state_dict(ngp_state_dict_from_flax(scene["params"]))
     pose = orbit_poses(1, radius=2.5, elevation=0.3)
     intr = np.array([1.2 * FRAME_W, 1.2 * FRAME_W, FRAME_W / 2, FRAME_H / 2], np.float32)

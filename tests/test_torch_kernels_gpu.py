@@ -240,7 +240,8 @@ def test_train_step_gradients_through_kernels_match_plain_path(cuda):
 
     cfg = RenderConfig(bound=1.0, grid_size=32, max_steps=64, K=16, min_near=0.05,
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True)
-    model = NGPNetwork(num_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12,
+    model = NGPNetwork(encoding="hashgrid_window",
+                       num_levels=4, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12,
                        device=cuda)
     with torch.no_grad():
         model.encoder.embeddings.normal_(0, 0.3)
@@ -608,3 +609,71 @@ def test_input_gradient_kernel_with_no_samples_and_in_a_cuda_graph(cuda):
     assert graph_replay_ms(dx) > 0
     assert torch.equal(out["x"], kw.window_encode_dx(xyz4, wob, table, g_sorted, spec,
                                                      kw.DEFAULT_BLOCK))
+
+
+def _reordering_bound_holds(got, idx, vals, rows):
+    """Each row of `got` within (n - 1) 2^-24 sum|v| of the exact (f64)
+    sum of its n entries."""
+    C = vals.shape[1]
+    exact = torch.zeros((rows, C), dtype=torch.float64, device=vals.device).index_add_(
+        0, idx, vals.double())
+    sabs = torch.zeros((rows, C), dtype=torch.float64, device=vals.device).index_add_(
+        0, idx, vals.double().abs())
+    n = torch.bincount(idx, minlength=rows).double()[:, None]
+    return bool(((got.double() - exact).abs() <= (n - 1).clamp(min=0) * 2.0**-24 * sabs).all())
+
+
+@pytest.mark.gpu
+def test_hash_grid_vjp_matches_plain(cuda):
+    """The golden grid's encode and backward on the card (a 3-D tiled spec
+    of 4 levels, x01 in [-0.06, 1.06]) against the same inside
+    `plain_versions()`: the forward and the input gradient are the same
+    torch ops in both (equal to 1e-6); the table gradient goes through
+    `scatter_add_any` once per level, within the f32 reordering bound of
+    the exact sum, and matches the plain one to rtol 1e-5, atol 1e-6."""
+    from tngp_torch import kernels
+    from tngp_torch.ops import hashgrid as hg
+
+    spec = hg.HashGridSpec.create(num_levels=4, log2_hashmap_size=12, desired_resolution=256,
+                                  gridtype="tiled")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-0.06, 1.06, (3, 20_000)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(spec.total_params, 2)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(8, 20_000)).astype(np.float32)).to(cuda)
+
+    def run():
+        xt, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        out = hg.hash_encode_cf_vjp(xt, tt, spec)
+        (out * g).sum().backward()
+        return out.detach(), xt.grad, tt.grad
+
+    kernels.reset_launch_counts()
+    out_k, gx_k, gt_k = run()
+    assert kernels.KERNELS["scatter_add_any"].launches == spec.num_levels
+    with kernels.plain_versions():
+        out_p, gx_p, gt_p = run()
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=1e-6)
+    torch.testing.assert_close(gx_k, gx_p, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gt_k, gt_p, rtol=1e-5, atol=1e-6)
+    oob = ((x < 0) | (x > 1)).any(dim=0)
+    assert not bool(gx_k[:, oob].any())
+
+
+@pytest.mark.gpu
+def test_scatter_add_any_at_level_zero_contention(cuda):
+    """The table gradient's coarsest level at a training step's width: 8
+    corners x 131,072 samples into the 4,920 rows of level 0 of the default
+    spec (~213 adds a row), C = 2, within the reordering bound."""
+    from tngp_torch.ops import hashgrid as hg
+
+    spec = hg.HashGridSpec.create(desired_resolution=2048, gridtype="tiled")
+    rows = spec.offsets[1]
+    assert rows == 4920
+    x = torch.rand((3, 131_072), generator=torch.Generator(device=cuda).manual_seed(0),
+                   device=cuda)
+    idx, w, _, _ = hg._level_geometry(spec, 0, x)
+    vals = (w[:, :, None] * torch.randn((1, 131_072, 2), device=cuda)).reshape(-1, 2)
+    idx = idx.reshape(-1)
+    got = ks.scatter_add(idx, vals, rows, indices="any")
+    assert _reordering_bound_holds(got, idx, vals, rows)
+    torch.testing.assert_close(got, ks.scatter_add_plain(idx, vals, rows), rtol=1e-4, atol=1e-4)

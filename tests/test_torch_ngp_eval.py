@@ -34,7 +34,7 @@ def nets():
     noise = np.random.default_rng(0).normal(0, 0.5, emb.shape).astype(np.float32)
     params = jax.tree_util.tree_map(np.asarray, params)
     params["params"]["encoder"]["embeddings"] = noise
-    tnet = NGPNetwork(compute_dtype=torch.bfloat16, device="cpu", **NET_KW)
+    tnet = NGPNetwork(encoding="hashgrid_window", compute_dtype=torch.bfloat16, device="cpu", **NET_KW)
     tnet.load_state_dict(ngp_state_dict_from_flax(params))
     return jnet, params, tnet
 

@@ -111,7 +111,8 @@ def test_grid_update_bench_stages_on_a_small_network():
 
     Hs = 16
     H3, N = Hs**3, Hs**3 // 4
-    model = NGPNetwork(num_levels=2, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12,
+    model = NGPNetwork(encoding="hashgrid_window",
+                       num_levels=2, hidden_dim=16, hidden_dim_color=16, log2_hashmap_size=12,
                        device="cpu", seed=0)
     field = FieldFns.from_model(model)
     gen = torch.Generator().manual_seed(1)

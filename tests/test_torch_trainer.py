@@ -156,7 +156,7 @@ def test_trainer_trains_and_a_step_reads_nothing_back(monkeypatch):
     tensors only and never on the card, are not device reads and are left
     out)."""
     ds = make_synthetic_dataset(n_frames=4, H=32, W=32, seed=0, num_steps=64, device="cpu")
-    model = NGPNetwork(compute_dtype=torch.float32, device="cpu", **NET_KW)
+    model = NGPNetwork(encoding="hashgrid_window", compute_dtype=torch.float32, device="cpu", **NET_KW)
     cfg = RenderConfig(**CFG_KW)
     tr = Trainer(model, ds, cfg, TrainConfig(num_rays=N_RAYS, iters=1000), device="cpu")
     assert tr.tier_M == 512 and tr._tier_M == [128, 256, 512, 1024]
@@ -222,7 +222,7 @@ def test_set_grid_installs_the_grid_and_rebuilds_the_dilated_grid():
     from tngp_torch.render import OccupancyGrid, cell_centers_cf, dilated_chunk_grid
 
     ds = make_synthetic_dataset(n_frames=2, H=16, W=16, seed=0, num_steps=32, device="cpu")
-    model = NGPNetwork(compute_dtype=torch.float32, device="cpu", **NET_KW)
+    model = NGPNetwork(encoding="hashgrid_window", compute_dtype=torch.float32, device="cpu", **NET_KW)
     cfg = RenderConfig(**CFG_KW)
     tr = Trainer(model, ds, cfg, TrainConfig(num_rays=N_RAYS, iters=1000), device="cpu")
     before = tr._dgrid.clone()

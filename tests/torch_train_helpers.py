@@ -68,7 +68,7 @@ def nets(dtype_name):
     # a table scale that moves the density (the init is U(+-1e-4))
     params["params"]["encoder"]["embeddings"] = np.random.default_rng(1).normal(
         0, 0.3, emb.shape).astype(np.float32)
-    tnet = NGPNetwork(compute_dtype=tdt, device="cpu", **NET_KW)
+    tnet = NGPNetwork(encoding="hashgrid_window", compute_dtype=tdt, device="cpu", **NET_KW)
     tnet.load_state_dict(ngp_state_dict_from_flax(params))
     return jnet, params, tnet
 

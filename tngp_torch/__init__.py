@@ -12,9 +12,13 @@ frame renderer `render.FrameRenderer`) and training step
 (`render.render_rays_train`, `train.Trainer` with checkpoints in the JAX
 package's format), its entry point (`python -m tngp_torch.cli.main_nerf`:
 the transforms.json loader, training, validation, test renders and mesh
-export), and D-NeRF training on the window encoder (`models.DNeRFNetwork`,
-`train.DNeRFTrainer`); `diagnostics.device_parity` holds the kernels against
-independent plain versions on the card.
+export), the golden hash/tiled grid (`ops.hashgrid`, `encoders.GridEncoder`,
+the models' default encoder, whose table gradient is the general scatter-add
+kernel) with NGP's background model, D-NeRF training on either grid
+(`models.DNeRFNetwork` and the `--basis` / `--hyper` variants,
+`train.DNeRFTrainer`) and its entry point (`python -m
+tngp_torch.cli.main_dnerf`); `diagnostics.device_parity` holds the kernels
+against independent plain versions on the card.
 """
 
 __version__ = "0.1.0"

@@ -105,9 +105,6 @@ def check_ported(opt) -> None:
         (opt.error_map, "--error_map", "queue 1 item 4 (the error map)"),
         (opt.rand_pose > 0 or opt.clip_text is not None, "--rand_pose/--clip_text",
          "queue 1 item 13 (CLIP guidance)"),
-        (getattr(opt, "encoding", "hashgrid_window") != "hashgrid_window",
-         f"--encoding {getattr(opt, 'encoding', '')}", "queue 1 item 6 (the golden hash grid)"),
-        (opt.bg_radius > 0, "--bg_radius > 0", "queue 1 item 5 (sph_from_ray and the bg model)"),
         (bool(opt.profile), "--profile", "queue 1 item 4 (--profile)"),
     ]
     for is_set, flag, item in unported:
@@ -165,19 +162,21 @@ def build_configs(opt) -> tuple[RenderConfig, TrainConfig]:
     return cfg, tc
 
 
-def load_dataset(opt, split: str, device="cuda"):
+def load_dataset(opt, split: str, device="cuda", with_time: bool = False):
     """The split of the dataset at `opt.path`; 'synthetic' renders the blob
     scene on `device` (`TNGP_SYNTH=frames,H,W` sizes it, 16,128,128 by
-    default) and serves it for every split."""
+    default; its dynamic version with `with_time`) and serves it for every
+    split.  `with_time` reads each frame's `time` (D-NeRF)."""
     from ..data.provider import NeRFDataset
 
     if opt.path == "synthetic":
         spec = os.environ.get("TNGP_SYNTH", "16,128,128").split(",")
         nf, H, W = (int(x) for x in spec)
-        from ..data.synthetic import make_synthetic_dataset
+        from ..data.synthetic import make_synthetic_dataset, make_synthetic_dynamic_dataset
 
-        return make_synthetic_dataset(n_frames=nf, H=H, W=W, device=device)
+        make = make_synthetic_dynamic_dataset if with_time else make_synthetic_dataset
+        return make(n_frames=nf, H=H, W=W, device=device)
     return NeRFDataset.load(
         opt.path, split=split, downscale=opt.downscale, scale=opt.scale,
-        offset=tuple(opt.offset), use_error_map=opt.error_map,
+        offset=tuple(opt.offset), use_error_map=opt.error_map, with_time=with_time,
     )

@@ -24,7 +24,7 @@ def main(argv=None):
     add_common_args(p)
     p.add_argument("--encoding", type=str, default="hashgrid_window",
                    choices=["hashgrid_window", "hashgrid", "tiledgrid"],
-                   help="position encoder; the port has hashgrid_window")
+                   help="position encoder: the windowed grid, or the golden hash/tiled grid")
     p.add_argument("--gui", action="store_true", help="launch the web viewer (not ported yet)")
     p.add_argument("--gui_port", type=int, default=7860)
     p.add_argument("--mesh_resolution", type=int, default=256)

@@ -14,11 +14,12 @@ from .render.occupancy import OccupancyGrid, TimeOccupancyGrid
 
 
 def ngp_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
-    """{'params': {'encoder': {'embeddings': [NW, C, 128, 64]},
+    """{'params': {'encoder': {'embeddings': [NW, C, 128, 64] or [T, C]},
     'sigma_net': {'dense_i': [in, out]}, 'color_net': {...}}} (the outer
     'params' level is optional) -> {'encoder.embeddings': ..., ...}.  Every
-    MLP of the tree maps the same way, so D-NeRF's `deform_net` comes along
-    (`DNeRFNetwork` has the NGP names plus `deform_net.dense_i`)."""
+    submodule of the tree maps the same way, so the window and the flat
+    golden tables, the background's `encoder_bg` and `bg_net`, and D-NeRF's
+    `deform_net`, `basis_net` and `ambient_net` come along."""
     tree = params.get("params", params)
     out = {}
     for net, leaves in tree.items():
@@ -28,7 +29,7 @@ def ngp_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def flax_params_from_ngp_state_dict(state_dict: Mapping) -> dict:
-    """The inverse of `ngp_state_dict_from_flax` (NGP and D-NeRF names):
+    """The inverse of `ngp_state_dict_from_flax` (every model's names):
     {'params': {...}} with numpy leaves."""
     tree: dict = {}
     for key, value in state_dict.items():

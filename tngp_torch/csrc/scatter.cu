@@ -46,8 +46,9 @@
 //          max_steps) and padding is given an out-of-range row.  With few
 //          entries per row (the round update: 1024 into 4096 rows) the
 //          search's dependent loads bound it, not bytes.
-//  any     (`tngp_scatter_add_any_f32`; general indices, for later
-//          callers): the unique form's threads, each adding its chunk with
+//  any     (`tngp_scatter_add_any_f32`; general indices: the golden hash
+//          grid's table gradient, one launch per level, C = 2, so float2
+//          atomics): the unique form's threads, each adding its chunk with
 //          a vector atomic (sm_90's atomicAdd on float4 / float2 in global
 //          memory: one atomic per 16 bytes) into the memset output.
 //          Repeated rows are added in the order the atomics land: within

@@ -172,7 +172,8 @@ def main(device="cuda", seed: int = 0) -> BenchReport:
     H3, N = H**3, H**3 // 4
     with torch.cuda.device(device):
         print(f"# device: {torch.cuda.get_device_name(device)}", flush=True)
-        model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=device, seed=seed)
+        model = NGPNetwork(encoding="hashgrid_window",
+                           bound=1.0, compute_dtype=torch.bfloat16, device=device, seed=seed)
         field = FieldFns.from_model(model)
         gen = torch.Generator(device=device).manual_seed(seed + 1)
         grid = occupied_grid(H, gen)

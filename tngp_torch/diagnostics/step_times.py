@@ -76,7 +76,8 @@ def main(seed: int = 0, profile: bool = False) -> int:
 
     dev = torch.device("cuda")
     ds = make_synthetic_dataset(n_frames=12, H=128, W=128, seed=0, device=dev)
-    model = NGPNetwork(bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed)
+    model = NGPNetwork(encoding="hashgrid_window",
+                       bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=seed)
     cfg = RenderConfig(bound=1.0, grid_size=128, max_steps=512, K=128, min_near=0.05,
                        compact_fraction=0.25, density_thresh=1.0, march_dense=True)
     tc = TrainConfig(num_rays=4096, lr=1e-2, seed=seed, adaptive_overdrive=False,

@@ -1,3 +1,11 @@
-from .modules import FreqEncoder, SHEncoder, WindowGridEncoder, get_encoder
+from .modules import (
+    FreqEncoder,
+    GridEncoder,
+    IdentityEncoder,
+    SHEncoder,
+    WindowGridEncoder,
+    get_encoder,
+)
 
-__all__ = ["FreqEncoder", "SHEncoder", "WindowGridEncoder", "get_encoder"]
+__all__ = ["FreqEncoder", "GridEncoder", "IdentityEncoder", "SHEncoder", "WindowGridEncoder",
+           "get_encoder"]

@@ -1,9 +1,10 @@
-"""Encoder modules and the `get_encoder` factory — the port of the names of
-`tngp/encoders/modules.py` that the NGP and D-NeRF paths use:
+"""Encoder modules and the `get_encoder` factory — the port of
+`tngp/encoders/modules.py`: `hashgrid` / `tiledgrid` (the golden hash grid,
+`GridEncoder`, with position gradients unless `input_grad=False`),
 `hashgrid_window` (the windowed grid encoder, with position gradients on
-request), the spherical-harmonics direction encoder and the frequency
-encoder.  `hashgrid` / `tiledgrid` (the golden hash grid) wait for ROADMAP
-item 11.
+request), the spherical-harmonics direction encoder, the frequency encoder
+and the identity.  The Minkowski point-cloud encoders raise, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -15,8 +16,36 @@ from torch import nn
 
 from ..kernels.window_encoder import DEFAULT_BLOCK, window_encode_binned
 from ..ops.freq import freq_encode_cf, freq_output_dim
+from ..ops.hashgrid import HashGridSpec, hash_encode, hash_encode_cf_vjp
 from ..ops.sh import sh_encode_cf
 from ..ops.window_table import WindowSpec
+
+
+class GridEncoder(nn.Module):
+    """Multiresolution hash/tiled grid encoder.  The trainable parameter
+    `embeddings` is the flat table [total_params, C] f32; `cf` is the
+    channels-first path (`[D, B]` -> `[L*C, B]`) whose backward adds the
+    table gradient through the `scatter_add_any` kernel on the card;
+    calling the module is batch-first (`[..., D]` -> `[..., L*C]`)."""
+
+    def __init__(self, spec: HashGridSpec, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.spec = spec
+        self.embeddings = nn.Parameter(spec.init_table(generator, device))
+
+    @property
+    def output_dim(self) -> int:
+        return self.spec.output_dim
+
+    def forward(self, x: torch.Tensor, bound: float = 1.0) -> torch.Tensor:
+        # inputs in [-bound, bound] -> [0, 1] (grid.py:807)
+        x01 = (x + bound) / (2.0 * bound)
+        return hash_encode(x01, self.embeddings, self.spec)
+
+    def cf(self, x_cf: torch.Tensor, bound: float = 1.0) -> torch.Tensor:
+        x01 = (x_cf + bound) / (2.0 * bound)
+        return hash_encode_cf_vjp(x01, self.embeddings, self.spec)
 
 
 class WindowGridEncoder(nn.Module):
@@ -59,6 +88,22 @@ class SHEncoder(nn.Module):
         return sh_encode_cf(d_cf, self.degree)
 
 
+class IdentityEncoder(nn.Module):
+    def __init__(self, input_dim: int = 3):
+        super().__init__()
+        self.input_dim = input_dim
+
+    @property
+    def output_dim(self) -> int:
+        return self.input_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def cf(self, x_cf: torch.Tensor) -> torch.Tensor:
+        return x_cf
+
+
 class FreqEncoder(nn.Module):
     """Frequency encoding with `degree` octaves (bands 2^0 .. 2^(degree-1))."""
 
@@ -88,12 +133,16 @@ def get_encoder(
     desired_resolution: int = 2048,
     align_corners: bool = False,
     interpolation: str = "linear",
+    input_grad: bool = True,
     device="cuda",
     generator: torch.Generator | None = None,
     input_grads: bool = False,
 ) -> Tuple[nn.Module, int]:
-    """Name -> (module, output_dim) for the encoders this port has.
-    `input_grads` asks the window encoder for position gradients."""
+    """Name -> (module, output_dim), as the JAX factory.  `input_grad`
+    (default on) gives the golden grid's backward its position gradient;
+    `input_grads` (default off) asks the window encoder for one."""
+    if encoding in (None, "None", "none"):
+        return IdentityEncoder(input_dim=input_dim), input_dim
     if encoding == "frequency":
         enc = FreqEncoder(degree=multires, input_dim=input_dim)
         return enc, enc.output_dim
@@ -116,7 +165,21 @@ def get_encoder(
                                 input_grads=input_grads)
         return enc, spec.output_dim
     if encoding in ("hashgrid", "tiledgrid"):
+        spec = HashGridSpec.create(
+            input_dim=input_dim,
+            num_levels=num_levels,
+            level_dim=level_dim,
+            base_resolution=base_resolution,
+            log2_hashmap_size=log2_hashmap_size,
+            desired_resolution=desired_resolution,
+            gridtype="hash" if encoding == "hashgrid" else "tiled",
+            align_corners=align_corners,
+            interpolation=interpolation,
+            input_grad=input_grad,
+        )
+        return GridEncoder(spec, device=device, generator=generator), spec.output_dim
+    if "minkowski" in str(encoding) or encoding in ("hashgrid_geo", "ash"):
         raise NotImplementedError(
-            f"encoder '{encoding}' (the golden hash grid) is not ported yet: ROADMAP item 11; "
-            "use 'hashgrid_window'")
-    raise NotImplementedError(f"encoder '{encoding}' is not ported yet")
+            f"encoder '{encoding}' is a point-cloud encoder (MinkowskiEngine-based), "
+            "which the JAX package does not build either")
+    raise ValueError(f"unknown encoding: {encoding}")

@@ -14,8 +14,9 @@ only which CUDA form computes it:
   per-ray reduction, `ops/composite.py`, and the eval render's per-round
   state update, `render/renderer.py`).  A deterministic segmented reduce,
   bitwise the same on every run.
-- `"any"`: general indices.  Vector atomics: f32 reordering error, not
-  bitwise reproducible.
+- `"any"`: general indices (the golden hash grid's table gradient, one
+  call per level, `ops/hashgrid.py`).  Vector atomics: f32 reordering
+  error, not bitwise reproducible.
 
 The plain version computes the same `index_add_` for every statement and,
 for a CPU tensor, checks the statement: a repeated index under "unique" or

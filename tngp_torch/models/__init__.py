@@ -1,5 +1,5 @@
 from .common import MLP
-from .dnerf import DNeRFNetwork
+from .dnerf import DNeRFBasisNetwork, DNeRFHyperNetwork, DNeRFNetwork
 from .ngp import NGPNetwork
 
-__all__ = ["MLP", "DNeRFNetwork", "NGPNetwork"]
+__all__ = ["MLP", "DNeRFBasisNetwork", "DNeRFHyperNetwork", "DNeRFNetwork", "NGPNetwork"]

@@ -1,7 +1,10 @@
-"""Occupancy bitfield packing and probing — the port of
-`tngp/ops/grid_utils.py` `packbits` and `bitfield_probe`.  Cells are in
-linear order (cell = (ix*H + iy)*H + iz); cell i is bit (1 << (i & 7)) of
-byte i >> 3, the CUDA reference's convention."""
+"""Occupancy-grid utility ops — the port of `tngp/ops/grid_utils.py`:
+`packbits`, `bitfield_probe`, and the Morton codes `morton3d` /
+`morton3d_invert` (kept for tooling and converting reference checkpoints;
+the grid itself is linear, as in the JAX package).  Cells are in linear
+order (cell = (ix*H + iy)*H + iz); cell i is bit (1 << (i & 7)) of byte
+i >> 3, the CUDA reference's convention.  The Morton codes' uint32
+arithmetic is int64 masked to 32 bits after every multiply."""
 
 from __future__ import annotations
 
@@ -28,3 +31,38 @@ def bitfield_probe(bitfield: torch.Tensor, cell_index: torch.Tensor) -> torch.Te
     w = words[idx >> 5]
     bit = (w >> (idx & 31).to(torch.int32)) & 1
     return bit.to(torch.bool)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _expand_bits(v: torch.Tensor) -> torch.Tensor:
+    v = ((v * 0x00010001) & _M32) & 0xFF0000FF
+    v = ((v * 0x00000101) & _M32) & 0x0F00F00F
+    v = ((v * 0x00000011) & _M32) & 0xC30C30C3
+    v = ((v * 0x00000005) & _M32) & 0x49249249
+    return v
+
+
+def morton3d(coords: torch.Tensor) -> torch.Tensor:
+    """[..., 3] integer coords (10 bits each) -> [...] Morton codes, uint32
+    values in int64."""
+    c = coords.long() & _M32
+    return (_expand_bits(c[..., 0]) | (_expand_bits(c[..., 1]) << 1)
+            | (_expand_bits(c[..., 2]) << 2)) & _M32
+
+
+def _compact_bits(x: torch.Tensor) -> torch.Tensor:
+    x = x & 0x49249249
+    x = (x | (x >> 2)) & 0xC30C30C3
+    x = (x | (x >> 4)) & 0x0F00F00F
+    x = (x | (x >> 8)) & 0xFF0000FF
+    x = (x | (x >> 16)) & 0x0000FFFF
+    return x
+
+
+def morton3d_invert(codes: torch.Tensor) -> torch.Tensor:
+    """[...] Morton codes -> [..., 3] int32 coords."""
+    c = codes.long() & _M32
+    return torch.stack([_compact_bits(c), _compact_bits(c >> 1), _compact_bits(c >> 2)],
+                       dim=-1).to(torch.int32)

@@ -1,9 +1,11 @@
-"""Ray/AABB intersection — the port of `tngp/ops/rays.py`
-`near_far_from_aabb` (slab test, min_near clamp, miss -> +big)."""
+"""Ray utility ops — the port of `tngp/ops/rays.py`: `near_far_from_aabb`
+(slab test, min_near clamp, miss -> +big) and `sph_from_ray` (the
+background sphere's coordinates)."""
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -43,3 +45,23 @@ def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb,
     near = torch.where(miss, big, near)
     far = torch.where(miss, big, far)
     return near.to(rays_o.dtype), far.to(rays_o.dtype)
+
+
+def sph_from_ray(rays_o: torch.Tensor, rays_d: torch.Tensor, radius: float) -> torch.Tensor:
+    """Intersect rays with the background sphere ||o + t d|| = radius (the
+    larger root) and return [..., 2] (theta, phi) normalised to [-1, 1]
+    (y up).  Element-wise f32 throughout: no matrix product, so TF32 never
+    enters."""
+    o = rays_o.float()
+    d = rays_d.float()
+    A = (d * d).sum(dim=-1)
+    B = (o * d).sum(dim=-1)
+    C = (o * o).sum(dim=-1) - radius * radius
+    t = (-B + torch.sqrt(torch.clamp(B * B - A * C, min=0.0))) / A
+    p = o + t[..., None] * d
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    theta = torch.atan2(torch.sqrt(x * x + z * z), y)  # [0, pi)
+    phi = torch.atan2(z, x)  # [-pi, pi)
+    inv_pi = 1.0 / math.pi
+    out = torch.stack([2.0 * theta * inv_pi - 1.0, phi * inv_pi], dim=-1)
+    return out.to(rays_o.dtype)

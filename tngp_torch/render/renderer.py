@@ -35,7 +35,7 @@ from ..ops.march import (
     march_rays_chunked,
     nonzero_static,
 )
-from ..ops.rays import near_far_from_aabb
+from ..ops.rays import near_far_from_aabb, sph_from_ray
 from ..ops.sampling import sample_pdf
 
 
@@ -90,6 +90,7 @@ class FieldFns(NamedTuple):
     """Functional field interface, channels-first:
     sigma_rgb: (params, x_cf[3,B], d_cf[3,B]) -> (sigma[B], rgb_cf[3,B])
     density:   (params, x_cf[3,B]) -> sigma[B]
+    background:(params, sph_cf[2,B], d_cf[3,B]) -> rgb_cf[3,B], or None
     `params` is passed through for analytic fields; an nn.Module field
     holds its own weights and ignores it."""
 
@@ -99,12 +100,15 @@ class FieldFns(NamedTuple):
 
     @staticmethod
     def from_model(model) -> "FieldFns":
-        """Wrap an nn.Module exposing sigma_rgb_cf / density_cf."""
+        """Wrap an nn.Module exposing sigma_rgb_cf / density_cf, and
+        background_cf when its `bg_radius` > 0."""
+        bg = None
         if getattr(model, "bg_radius", -1.0) > 0:
-            raise NotImplementedError("the background model is not ported yet")
+            bg = lambda p, sph_cf, d_cf: model.background_cf(sph_cf, d_cf)  # noqa: E731
         return FieldFns(
             sigma_rgb=lambda p, x_cf, d_cf: model.sigma_rgb_cf(x_cf, d_cf),
             density=lambda p, x_cf: model.density_cf(x_cf)["sigma"],
+            background=bg,
         )
 
 
@@ -125,9 +129,12 @@ def dilated_chunk_grid(bitfield: torch.Tensor, cfg: RenderConfig):
 
 
 def _resolve_bg(field: FieldFns, params, rays_o, rays_d, cfg: RenderConfig, bg_color):
-    """Constant background only (the bg model is not ported yet)."""
+    """The background behind each ray: the field's background model at the
+    rays' background-sphere coordinates ([N, 3]) when cfg.bg_radius > 0 and
+    the field has one, else `bg_color` (None -> 1.0)."""
     if cfg.bg_radius > 0 and field.background is not None:
-        raise NotImplementedError("the background model is not ported yet")
+        sph = sph_from_ray(rays_o, rays_d, cfg.bg_radius)
+        return field.background(params, sph.T, rays_d.T).T  # [N, 3]
     if bg_color is None:
         return torch.ones((), dtype=torch.float32, device=rays_o.device)
     return torch.as_tensor(bg_color, dtype=torch.float32, device=rays_o.device)

@@ -1,7 +1,10 @@
 """D-NeRF trainer — the port of `tngp/train/dnerf_trainer.py`
-`DNeRFTrainer` for `DNeRFNetwork`: each step renders at its frame's time
-through that time's slice of the time-extended occupancy grid, and adds
-`deform_reg * mean|dx|` to the loss.
+`DNeRFTrainer`, model-generic as the JAX trainer: `DNeRFNetwork` and the
+`--basis` / `--hyper` variants (`DNeRFBasisNetwork`, `DNeRFHyperNetwork`).
+Each step renders at its frame's time through that time's slice of the
+time-extended occupancy grid; only the deformation-field model adds
+`deform_reg * mean|dx|` to the loss (the variants return no deform), and a
+model with a background model (`bg_radius > 0`) renders its background.
 
 The frame, its time and its bitfield slice are picked on the host (the frame
 index from the trainer's numpy generator), so a step makes no host sync.
@@ -26,16 +29,16 @@ from ..models.dnerf import DNeRFNetwork
 from ..render.occupancy import create_time, time_slice_index, update_time_density_grid
 from ..render.renderer import FieldFns, RenderConfig, dilated_chunk_grid, render_rays_train
 from ..utils.config import TrainConfig
-from .metrics import PSNRMeter
 from .trainer import Trainer, masked_mse
 
 
 class DNeRFTrainer(Trainer):
     adaptive_tiers = False  # the JAX package runs subclass steps at one budget
+    eval_tag = "dnerf eval"
 
     def __init__(
         self,
-        model: DNeRFNetwork,
+        model: torch.nn.Module,  # DNeRFNetwork, DNeRFBasisNetwork or DNeRFHyperNetwork
         dataset: NeRFDataset,
         cfg: RenderConfig,
         tc: TrainConfig,
@@ -56,16 +59,24 @@ class DNeRFTrainer(Trainer):
 
     @staticmethod
     def field_at_time(model, t: float, with_aux: bool = False) -> FieldFns:
-        """The field at time `t`; `with_aux` adds the per-sample mean |dx|
-        as an auxiliary output (`render_rays_train` averages it)."""
+        """The field at time `t`, with the model's background model when
+        its `bg_radius` > 0.  `with_aux` adds the deformation-field model's
+        per-sample mean |dx| as an auxiliary output (`render_rays_train`
+        averages it); the variants have none."""
+        with_aux = with_aux and isinstance(model, DNeRFNetwork)
+
         def sigma_rgb(p, x_cf, d_cf):
             sigma, rgb, deform = model.sigma_rgb_cf(x_cf, d_cf, t)
             if with_aux:
                 return sigma, rgb, {"deform_abs": deform.abs().mean(dim=0)}
             return sigma, rgb
 
+        bg = None
+        if getattr(model, "bg_radius", -1.0) > 0 and hasattr(model, "background_cf"):
+            bg = lambda p, sph_cf, d_cf: model.background_cf(sph_cf, d_cf)  # noqa: E731
         return FieldFns(sigma_rgb=sigma_rgb,
-                        density=lambda p, x_cf: model.density_cf(x_cf, t)["sigma"])
+                        density=lambda p, x_cf: model.density_cf(x_cf, t)["sigma"],
+                        background=bg)
 
     # ------------------------------------------------------------------ grid
     def make_grid(self):
@@ -98,8 +109,9 @@ class DNeRFTrainer(Trainer):
         return batch
 
     def loss_on_batch(self, batch):
-        """Render the batch at its time through its slice; ray-masked MSE plus
-        `deform_reg` times the mean |dx| over the selected samples."""
+        """Render the batch at its time through its slice; ray-masked MSE,
+        plus `deform_reg` times the mean |dx| over the selected samples for
+        the deformation-field model."""
         s = batch["slice"]
         out = render_rays_train(
             self.field_at_time(self.model, batch["time"], with_aux=True), None,
@@ -108,7 +120,8 @@ class DNeRFTrainer(Trainer):
             dilated_grid=self._dgrids[s],
         )
         loss, kept = masked_mse(out["image"], batch["gt_rgb"], out["ray_mask"])
-        loss = loss + self.deform_reg * out["aux"]["deform_abs"]
+        if "aux" in out:
+            loss = loss + self.deform_reg * out["aux"]["deform_abs"]
         return loss, out["num_points"], kept
 
     # ------------------------------------------------------------------ eval
@@ -120,17 +133,7 @@ class DNeRFTrainer(Trainer):
                                   self.field_at_time(self.model, float(time)),
                                   self.grid.bitfield[s], self._dgrids[s])
 
-    def evaluate(self, dataset: NeRFDataset) -> float:
-        """Mean PSNR of the EMA render of every frame at its own time (RGBA
-        targets composited on white)."""
-        meter = PSNRMeter()
-        for i in range(dataset.num_frames):
-            t = float(dataset.times[i]) if dataset.times is not None else 0.0
-            img, _ = self.render_image(dataset.poses[i], time=t)
-            gt = dataset.images[i]
-            if gt.shape[-1] == 4:
-                gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1.0 - gt[..., 3:])
-            meter.update(img, gt)
-        psnr = meter.measure()
-        self.log(f"[dnerf eval epoch {self.epoch}] {meter.report()}")
-        return psnr
+    def _render_view(self, dataset: NeRFDataset, i: int):
+        """View i of `dataset` at its own time."""
+        t = float(dataset.times[i]) if dataset.times is not None else 0.0
+        return self.render_image(dataset.poses[i], time=t)

@@ -88,6 +88,7 @@ class Trainer:
     """Occupancy-grid NeRF trainer over an `nn.Module` field."""
 
     adaptive_tiers = True  # budget tiers for this step (the base NGP step only)
+    eval_tag = "eval"  # the tag of evaluate's log line
 
     def __init__(
         self,
@@ -425,7 +426,7 @@ class Trainer:
         if write_images:
             os.makedirs(out_dir, exist_ok=True)
         for i in range(dataset.num_frames):
-            img, _ = self.render_image(dataset.poses[i])
+            img, _ = self._render_view(dataset, i)
             gt = dataset.images[i]
             if gt.shape[-1] == 4:
                 gt = gt[..., :3] * gt[..., 3:] + 1.0 * (1.0 - gt[..., 3:])
@@ -434,8 +435,12 @@ class Trainer:
                 write_png(os.path.join(out_dir, f"{self.tc.name}_{self.epoch:04d}_{i:04d}.png"),
                           (np.clip(img, 0, 1) * 255).astype(np.uint8))
         psnr = meter.measure()
-        self.log(f"[eval epoch {self.epoch}] {meter.report()}")
+        self.log(f"[{self.eval_tag} epoch {self.epoch}] {meter.report()}")
         return psnr
+
+    def _render_view(self, dataset: NeRFDataset, i: int):
+        """View i of `dataset` as `evaluate` renders it."""
+        return self.render_image(dataset.poses[i])
 
     def test(self, poses, out_dir: Optional[str] = None, write_video: bool = True):
         """Render a pose path into `<workspace>/results/` as PNG frames (the
