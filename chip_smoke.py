@@ -91,7 +91,17 @@ Phases (any failure exits non-zero and prints no result line):
      first run's last and trains on; `--test` writes PNG frames and a mesh
      with faces; then `--encoding tiledgrid --bg_radius 2` for 96
      iterations: the loss falls, a validation PSNR, scatter_add_any once
-     per level of both grids in every backward;
+     per level of both grids in every backward; `--error_map` for 96
+     iterations: the loss falls, the map moves off its ones, and a resumed
+     run starts from it bit for bit; `--no_grid --bound 1` for 48
+     iterations at 128 + 128 samples a ray (M = 1,048,576 a step): no grid
+     update, the loss falls, a validation PSNR through the chunked
+     grid-free eval, ms/step, one step through the kernels against the
+     plain path, and that step's bin sort exactly, its forward and its
+     table gradient held to their plain versions on its own inputs; `--gui`
+     on run 1's workspace in a thread, driven with urllib: rgb, depth and a
+     train request, each a PNG that the port's codec decodes to the
+     dataset's size, the train request advancing the step;
   6d. D-NeRF at its defaults (`dnerf_default_phase`): `DNeRFNetwork(bound=1)`
      on the golden tiled grid (16 levels x 2^19 rows, position gradients)
      with bf16 MLPs, on phase 6's scene, time grid (16 slices, cut from the
@@ -108,7 +118,19 @@ Phases (any failure exits non-zero and prints no result line):
      `tngp_torch.cli.main_dnerf.main` with the CLI's default flags and -O
      for 300 iterations with --time_size 16 (cut from 64): the loss
      halves, a validation PSNR, the kernel once per level per backward,
-     `--ckpt latest` resumes bitwise and trains on, `--test` writes frames;
+     `--ckpt latest` resumes bitwise and trains on, `--test` writes frames,
+     `--gui` serves PNG frames at two times that differ;
+  6f. SDF at full width (`sdf_phase`): `SDFNetwork` (16 levels x 2^19
+     rows, 3x64 f32 MLP) on `main_sdf sphere`'s mesh, 2^18 samples a step,
+     lr 1e-4: one step through the kernels against the plain path (the loss
+     and MLP gradients bitwise, each of the 16 levels' scatter_add_any on
+     the step's own inputs within the reordering bound), no host sync in a
+     step, 3 x 100 timed steps (cut from main_sdf's 20 x 100: ms/step,
+     samples/s, the host's share building labels), the loss falling, one
+     bf16 (`--fp16`) epoch, the mesh at 512^3 with its median vertex radius
+     within 0.12 of the sphere's, then `python -m tngp_torch.cli.main_sdf
+     sphere` for 2 epochs of 20 steps (mesh at 128^3) and a resumed run
+     bitwise from its checkpoint;
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes (the
      scatter-adds' at the frame round's, the first pass's under `shapes`;
@@ -125,7 +147,12 @@ Phases (any failure exits non-zero and prints no result line):
      `encoder_inputs`, the inputs `kernel_times.py` times); the golden
      grid's table-gradient rows count the launches at their own level's
      shape (one a step), the whole path's under `launches_all_levels`, and
-     phase 3b's frame's under `launches_per_frame`;
+     phase 3b's frame's under `launches_per_frame`; the SDF step's level 0
+     and level 15 have rows of their own, and the grid-free step's bin sort,
+     forward and table gradient theirs (`_grid_free`);
+  7b. `main_nerf synthetic --profile DIR` for 2 epochs: a non-empty Chrome
+     trace of the first (last, because after a profile the profiler records
+     nothing more in the process);
   8. print the card's name and power limit, the kernel table as one JSON
      line, and `{"ok": true, "device": ...}` last.
 
@@ -361,7 +388,7 @@ def capturing(module, name: str, store: list):
 
 
 def step_kernels_vs_plain(tr, model, label: str, capture) -> dict:
-    """One batch of D-NeRF trainer `tr` through the loss and its backward,
+    """One batch of trainer `tr` through the loss and its backward,
     through the kernels (inside the scope `capture`) and again through the
     plain versions.  Fails on a non-finite gradient entry, a loss beyond
     1e-5 relative or a gradient beyond 3e-2 norm-relative (the NGP step's
@@ -391,7 +418,8 @@ def step_kernels_vs_plain(tr, model, label: str, capture) -> dict:
     deform_max = float(torch.stack(deform).max()) if deform else None  # NaN propagates
     nonfinite = {n: int((~torch.isfinite(g)).sum()) for n, g in zip(names, grads_k)
                  if not bool(torch.isfinite(g).all())}
-    about = (f"the batch: time {float(batch['time']):.3f}, {npts} samples, loss {loss_k}, "
+    at = "" if "time" not in batch else f"time {float(batch['time']):.3f}, "
+    about = (f"the batch: {at}{npts} samples, loss {loss_k}, "
              f"deform-net max |grad| {deform_max}")
     if nonfinite or deform_max != deform_max:
         raise SystemExit(f"{label}: non-finite gradient entries {nonfinite}; " + about)
@@ -782,8 +810,9 @@ def dnerf_cli_phase(dev, dds, seed: int) -> dict:
     --time_size DNERF_TIME_SIZE.  Checks that the loss halves, a validation
     PSNR, scatter_add_any once per level in every backward, that --ckpt
     latest resumes at the saved epoch and step with a first EMA render
-    bitwise equal to the first run's last and trains on, and that --test
-    writes the training poses' PNG frames."""
+    bitwise equal to the first run's last and trains on, that --test
+    writes the training poses' PNG frames, and that `--gui` serves PNG
+    frames at two times that differ."""
     import shutil
     import tempfile
 
@@ -851,6 +880,15 @@ def dnerf_cli_phase(dev, dds, seed: int) -> dict:
         log(f"[dnerf-cli] --test: {len(frames)} PNG frames of the training poses")
         if len(frames) != dds.num_frames:
             raise SystemExit(f"[dnerf-cli] --test wrote {len(frames)} frames")
+
+        # the viewer's time field: two times of one pose give two frames
+        replies, _ = viewer_drive("[dnerf-cli] --gui", main_dnerf.main, argv, [
+            {"theta": 1.2, "phi": 0.9, "radius": 2.4, "mode": "rgb", "time": t,
+             "dynres": False} for t in (0.1, 0.9)])
+        if not (all(st["has_time"] for _, st, _ in replies)
+                and all(img.shape == (H, W, 3) for img, _, _ in replies)
+                and not np.array_equal(replies[0][0], replies[1][0])):
+            raise SystemExit("[dnerf-cli] --gui: no time axis, or the time did not move the frame")
         wall = time.time() - t_phase
         log(f"[dnerf-cli] phase 6e wall {wall:.1f} s")
         return dict(dt=dt1, psnr=psnr, launches=launches, wall=wall)
@@ -947,6 +985,480 @@ def cli_tiledgrid_run(root: str, seed: int) -> dict:
                 levels_tiled=per_step, steps_tiled=tr4.global_step)
 
 
+CLI_EM_ITERS = 96  # the CLI phase's --error_map run: 8 epochs of the 12 views
+CLI_NOGRID_ITERS = 48  # its --no_grid run: 4 epochs
+CLI_OPTION_FLAGS = ["--eval_interval", "100", "--skip_test_render", "--mesh_resolution", "64"]
+
+
+def cli_error_map_run(root: str, seed: int) -> dict:
+    """`main_nerf --error_map -O` for CLI_EM_ITERS iterations on the dataset at
+    `root`, in a fresh workspace: the loss falls, the map moves off its ones
+    and stays finite, the path's kernels launch; a second run with `--ckpt
+    latest` starts from the saved map bit for bit and trains on."""
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.train import Trainer
+
+    argv = [root, "-O", "--workspace", os.path.join(root, "ws_em"), "--seed", str(seed),
+            "--error_map", *CLI_OPTION_FLAGS]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr = main_nerf.main(argv + ["--iters", str(CLI_EM_ITERS)])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    em = tr.error_map.clone()
+    moved = float((em != 1.0).float().mean())
+    losses = tr.stats["loss"]
+    log(f"[cli] --error_map: {tr.global_step} steps in {dt:.1f} s (evaluation and mesh "
+        f"included); epoch loss {losses[0]:.6f} -> {losses[-1]:.6f}; map {tuple(em.shape)}, "
+        f"{moved:.4f} of its entries moved, range [{float(em.min()):.3g}, "
+        f"{float(em.max()):.3g}]; tier M {tr.tier_M} (tiers {tr._tier_M}); launches {launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"[cli] --error_map: the loss did not fall: {losses}")
+    if not (moved > 0 and bool(torch.isfinite(em).all()) and tuple(em.shape) == (
+            tr.n_frames, 128 * 128)):
+        raise SystemExit(f"[cli] --error_map: the map did not move or is not finite: {moved}")
+    for name in ("scatter_add_unique", "scatter_add_sorted", "bin_dest", "window_encode_fwd",
+                 "window_encode_bwd"):
+        if launches[name] <= 0:
+            raise SystemExit(f"[cli] --error_map: a kernel of the path never launched: "
+                             f"{launches}")
+    end1 = (tr.epoch, tr.global_step)
+    del tr
+    seen = {}
+    real_train = Trainer.train
+
+    def train_seen(self, max_epochs):
+        seen["at"] = (self.epoch, self.global_step)
+        seen["map"] = self.error_map.clone()
+        return real_train(self, max_epochs)
+
+    Trainer.train = train_seen
+    try:
+        tr2 = main_nerf.main(argv + ["--iters", str(CLI_EM_ITERS + 12), "--ckpt", "latest"])
+    finally:
+        Trainer.train = real_train
+    same = bool(torch.equal(seen["map"], em))
+    log(f"[cli] --error_map --ckpt latest: resumed at {seen['at']} (run 1 ended at {end1}), "
+        f"the map bit for bit: {same}; trained on to step {tr2.global_step}")
+    if seen["at"] != end1 or not same or tr2.global_step != end1[1] + 12:
+        raise SystemExit("[cli] --error_map: the resumed run did not restore the map")
+    return dict(dt_em=dt, moved_em=moved, steps_em=end1[1], launches_em=launches)
+
+
+def cli_no_grid_run(root: str, seed: int) -> dict:
+    """`main_nerf --no_grid --bound 1 -O` for CLI_NOGRID_ITERS iterations at
+    the CLI's default 128 + 128 samples a ray (4096 rays: M = 1,048,576
+    samples a step, the window encoder's widest input; bound 1 gives the
+    flagship encoder spec of phases 2-5): no grid update, a falling loss, a
+    finite validation PSNR through the chunked grid-free eval; 16 further
+    steps timed; one step through the kernels against the plain path
+    (`step_kernels_vs_plain`), whose bin sort, forward and table-gradient
+    inputs it returns for phase 7's checks and rows."""
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.kernels import window_encoder as kw
+
+    argv = [root, "-O", "--workspace", os.path.join(root, "ws_nogrid"), "--seed", str(seed),
+            "--no_grid", "--bound", "1", "--iters", str(CLI_NOGRID_ITERS), *CLI_OPTION_FLAGS]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr = main_nerf.main(argv)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    losses = tr.stats["loss"]
+    samples = tr.tc.num_rays * (tr.cfg.num_steps + tr.cfg.upsample_steps)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    tr.run_steps(16)
+    torch.cuda.synchronize()
+    ms_step = (time.time() - t1) / 16 * 1e3
+    t2 = time.time()
+    psnr = tr.evaluate(tr.valid_dataset)
+    dt_eval = time.time() - t2
+    log(f"[cli] --no_grid: {CLI_NOGRID_ITERS} steps in {dt:.1f} s (evaluation and mesh "
+        f"included), {samples:,} samples a step ({tr.cfg.num_steps} + "
+        f"{tr.cfg.upsample_steps} a ray); epoch loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"16 more steps {ms_step:.2f} ms/step ({tr.tc.num_rays * 1e3 / ms_step:,.0f} rays/s); "
+        f"validation PSNR {psnr:.2f} dB ({tr.valid_dataset.num_frames} views in "
+        f"{dt_eval:.2f} s, chunked uniform eval); grid updates {tr._grid_updates}; "
+        f"launches {launches}")
+    if tr.use_grid or tr._grid_updates != 0 or launches["scatter_set"] != 0:
+        raise SystemExit("[cli] --no_grid: the run updated an occupancy grid")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] and np.isfinite(psnr)):
+        raise SystemExit(f"[cli] --no_grid: losses {losses}, PSNR {psnr}")
+    for name in ("scatter_add_unique", "bin_dest", "window_encode_fwd", "window_encode_bwd"):
+        if launches[name] <= 0:
+            raise SystemExit(f"[cli] --no_grid: a kernel of the path never launched: {launches}")
+
+    calls = {"bin_dest": [], "window_encode_fwd": [], "window_encode_bwd": []}
+
+    @contextlib.contextmanager
+    def capture():
+        with contextlib.ExitStack() as stack:
+            for name, store in calls.items():
+                stack.enter_context(capturing(kw, name, store))
+            yield
+
+    st = step_kernels_vs_plain(tr, tr.model, "grid-free step", capture())
+    # the last forward calls are the fine pass's (the coarse pass's come first)
+    x01 = calls["bin_dest"][-1][0].detach()
+    xyz4, wob, table = (a.detach() for a in calls["window_encode_fwd"][-1][:3])
+    g_sorted = calls["window_encode_bwd"][-1][2].detach()
+    if x01.shape[1] != samples:
+        raise SystemExit(f"[cli] --no_grid: the step encoded {x01.shape[1]} samples, not "
+                         f"{samples}")
+    log(f"[cli] --no_grid, one step through the kernels vs the plain path (M = "
+        f"{x01.shape[1]:,}, M_pad = {xyz4.shape[0]:,}): loss {st['loss_k']:.8f} vs "
+        f"{st['loss_p']:.8f}; gradient norm-relative errors "
+        + ", ".join(f"{n} {v:.2e}" for n, v in st["rels"].items()) + " (<= 3e-2)")
+    return dict(dt_nogrid=dt, ms_step_nogrid=ms_step, psnr_nogrid=psnr,
+                launches_nogrid=launches, steps_nogrid=CLI_NOGRID_ITERS + 16,
+                grid_free=(x01, xyz4, wob, table, g_sorted, tr.model.encoder.spec))
+
+
+def viewer_drive(label: str, main, argv: list, bodies: list) -> tuple[list, object]:
+    """`main(argv)` with `--gui` on a free localhost port, in a thread;
+    `POST /render` each of `bodies`.  Each reply must be `image/png` that
+    the port's codec decodes to the size its `X-Stats` reports.  Stops the
+    viewer.  Returns ([(image, stats, seconds)], the trainer)."""
+    import socket
+    import threading
+    import urllib.request
+
+    from tngp_torch.cli.viewer import stop_viewers
+    from tngp_torch.utils.image_io import decode_png
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = {}
+
+    def serve():
+        try:
+            out["trainer"] = main(argv + ["--gui", "--gui_port", str(port)])
+        except BaseException as e:  # reported below
+            out["error"] = e
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{port}"
+    page, deadline = None, time.time() + 300
+    replies = []
+    try:
+        while page is None and time.time() < deadline and t.is_alive():
+            try:
+                page = urllib.request.urlopen(url + "/", timeout=5).read()
+            except OSError:
+                time.sleep(0.5)
+        if not page or b"image/png" not in page:
+            raise SystemExit(f"{label} the viewer served no page: {out.get('error')}")
+        for body in bodies:
+            req = urllib.request.Request(url + "/render", data=json.dumps(body).encode(),
+                                         method="POST")
+            t0 = time.time()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                ctype, st = resp.headers["Content-Type"], json.loads(resp.headers["X-Stats"])
+                data = resp.read()
+            img = decode_png(data)
+            if ctype != "image/png" or img.shape != (st["H"], st["W"], 3):
+                raise SystemExit(f"{label} {body}: {ctype}, {img.shape} for {st}")
+            replies.append((img, st, time.time() - t0))
+    finally:
+        stop_viewers()
+        t.join(timeout=120)
+    if t.is_alive() or "error" in out:
+        raise SystemExit(f"{label} the viewer did not stop cleanly: {out.get('error')}")
+    for body, (img, st, sec) in zip(bodies, replies):
+        log(f"{label} POST /render {json.dumps(body)}: {st['W']}x{st['H']} PNG in "
+            f"{sec * 1e3:.0f} ms (render {st['render_ms']:.0f} ms"
+            + (f", train {st['train_steps']} steps in {st['train_ms']:.0f} ms to step "
+               f"{st['global_step']}" if "train_ms" in st else "") + ")")
+    return replies, out["trainer"]
+
+
+def cli_viewer_run(root: str, ws: str, H: int, W: int, step: int) -> dict:
+    """`main_nerf -O --gui` on the workspace `ws` (its latest checkpoint, at
+    global step `step`): an rgb frame, a depth frame and a train request,
+    each a PNG of the dataset's size (the throttle off), the train request
+    advancing the step."""
+    from tngp_torch.cli import main_nerf
+
+    bodies = [{"theta": 1.2, "phi": 0.9, "radius": 2.4, "mode": "rgb", "dynres": False},
+              {"theta": 1.2, "phi": 0.9, "radius": 2.4, "mode": "depth", "dynres": False},
+              {"theta": 0.4, "phi": 1.1, "radius": 2.4, "mode": "rgb", "train": True,
+               "dynres": False}]
+    replies, tr = viewer_drive("[cli] --gui", main_nerf.main, [root, "-O", "--workspace", ws],
+                               bodies)
+    st_t = replies[2][1]
+    if any(img.shape != (H, W, 3) for img, _, _ in replies):
+        raise SystemExit(f"[cli] --gui: frames of {[r[0].shape for r in replies]}, not "
+                         f"{(H, W, 3)}")
+    if not (st_t["train_steps"] > 0 and st_t["global_step"] == tr.global_step > step):
+        raise SystemExit(f"[cli] --gui: the train request did not advance the step: {st_t}")
+    if not (replies[1][0][..., 0] == replies[1][0][..., 2]).all():
+        raise SystemExit("[cli] --gui: the depth frame is not gray")
+    return dict(gui_ms=[round(sec * 1e3, 1) for _, _, sec in replies])
+
+
+SDF_EPOCHS, SDF_STEPS = 3, 100  # timed epochs x steps (main_sdf's defaults: 20 x 100)
+SDF_SAMPLES = 2**18  # main_sdf's --num_samples
+SDF_LR = 1e-4  # main_sdf's --lr
+SDF_MESH_RES = 512  # main_sdf's --mesh_resolution
+SDF_CLI_EPOCHS, SDF_CLI_STEPS = 2, 20  # the CLI runs: 2 epochs of 20 steps, then one more
+
+
+def sdf_phase(dev, seed: int) -> dict:
+    """The SDF entry point's path at full width: `SDFNetwork` (16 levels x
+    2^19 rows, 3x64 f32 MLP) on `main_sdf sphere`'s mesh, 2^18 samples a
+    step, lr 1e-4.  One step through the kernels against the plain path: the
+    loss and the MLP's gradients bitwise equal (no kernel touches them), and
+    each of the 16 levels' table-gradient scatters (`scatter_add_any`) on
+    that step's own inputs within the reordering bound.  No host sync inside
+    a step.  SDF_EPOCHS x SDF_STEPS timed steps (ms/step, samples/s, the
+    host's share in `SDFDataset.sample`, the kernel once per level per step),
+    the epoch loss falling; the bf16 MLP (`--fp16`) for one epoch; the mesh at
+    SDF_MESH_RES^3 with its median vertex radius within 0.12 of the
+    normalised sphere's; then `python -m tngp_torch.cli.main_sdf sphere` for
+    SDF_CLI_EPOCHS epochs of SDF_CLI_STEPS steps and a resumed run that
+    starts from its weights, EMA and Adam state bit for bit.  Returns the
+    numbers and two levels' scatter inputs for phase 7."""
+    import shutil
+    import tempfile
+
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_sdf
+    from tngp_torch.data.sdf import SDFDataset, sphere_mesh
+    from tngp_torch.models import SDFNetwork
+    from tngp_torch.native import load_obj
+    from tngp_torch.ops import hashgrid as hg
+    from tngp_torch.ops.losses import mape_loss
+    from tngp_torch.train.sdf_trainer import SDFTrainer
+    from tngp_torch.utils import TrainConfig
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="tngp_sdf_")
+    try:
+        verts, faces = sphere_mesh(64, 0.6)
+        ds = SDFDataset(vertices=verts, faces=faces, num_samples=SDF_SAMPLES, size=SDF_STEPS)
+        rad = float(np.linalg.norm(ds.vertices, axis=1).mean())
+        model = SDFNetwork(device=dev, seed=seed)
+        tc = TrainConfig(name="sdf", workspace=os.path.join(root, "ws"), seed=seed,
+                         eval_interval=1, use_checkpoint="scratch")
+        tr = SDFTrainer(model, ds, tc, lr=SDF_LR, device=dev)
+        spec = model.encoder.spec
+        n_params = sum(p.numel() for p in tr.params)
+        log(f"[sdf] SDFNetwork: {spec.num_levels} levels x {spec.level_dim}, "
+            f"{spec.total_params:,} table rows ({4 * spec.total_params * spec.level_dim / 2**20:.1f}"
+            f" MiB f32), {n_params:,} parameters; sphere mesh {len(verts)} vertices, "
+            f"{len(faces)} faces (normalised radius {rad:.4f}); {SDF_SAMPLES:,} samples a step")
+
+        # one step through the kernels against the plain path
+        x, y = tr.upload(*ds.sample(123))
+        calls = []
+
+        def grads():
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss = mape_loss(tr.model.cf(x)[0], y)
+            loss.backward()
+            return loss.detach().clone(), [p.grad.clone() for p in tr.params]
+
+        with capturing(hg, "scatter_add", calls):
+            loss_k, g_k = grads()
+        with kernels.plain_versions():
+            loss_p, g_p = grads()
+        tr.optimizer.zero_grad(set_to_none=True)
+        names = [n for n, p in model.named_parameters()]
+        if len(calls) != spec.num_levels:
+            raise SystemExit(f"[sdf] {len(calls)} table-gradient scatters in a step, not one per "
+                             f"level ({spec.num_levels})")
+        if not torch.equal(loss_k, loss_p) or not all(
+                torch.equal(a, b) for n, a, b in zip(names, g_k, g_p) if n != "encoder.embeddings"):
+            raise SystemExit("[sdf] the loss or an MLP gradient differs between the kernels and "
+                             "the plain path")
+        checks = [check_scatter_add(i.detach(), v.detach(), r, "any", f"SDF step, level {lv}")
+                  for lv, (i, v, r) in enumerate(calls)]
+        worst = max(w for _, w in checks)
+        rel_tab = rel_err(g_k[0], g_p[0])
+        log(f"[sdf] one step, kernels vs plain path: loss {float(loss_k):.8f} bitwise equal, MLP "
+            f"gradients bitwise equal, table gradient norm-relative {rel_tab:.2e}; the "
+            f"{spec.num_levels} levels' scatter_add_any on this step's inputs "
+            f"({calls[0][0].numel():,} entries a level; level 0 into {calls[0][2]:,} rows, level "
+            f"15 into {calls[15][2]:,}): max|err| vs plain {max(e for e, _ in checks):.3g}, "
+            f"worst err/bound {worst:.3f}")
+        captured = {"level0": tuple(a.detach() if torch.is_tensor(a) else a for a in calls[0][:3]),
+                    "level15": tuple(a.detach() if torch.is_tensor(a) else a
+                                     for a in calls[15][:3])}
+        errs = {"level0": checks[0], "level15": checks[15]}
+        del calls, g_k, g_p
+
+        # host syncs inside a step (the upload is outside it)
+        syncs, up_syncs = [], 0
+        with host_sync_log() as caught:
+            for k in range(4):
+                before = n_syncs(caught)
+                xb, yb = tr.upload(*ds.sample(1000 + k))
+                up_syncs += n_syncs(caught) - before
+                before = n_syncs(caught)
+                tr.train_step(xb, yb)
+                syncs.append(n_syncs(caught) - before)
+        log(f"[sdf] host syncs inside each of 4 steps: {syncs}; in the uploads: {up_syncs}")
+        if any(syncs):
+            raise SystemExit(f"[sdf] a step made a host sync: {syncs}")
+
+        # timed epochs
+        label_s = []
+        real_sample = ds.sample
+
+        def timed_sample(seed_):
+            t0 = time.perf_counter()
+            out = real_sample(seed_)
+            label_s.append(time.perf_counter() - t0)
+            return out
+
+        ds.sample = timed_sample
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(SDF_EPOCHS):
+            tr.epoch += 1
+            tr.train_one_epoch()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        ds.sample = real_sample
+        steps = SDF_EPOCHS * SDF_STEPS
+        launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        losses = tr.stats["loss"]
+        ms_step = dt / steps * 1e3
+        host_share = sum(label_s) / dt
+        valid = tr.evaluate()
+        log(f"[sdf] {steps} steps ({SDF_EPOCHS} epochs of {SDF_STEPS}) in {dt:.2f} s: "
+            f"{ms_step:.2f} ms/step, {SDF_SAMPLES * 1e3 / ms_step:,.0f} samples/s; the batch's "
+            f"labels on the host (SDFDataset.sample: surface sampling and the BVH distance) "
+            f"{1e3 * sum(label_s) / steps:.2f} ms/step, {host_share:.3f} of the step; epoch "
+            f"loss {', '.join(f'{v:.5f}' for v in losses)}; validation mape {valid:.5f}; "
+            f"launches {launches}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise SystemExit(f"[sdf] the loss did not fall: {losses}")
+        if launches["scatter_add_any"] != spec.num_levels * steps:
+            raise SystemExit(f"[sdf] scatter_add_any launched {launches['scatter_add_any']} "
+                             f"times, not {spec.num_levels} per step over {steps} steps")
+
+        # the mesh
+        t0 = time.time()
+        path = tr.save_mesh(os.path.join(root, "mesh.obj"), resolution=SDF_MESH_RES)
+        dt_mesh = time.time() - t0
+        v2, f2 = load_obj(path)
+        med = float(np.median(np.linalg.norm(v2, axis=1))) if len(v2) else float("nan")
+        log(f"[sdf] save_mesh at {SDF_MESH_RES}^3 in {dt_mesh:.1f} s (the field on the card, "
+            f"marching tetrahedra and the OBJ on the host): {len(v2):,} vertices, {len(f2):,} "
+            f"faces; median vertex radius {med:.4f} vs the normalised sphere's {rad:.4f}")
+        if not (len(f2) > 100 and abs(med - rad) < 0.12):
+            raise SystemExit(f"[sdf] the mesh is not the sphere: {len(f2)} faces, median radius "
+                             f"{med} vs {rad}")
+
+        # the bf16 MLP (--fp16), one epoch
+        tr16 = SDFTrainer(SDFNetwork(compute_dtype=torch.bfloat16, device=dev, seed=seed), ds,
+                          tc, lr=SDF_LR, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss16 = tr16.train_one_epoch()
+        torch.cuda.synchronize()
+        ms16 = (time.time() - t0) / SDF_STEPS * 1e3
+        log(f"[sdf] bf16 MLP: one epoch of {SDF_STEPS} steps, {ms16:.2f} ms/step, loss "
+            f"{loss16:.5f}")
+        if not np.isfinite(loss16):
+            raise SystemExit(f"[sdf] the bf16 MLP's loss is not finite: {loss16}")
+        del tr16, tr, model
+
+        # the entry point, and a resumed run
+        ws = os.path.join(root, "ws_cli")
+        argv = ["sphere", "--workspace", ws, "--seed", str(seed), "--epoch_size",
+                str(SDF_CLI_STEPS), "--mesh_resolution", "128"]
+        t0 = time.time()
+        tr1 = main_sdf.main(argv + ["--epochs", str(SDF_CLI_EPOCHS)])
+        dt_cli = time.time() - t0
+        end1 = (tr1.epoch, tr1.global_step)
+        state1 = [p.detach().clone() for p in tr1.params] + [e.clone() for e in tr1.ema_params] + [
+            tr1.optimizer.state[p][k].clone() for p in tr1.params
+            for k in ("exp_avg", "exp_avg_sq")]
+        del tr1
+        seen = {}
+        real_train = SDFTrainer.train
+
+        def train_seen(self, max_epochs):
+            seen["at"] = (self.epoch, self.global_step)
+            seen["state"] = [p.detach().clone() for p in self.params] + [
+                e.clone() for e in self.ema_params] + [
+                self.optimizer.state[p][k].clone() for p in self.params
+                for k in ("exp_avg", "exp_avg_sq")]
+            return real_train(self, max_epochs)
+
+        SDFTrainer.train = train_seen
+        try:
+            tr2 = main_sdf.main(argv + ["--epochs", str(SDF_CLI_EPOCHS + 1)])
+        finally:
+            SDFTrainer.train = real_train
+        same = len(seen["state"]) == len(state1) and all(
+            torch.equal(a, b) for a, b in zip(seen["state"], state1))
+        ckpts = sorted(f for f in os.listdir(os.path.join(ws, "checkpoints"))
+                       if f.endswith(".npz"))
+        log(f"[sdf] python -m tngp_torch.cli.main_sdf {' '.join(argv)} --epochs "
+            f"{SDF_CLI_EPOCHS}: {end1[1]} steps in {dt_cli:.1f} s (checkpoints and a 128^3 mesh "
+            f"included); --epochs {SDF_CLI_EPOCHS + 1} resumed at {seen['at']}, weights, EMA "
+            f"and Adam state bit for bit: {same}; trained on to {(tr2.epoch, tr2.global_step)}; "
+            f"checkpoints {ckpts}")
+        if (seen["at"] != end1 or not same
+                or tr2.global_step != end1[1] + SDF_CLI_STEPS
+                or not os.path.exists(os.path.join(ws, "results", "mesh.ply"))):
+            raise SystemExit("[sdf] the CLI's resumed run did not start where run 1 ended")
+        wall = time.time() - t_phase
+        log(f"[sdf] phase 6f wall {wall:.1f} s")
+        return dict(ms_step=ms_step, samples_s=SDF_SAMPLES * 1e3 / ms_step,
+                    host_share=host_share, losses=losses, ms16=ms16, radius=med, rad=rad,
+                    faces=len(f2), dt_mesh=dt_mesh, launches=launches, steps=steps,
+                    levels=spec.num_levels, captured=captured, errs=errs, wall=wall)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def profile_cli_run(seed: int) -> dict:
+    """`main_nerf synthetic -O --profile DIR` for 2 epochs of the 16-frame
+    blob scene: the first epoch's torch.profiler trace must be a non-empty
+    Chrome trace in DIR.  Run last: after a profile the profiler records
+    nothing more in the process."""
+    import shutil
+    import tempfile
+
+    from tngp_torch.cli import main_nerf
+
+    root = tempfile.mkdtemp(prefix="tngp_profile_")
+    try:
+        pdir = os.path.join(root, "profile")
+        t0 = time.time()
+        main_nerf.main(["synthetic", "-O", "--workspace", os.path.join(root, "ws"), "--seed",
+                        str(seed), "--iters", "32", "--profile", pdir, *CLI_OPTION_FLAGS])
+        dt = time.time() - t0
+        traces = [os.path.join(pdir, f) for f in os.listdir(pdir)] if os.path.isdir(pdir) else []
+        size = os.path.getsize(traces[0]) if len(traces) == 1 else 0
+        head = ""
+        if size:
+            with open(traces[0]) as f:
+                head = f.read(64)
+        log(f"[cli] --profile: 32 steps in {dt:.1f} s; trace {[os.path.basename(t) for t in traces]}"
+            f" of {size:,} bytes")
+        if size <= 0 or not head.lstrip().startswith("{"):
+            raise SystemExit(f"[cli] --profile wrote no trace: {traces}")
+        return dict(dt_profile=dt, trace_bytes=size)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def cli_phase(dev, ds, seed: int) -> dict:
     """The NGP entry point at full width: the blob scene `ds` written as a
     blender-format dataset of PNGs (`utils/image_io.py`) whose
@@ -959,7 +1471,10 @@ def cli_phase(dev, ds, seed: int) -> dict:
     second run with --ckpt latest resumes at the saved epoch and step with a
     first EMA render bitwise equal to the first run's last one and trains
     on; that --test writes PNG frames and a mesh with faces; then the
-    golden-grid run with the background model (`cli_tiledgrid_run`)."""
+    golden-grid run with the background model (`cli_tiledgrid_run`), the
+    `--error_map` and `--no_grid` runs (`cli_error_map_run`,
+    `cli_no_grid_run`) and the web viewer on run 1's workspace
+    (`cli_viewer_run`)."""
     import shutil
     import tempfile
 
@@ -1035,7 +1550,11 @@ def cli_phase(dev, ds, seed: int) -> dict:
             raise SystemExit(f"[cli] --test wrote {len(frames)} frames and {n_faces} faces")
 
         run4 = cli_tiledgrid_run(root, seed)
-        return dict(dt=dt1, psnr=results[-1], launches=launches, faces=n_faces, **run4)
+        em = cli_error_map_run(root, seed)
+        ng = cli_no_grid_run(root, seed)
+        gui = cli_viewer_run(root, ws, H, W, CLI_ITERS + 2 * ds.num_frames)
+        return dict(dt=dt1, psnr=results[-1], launches=launches, faces=n_faces, **run4, **em,
+                    **ng, **gui)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1757,12 +2276,34 @@ def main() -> int:
 
     # ---- 6c. the NGP entry point (tngp_torch.cli.main_nerf) ---------------
     cli = cli_phase(dev, ds, args.seed)
+    # the grid-free step's kernels on its own inputs (M = 1,048,576)
+    x01_g, xyz4_g, wob_g, table_g, g_sorted_g, spec_g = cli["grid_free"]
+    if spec_g != spec:
+        raise SystemExit(f"[cli] --no_grid: not the flagship encoder spec: {spec_g}")
+    Mg, Mg_pad = x01_g.shape[1], xyz4_g.shape[0]
+    d_k, t_k = kw.bin_dest(x01_g)
+    d_r, t_r = kw.bin_dest_ref(x01_g)
+    if not (torch.equal(d_k, d_r) and torch.equal(t_k, t_r)):
+        raise SystemExit("[cli] --no_grid: bin_dest disagrees with the plain bin_dest")
+    err_fwd_g = max_abs(kw.window_encode_fwd(xyz4_g, wob_g, table_g, spec, BLOCK),
+                        kw.window_encode_fwd_plain(xyz4_g, wob_g, table_g, spec, BLOCK))
+    if not err_fwd_g <= 6e-6:
+        raise SystemExit(f"[cli] --no_grid: window_encode_fwd disagrees with its plain version: "
+                         f"{err_fwd_g}")
+    err_bwd_g, n_max_g, zd_g = check_bwd(xyz4_g, wob_g, g_sorted_g, "grid-free step")
+    log(f"[check] the grid-free step's inputs (M = {Mg:,}, M_pad = {Mg_pad:,}): bin_dest exact, "
+        f"window_encode_fwd max|err| {err_fwd_g:.3g} (<= 6e-6), window_encode_bwd max|err| "
+        f"{err_bwd_g:.3g} within the reordering bound (n up to {n_max_g:.0f}; zeros differ in "
+        f"{zd_g} of n >= 3)")
 
     # ---- 6d. D-NeRF at its defaults: the golden tiled grid ------------------
     dd = dnerf_default_phase(dev, dn, args.seed, args.profile)
 
     # ---- 6e. the D-NeRF entry point (tngp_torch.cli.main_dnerf) -------------
     dcli = dnerf_cli_phase(dev, dn["dds"], args.seed)
+
+    # ---- 6f. SDF at full width, and the SDF entry point ---------------------
+    sdf = sdf_phase(dev, args.seed)
 
     # ---- 7. timing at the paths' shapes ------------------------------------
     # per callable: ms (CUDA events around 20 back-to-back calls), host_us
@@ -1917,6 +2458,22 @@ def main() -> int:
                 launches_all_levels=total, levels=levels, steps=steps,
                 launches_per_frame=launches_any_frame, call=f"golden-grid table gradient: {what}")
 
+    # the SDF step's table gradient, one launch per level in each backward:
+    # level 0 (dense, 8 corners of 262,144 samples into 4,920 rows, ~426
+    # adds a row) and level 15 (hashed into 2^19 rows), on the inputs the
+    # phase's kernel check captured
+    for label, what in (("level0", "level 0 (dense: 8 corners of the 2^18 samples into "
+                                   "4,920 rows, ~426 adds a row)"),
+                        ("level15", "level 15 (hashed: 8 corners into 2^19 rows)")):
+        i_s, v_s, r_s = sdf["captured"][label]
+        e_s, w_s = sdf["errs"][label]
+        total = sdf["launches"]["scatter_add_any"]
+        add_row(f"scatter_add_any_sdf_{label}", "any", total // sdf["levels"], e_s, i_s, v_s,
+                r_s, path="sdf", worst_err_over_bound=w_s,
+                launches_per_step=total // sdf["levels"] // sdf["steps"],
+                launches_all_levels=total, levels=sdf["levels"], steps=sdf["steps"],
+                call=f"SDF table gradient: {what}")
+
     # the backward kernel, on the inputs a training step gave it (captured
     # above), on uniform samples at the top tier and on the other inputs.
     # Bytes: samples, cotangents and block windows in, the whole gradient
@@ -1933,6 +2490,33 @@ def main() -> int:
         idx = (addr[:, None] + torch.arange(C, device=dev).view(1, C, 1, 1) * 8192).reshape(-1)
         vals = vals.reshape(-1)
         return lambda: torch.zeros(table.numel(), device=dev).index_add_(0, idx, vals)
+
+    # the grid-free step's encoder (the --no_grid run of phase 6c: M =
+    # 1,048,576 samples, 4096 rays x 128 + 128), its three kernels on that
+    # step's own inputs
+    n_live_g = int((xyz4_g[:, 3] > 0).sum())
+    for name, kernel, err, fn_k, fn_p, fn_lib, nbytes, ops, rate, lib_call in (
+            ("bin_dest_grid_free", "bin_dest", 0.0, lambda: kw.bin_dest(x01_g),
+             lambda: kw.bin_dest_ref(x01_g),
+             lambda: torch.argsort(sample_tiles(x01_g), stable=True), bin_dest_bytes(Mg, BLOCK),
+             Mg * 30, INT32_OPS_PER_S, "argsort (stable) of the tile keys"),
+            ("window_encode_fwd_grid_free", "window_encode_fwd", err_fwd_g,
+             lambda: kw.window_encode_fwd(xyz4_g, wob_g, table_g, spec, BLOCK),
+             lambda: kw.window_encode_fwd_plain(xyz4_g, wob_g, table_g, spec, BLOCK), None,
+             encoder_bytes("fwd", xyz4_g, wob_g, spec, BLOCK),
+             n_live_g * L * (10 + 8 * (3 + 2 * C)), F32_OPS_PER_S, None),
+            ("window_encode_bwd_grid_free", "window_encode_bwd", err_bwd_g,
+             lambda: kw.window_encode_bwd(xyz4_g, wob_g, g_sorted_g, spec, BLOCK),
+             lambda: kw.window_encode_bwd_plain(xyz4_g, wob_g, g_sorted_g, spec, BLOCK),
+             bwd_library(xyz4_g, wob_g, g_sorted_g),
+             encoder_bytes("bwd", xyz4_g, wob_g, spec, BLOCK),
+             n_live_g * L * (10 + 8 * (3 + 2 * C)), F32_OPS_PER_S,
+             "index_add_ of precomputed rows and values (nearest call, not the same function)")):
+        extra = {} if lib_call is None else {"library_call": lib_call}
+        row(name, kernel, cli["launches_nogrid"][kernel], err, fn_k, fn_p, fn_lib, nbytes, ops,
+            rate, path="ngp --no_grid cli", steps=cli["steps_nogrid"],
+            shape=f"the grid-free step's {Mg:,} samples (M_pad {Mg_pad:,}, {n_live_g:,} live)",
+            **extra)
 
     lib_real = bwd_library(xyz4_r, wob_r, g_sorted_r)
     ms_uniform = events_ms(lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK))
@@ -1993,10 +2577,20 @@ def main() -> int:
     err_int = max_abs(int_mul.int_mul_hash(xi), int_mul.int_mul_hash_plain(xi))
     if err_int != 0.0:
         raise SystemExit(f"int_mul_hash disagrees with its plain version: {err_int}")
+    # the nearest single call: torch.mul of the int32 operands by P1 as an
+    # int32 wraps as the uint32 product does, but it is one of the
+    # function's two products (no XOR, no second product)
+    p1 = torch.full_like(xi, int_mul.P1 - (1 << 32))
+    if not torch.equal(torch.mul(xi, p1), (xi.long() * int_mul.P1 & 0xFFFFFFFF).to(
+            torch.int64).sub((xi.long() * int_mul.P1 & 0x80000000) << 1).to(torch.int32)):
+        raise SystemExit("torch.mul of int32 operands does not wrap as the uint32 product")
     row("int_mul_probe", "int_mul_probe", launches_parity["int_mul_probe"], err_int,
-        lambda: int_mul.int_mul_hash(xi), lambda: int_mul.int_mul_hash_plain(xi), None,
-        xi.numel() * 8, xi.numel() * 3, INT32_OPS_PER_S, path="device parity",
-        shape="int32 [8, 1024] -> int32 [8, 1024] (exact)")
+        lambda: int_mul.int_mul_hash(xi), lambda: int_mul.int_mul_hash_plain(xi),
+        lambda: torch.mul(xi, p1), xi.numel() * 8, xi.numel() * 3, INT32_OPS_PER_S,
+        path="device parity", shape="int32 [8, 1024] -> int32 [8, 1024] (exact)",
+        library_call="torch.mul of the int32 operands by P1 (wraps as the uint32 product; "
+                     "one of the two products, without the XOR: the nearest call, not the "
+                     "same function)")
     missing = set(info) - {r["kernel"] for r in rows}
     if missing:
         raise SystemExit(f"registered kernels without a timing row: {sorted(missing)}")
@@ -2012,6 +2606,10 @@ def main() -> int:
             f"{'-' if lib_dev is None else f'{lib_dev:.4f}'} ms"
             + "".join(f"; {label} device {t['device_ms']:.4f} ms"
                       for label, t in r["shapes"].items()))
+
+    # ---- 6c's --profile run, last: after a profile the profiler records
+    # nothing more in this process
+    prof = profile_cli_run(args.seed)
 
     # ---- 8. report ---------------------------------------------------------
     smi = card()
@@ -2029,7 +2627,13 @@ def main() -> int:
         f"{R * R / dt_hash:,.1f} rays/s, D-NeRF default {dd['rays_s']:,.1f} train rays/s "
         f"({1e3 * dd['dt'] / DNERF_TIMED:.2f} ms/step, PSNR {dd['psnr']:.2f} dB), "
         f"D-NeRF CLI PSNR {dcli['psnr']:.2f} dB, NGP tiledgrid + bg CLI PSNR "
-        f"{cli['psnr_tiled']:.2f} dB; run wall {time.time() - t_run:.1f} s")
+        f"{cli['psnr_tiled']:.2f} dB; NGP --no_grid {cli['ms_step_nogrid']:.2f} ms/step (PSNR "
+        f"{cli['psnr_nogrid']:.2f} dB), --error_map map moved on {cli['moved_em']:.4f}, --gui "
+        f"replies {cli['gui_ms']} ms, --profile trace {prof['trace_bytes']:,} bytes; SDF "
+        f"{sdf['ms_step']:.2f} ms/step ({sdf['samples_s']:,.0f} samples/s, host labels "
+        f"{sdf['host_share']:.3f} of the step; bf16 {sdf['ms16']:.2f} ms/step), loss "
+        f"{sdf['losses'][0]:.5f} -> {sdf['losses'][-1]:.5f}, mesh median radius "
+        f"{sdf['radius']:.4f} (sphere {sdf['rad']:.4f}); run wall {time.time() - t_run:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

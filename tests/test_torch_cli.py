@@ -1,197 +1,162 @@
-"""The port's entry points end to end on the CPU: `python -m
-tngp_torch.cli.main_nerf synthetic` in a subprocess with
-`TNGP_PLATFORM=cpu` and tests/test_cli.py:41-46's flags and a second run
-that resumes from its checkpoint; in the process, `main_nerf` on the golden
-tiled grid with the background model, and `tngp_torch.cli.main_dnerf` on
-the tiny dynamic blob scene (its default model, and `--hyper`), with resume
-and `--test`; and the options the port has not ported, which raise.
+"""The port's entry points' options on the CPU: the one option not ported
+yet (CLIP guidance) raises before anything is built, `--basis` with
+`--hyper` is a usage error, `main_nerf --error_map`, `--no_grid` and
+`--profile` run in the process at small width (`small_models`,
+tests/torch_cli_helpers.py), and `--gui` of both NeRF entry points serves
+PNG frames over HTTP.  The runs themselves are in
+`test_torch_cli_runs.py`."""
 
-The in-process runs keep the CLIs' flags but narrow the models (2 levels
-of 2^12 rows, hidden widths 16) and the occupancy grid (32^3, a time
-slice's for D-NeRF): `small_models` swaps them in, so that a full grid
-update and each checkpoint stay small on the CPU."""
-
-import functools
-import os
-import subprocess
-import sys
-from pathlib import Path
-
-import numpy as np
 import pytest
-import torch
 
+from torch_cli_helpers import FLAGS, small_models  # noqa: F401  (fixture)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: the in-process runs)
-
-ROOT = Path(__file__).resolve().parent.parent
-FLAGS = ["--num_rays", "128", "--max_steps", "48", "--sample_budget", "16", "--bound", "1.0",
-         "--dt_gamma", "0", "--min_near", "0.05", "--eval_interval", "100",
-         "--skip_test_render", "--mesh_resolution", "24", "--workspace", "ws"]
-
-
-def run_cli(args, cwd):
-    env = dict(os.environ, TNGP_PLATFORM="cpu", TNGP_SYNTH="4,32,32", OMP_NUM_THREADS="2",
-               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    return subprocess.run([sys.executable, "-m", "tngp_torch.cli.main_nerf", *args],
-                          capture_output=True, text=True, timeout=600, cwd=str(cwd), env=env)
-
-
-def test_main_nerf_synthetic_trains_checkpoints_and_resumes(tmp_path):
-    """8 iterations (2 epochs of the 4 frames): rc 0, a checkpoint per
-    epoch, an `[eval` line, a `[save_mesh]` line and validation PNGs; then
-    `--ckpt latest` with 12 iterations loads epoch 2 at step 8 and trains
-    epoch 3 from there."""
-    r = run_cli(["synthetic", "--iters", "8", *FLAGS], tmp_path)
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert "[epoch 2]" in r.stdout and "[eval" in r.stdout and "[save_mesh]" in r.stdout
-    ck = tmp_path / "ws" / "checkpoints"
-    assert sorted(p.name for p in ck.glob("*.npz")) == ["ngp_ep0001.npz", "ngp_ep0002.npz"]
-    assert len(list((tmp_path / "ws" / "validation").glob("*.png"))) == 4
-    assert (tmp_path / "ws" / "log_ngp.txt").read_text().count("[epoch") == 2
-
-    r2 = run_cli(["synthetic", "--iters", "12", "--ckpt", "latest", *FLAGS], tmp_path)
-    assert r2.returncode == 0, r2.stderr[-3000:]
-    assert "ngp_ep0002.npz (epoch 2, step 8)" in r2.stdout
-    assert "[epoch 3]" in r2.stdout and "[epoch 1]" not in r2.stdout
-    assert sorted(p.name for p in ck.glob("*.npz")) == ["ngp_ep0002.npz", "ngp_ep0003.npz"]
-
-
-DNERF_FLAGS = ["--time_size", "4", "--num_rays", "128", "--max_steps", "48", "--sample_budget",
-               "16", "--bound", "1.0", "--dt_gamma", "0", "--min_near", "0.05",
-               "--eval_interval", "100"]
-
-
-@pytest.fixture
-def small_models(monkeypatch):
-    """The CLIs in the process, on the CPU, at small width (module
-    docstring)."""
-    import tngp_torch.models as models
-    from tngp_torch.cli import common
-
-    monkeypatch.setenv("TNGP_PLATFORM", "cpu")
-    monkeypatch.setenv("TNGP_SYNTH", "4,32,32")
-    small = dict(num_levels=2, log2_hashmap_size=12, hidden_dim=16, hidden_dim_color=16)
-    for name, extra in (("DNeRFNetwork", dict(hidden_dim_deform=16, num_layers_deform=3)),
-                        ("DNeRFBasisNetwork", dict(hidden_dim_basis=16, num_layers_basis=3)),
-                        ("DNeRFHyperNetwork", dict(hidden_dim_ambient=16)),
-                        ("NGPNetwork", dict(hidden_dim_bg=16))):
-        monkeypatch.setattr(models, name, functools.partial(getattr(models, name),
-                                                            **small, **extra))
-    build = common.build_configs
-
-    def small_grid(opt):
-        import dataclasses
-
-        cfg, tc = build(opt)
-        return dataclasses.replace(cfg, grid_size=32), tc
-
-    monkeypatch.setattr(common, "build_configs", small_grid)
-
-
-def test_main_nerf_tiledgrid_with_background_trains(small_models, tmp_path):
-    """`--encoding tiledgrid --bg_radius 2`: the golden tiled grid and the
-    background model train for 4 iterations (their weights move), checkpoint
-    the background's weights and export a mesh."""
-    from tngp_torch.cli import main_nerf
-    from tngp_torch.models import NGPNetwork
-    from tngp_torch.utils import msgpack_codec
-
-    ref = NGPNetwork(encoding="tiledgrid", bg_radius=2.0, device="cpu", seed=0)
-    tr = main_nerf.main(["synthetic", "--iters", "4", "--encoding", "tiledgrid", "--bg_radius",
-                         "2", *FLAGS[:-2], "--workspace", str(tmp_path / "ws")])
-    assert tr.global_step == 4 and tr.model.encoder.spec.gridtype == "tiled"
-    assert np.isfinite(tr.stats["loss"]).all() and tr.stats["loss"][0] > 0
-    for name in ("encoder.embeddings", "encoder_bg.embeddings", "bg_net.dense_0"):
-        assert not torch.equal(dict(tr.model.named_parameters())[name].detach(),
-                               dict(ref.named_parameters())[name].detach()), name
-    ck = tmp_path / "ws" / "checkpoints" / "ngp_ep0001.npz"
-    params = msgpack_codec.unpackb(ck.read_bytes())["params"]["params"]
-    assert params["encoder"]["embeddings"].shape == tuple(ref.encoder.embeddings.shape)
-    assert params["encoder_bg"]["embeddings"].shape == (697_776, 2)
-    assert set(params["bg_net"]) == {"dense_0", "dense_1"}
-    assert list((tmp_path / "ws" / "meshes").glob("*.ply"))
-
-
-def test_main_dnerf_trains_resumes_and_tests(small_models, tmp_path, monkeypatch):
-    """The default model (tiledgrid): 8 iterations (2 epochs of the 4 frames),
-    a checkpoint per epoch and a validation PSNR at the frames' times; then
-    `--ckpt latest` loads epoch 2 at step 8 with run 1's weights, EMA and
-    time grid bit for bit and trains epoch 3; `--test` writes PNG frames."""
-    from tngp_torch.cli import main_dnerf
-    from tngp_torch.models import DNeRFNetwork
-    from tngp_torch.train import DNeRFTrainer
-
-    ws = str(tmp_path / "ws")
-    tr1 = main_dnerf.main(["synthetic", "--iters", "8", "--workspace", ws, *DNERF_FLAGS])
-    assert isinstance(tr1.model, DNeRFNetwork.func) and tr1.model.encoder.spec.gridtype == "tiled"
-    assert (tr1.epoch, tr1.global_step) == (2, 8) and tr1.time_size == 4
-    assert tr1.grid.bitfield.shape == (4, 32**3 // 8)
-    losses = tr1.stats["loss"]
-    assert len(losses) == 2 and all(np.isfinite(losses))
-    log = (tmp_path / "ws" / "log_ngp.txt").read_text()
-    psnr = float(log.split("[dnerf eval epoch 2]")[1].split("PSNR = ")[1].split()[0])
-    assert np.isfinite(psnr)
-    ck = tmp_path / "ws" / "checkpoints"
-    assert sorted(p.name for p in ck.glob("*.npz")) == ["ngp_ep0001.npz", "ngp_ep0002.npz"]
-    end1 = [p.detach().clone() for p in tr1.params] + [e.clone() for e in tr1.ema_params]
-    grid1 = tr1.grid.density_grid.clone()
-
-    seen = {}
-    real_train = DNeRFTrainer.train
-
-    def train_seen(self, max_epochs):
-        seen["at"] = (self.epoch, self.global_step)
-        seen["state"] = [p.detach().clone() for p in self.params] + [
-            e.clone() for e in self.ema_params]
-        seen["grid"] = self.grid.density_grid.clone()
-        return real_train(self, max_epochs)
-
-    monkeypatch.setattr(DNeRFTrainer, "train", train_seen)
-    tr2 = main_dnerf.main(["synthetic", "--iters", "12", "--ckpt", "latest", "--workspace", ws,
-                           *DNERF_FLAGS])
-    assert seen["at"] == (2, 8) and tr2.global_step == 12
-    assert all(torch.equal(a, b) for a, b in zip(seen["state"], end1))
-    assert torch.equal(seen["grid"], grid1)
-
-    main_dnerf.main(["synthetic", "--test", "--workspace", ws, *DNERF_FLAGS])
-    assert len(list((tmp_path / "ws" / "results").glob("*.png"))) == 4
-
-
-def test_main_dnerf_hyper_trains(small_models, tmp_path):
-    """`--hyper`: the 5-D tiled grid and the ambient net train (its weights
-    move: the encoder's position gradient reaches them)."""
-    from tngp_torch.cli import main_dnerf
-    from tngp_torch.models import DNeRFHyperNetwork
-
-    ws = str(tmp_path / "ws")
-    torch.manual_seed(0)
-    ref = DNeRFHyperNetwork(device="cpu", seed=0).ambient_net.dense_0.detach().clone()
-    tr = main_dnerf.main(["synthetic", "--hyper", "--iters", "4", "--workspace", ws,
-                          *DNERF_FLAGS])
-    assert tr.model.encoder.spec.input_dim == 5 and tr.global_step == 4
-    assert np.isfinite(tr.stats["loss"]).all()
-    assert not torch.equal(tr.model.ambient_net.dense_0.detach(), ref)
 
 
 def test_main_dnerf_options_that_raise(monkeypatch):
-    """`--gui` raises before anything is built, naming its ROADMAP item;
-    `--basis` with `--hyper` is a usage error."""
+    """`--basis` with `--hyper` is a usage error."""
     from tngp_torch.cli import main_dnerf
 
     monkeypatch.setenv("TNGP_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="not ported to tngp_torch yet .*ROADMAP"):
-        main_dnerf.main(["synthetic", "--gui"])
     with pytest.raises(SystemExit):
         main_dnerf.main(["synthetic", "--basis", "--hyper"])
 
 
-@pytest.mark.parametrize("flag", [["--gui"], ["--no_grid"], ["--error_map"],
-                                  ["--rand_pose", "4", "--clip_text", "a chair"],
-                                  ["--profile", "prof"]])
+@pytest.mark.parametrize("flag", [["--rand_pose", "4", "--clip_text", "a chair"]],
+                         ids=["flag3"])
 def test_unported_options_raise(monkeypatch, flag):
-    """Each raises before anything is built, naming its ROADMAP item."""
+    """CLIP guidance raises before anything is built, naming its ROADMAP
+    item."""
     from tngp_torch.cli import main_nerf
 
     monkeypatch.setenv("TNGP_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match="not ported to tngp_torch yet .*ROADMAP"):
         main_nerf.main(["synthetic", *flag])
+
+
+def test_main_nerf_error_map_no_grid_and_profile(small_models, tmp_path):
+    """`--error_map`: 8 iterations move the map off its ones, the checkpoint
+    holds it, and a resume restores it bit for bit.  `--no_grid`: the
+    grid-free path trains (no grid update) and exports a mesh.
+    `--profile`: the first epoch's trace is a non-empty Chrome trace."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.train import Trainer
+    from tngp_torch.utils import msgpack_codec
+
+    ws = str(tmp_path / "em")
+    tr = main_nerf.main(["synthetic", "--iters", "8", "--error_map", *FLAGS[:-2],
+                         "--workspace", ws])
+    em = tr.error_map.clone()
+    assert em.shape == (4, 128 * 128) and (em != 1).any() and torch.isfinite(em).all()
+    saved = msgpack_codec.unpackb((tmp_path / "em" / "checkpoints" / "ngp_ep0002.npz")
+                                  .read_bytes())["error_map"]
+    np.testing.assert_array_equal(saved, em.numpy())
+    seen = {}
+    real_train = Trainer.train
+
+    def train_seen(self, max_epochs):
+        seen["map"] = self.error_map.clone()
+        return real_train(self, max_epochs)
+
+    try:
+        Trainer.train = train_seen
+        main_nerf.main(["synthetic", "--iters", "12", "--error_map", *FLAGS[:-2],
+                        "--workspace", ws])
+    finally:
+        Trainer.train = real_train
+    assert torch.equal(seen["map"], em)
+
+    tr = main_nerf.main(["synthetic", "--iters", "4", "--no_grid", "--num_steps", "16",
+                         "--upsample_steps", "16", *FLAGS[:-2],
+                         "--workspace", str(tmp_path / "nogrid")])
+    assert not tr.use_grid and tr._grid_updates == 0 and tr.global_step == 4
+    assert np.isfinite(tr.stats["loss"]).all()
+    assert list((tmp_path / "nogrid" / "meshes").glob("*.ply"))
+
+    prof = tmp_path / "prof"
+    main_nerf.main(["synthetic", "--iters", "4", "--profile", str(prof), *FLAGS[:-2],
+                    "--workspace", str(tmp_path / "pws")])
+    traces = list(prof.glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("hash_grid" in e.get("name", "") or "aten::" in e.get("name", "")
+               for e in events)
+
+
+def _serve(main, argv):
+    """Run `main(argv)` (a `--gui` run) in a thread; return (thread, the
+    port, post(body) -> (PNG decoded, stats))."""
+    import json
+    import socket
+    import threading
+    import time
+    import urllib.request
+
+    from tngp_torch.utils.image_io import decode_png
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out = {}
+    t = threading.Thread(target=lambda: out.setdefault(
+        "trainer", main([*argv, "--gui", "--gui_port", str(port)])), daemon=True)
+    t.start()
+    deadline = time.time() + 120
+    page = None
+    while time.time() < deadline and t.is_alive():
+        try:
+            page = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=5).read()
+            break
+        except OSError:
+            time.sleep(0.2)
+    assert page and b"tngp viewer" in page and b"image/png" in page
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/render",
+                                     data=json.dumps(body).encode(), method="POST")
+        resp = urllib.request.urlopen(req, timeout=300)
+        assert resp.headers["Content-Type"] == "image/png"
+        stats = json.loads(resp.headers["X-Stats"])
+        return decode_png(resp.read()), stats
+
+    return t, out, post
+
+
+def test_gui_of_main_nerf_and_main_dnerf_serves_png_frames(small_models, tmp_path):
+    """`--gui` serves the viewer instead of training: rgb and depth frames
+    decode to the reported size, a train request advances the step, and
+    D-NeRF's viewer reports its time axis and renders at a time."""
+    from tngp_torch.cli import main_dnerf, main_nerf
+    from tngp_torch.cli.viewer import stop_viewers
+
+    from torch_cli_helpers import DNERF_FLAGS
+
+    t, out, post = _serve(main_nerf.main, ["synthetic", "--iters", "8", *FLAGS[:-2],
+                                           "--workspace", str(tmp_path / "ngp")])
+    try:
+        img, st = post({"theta": 1.2, "phi": 0.6, "radius": 2.5, "mode": "rgb"})
+        assert img.shape == (st["H"], st["W"], 3) and st["render_ms"] > 0
+        assert not st["has_time"]
+        dep, st = post({"mode": "depth", "dynres": False})
+        assert dep.shape == (st["H"], st["W"], 3) and (dep[..., 0] == dep[..., 1]).all()
+        _, st = post({"mode": "rgb", "train": True})
+        assert st["global_step"] >= 1 and st["train_steps"] >= 1 and "loss" in st
+    finally:
+        stop_viewers()
+        t.join(timeout=60)
+    assert out["trainer"].global_step == st["global_step"]
+
+    t, out, post = _serve(main_dnerf.main, ["synthetic", "--workspace", str(tmp_path / "dn"),
+                                            *DNERF_FLAGS])
+    try:
+        img, st = post({"mode": "rgb", "time": 0.5})
+        assert st["has_time"] and img.shape == (st["H"], st["W"], 3)
+    finally:
+        stop_viewers()
+        t.join(timeout=60)
+    assert not t.is_alive()

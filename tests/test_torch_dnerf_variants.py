@@ -11,6 +11,11 @@ op by op (`jax.grad` without `jit`; its hash encode is jitted inside, as in
 the package).  A JAX-written checkpoint of each loads into the port exactly,
 and the port's loads into the JAX package exactly.
 
+The forward and gradient cases and the default-width cases compile JAX
+programs; they run from test_torch_dnerf_variants_{grads,tree}_{1,2}.py,
+files of three cases each, which the tier-1 run queues behind the longest
+JAX test file.
+
 The JAX modules size their canonical encoder with the factory's defaults;
 the tests narrow it through `small_jax_encoders`.  The JAX trainers' `init`
 never reaches `background_cf`, so flax creates no background parameters
@@ -108,12 +113,17 @@ def port_shapes(net) -> dict:
     return {"params/" + n.replace(".", "/"): tuple(p.shape) for n, p in net.named_parameters()}
 
 
-@pytest.mark.parametrize("jcls,tcls,kw", [
+# `test_defaults_build_the_jax_param_tree`'s cases, split over
+# test_torch_dnerf_variants_tree_{1,2}.py
+TREE_CASES = [
     (JNGP, NGPNetwork, {}), (JDNeRF, DNeRFNetwork, {}), (JBasis, DNeRFBasisNetwork, {}),
     (JHyper, DNeRFHyperNetwork, {}), (JNGP, NGPNetwork, dict(bg_radius=2.0)),
     (JDNeRF, DNeRFNetwork, dict(bg_radius=2.0)),
-], ids=["ngp", "dnerf", "basis", "hyper", "ngp_bg", "dnerf_bg"])
-def test_defaults_build_the_jax_param_tree(jcls, tcls, kw):
+]
+TREE_IDS = ["ngp", "dnerf", "basis", "hyper", "ngp_bg", "dnerf_bg"]
+
+
+def check_defaults_build_the_jax_param_tree(jcls, tcls, kw):
     """Each class at its own defaults builds the JAX module's parameter
     names and shapes (the JAX side by `jax.eval_shape` of `init`, so no
     50-67 MB table is drawn)."""
@@ -197,9 +207,13 @@ def rel(a, b):
                  / max(np.linalg.norm(np.asarray(b, np.float64)), 1e-30))
 
 
-@pytest.mark.parametrize("name,bf16", [(n, False) for n in CASES] + [("dnerf_bg", True)],
-                         ids=list(CASES) + ["dnerf_bg_bf16"])
-def test_forward_and_gradients_match_jax(name, bf16):
+# `test_forward_and_gradients_match_jax`'s cases, split over
+# test_torch_dnerf_variants_grads_{1,2}.py
+GRAD_CASES = [(n, False) for n in CASES] + [("dnerf_bg", True)]
+GRAD_IDS = list(CASES) + ["dnerf_bg_bf16"]
+
+
+def check_forward_and_gradients_match_jax(name, bf16):
     """f32 MLPs at 1e-5 / 1e-4; bf16 MLPs (-O) at the bf16 limits of
     `test_torch_dnerf.py`: outputs 2e-2, gradients 3e-2 norm-relative (a
     layer's output rounds to bf16 in both packages, its products summed in

@@ -13,7 +13,13 @@ products summed in another order).  The VJP: 1e-5 norm-relative (the JAX
 backward runs op by op, where x * scale + shift rounds twice, so its
 weights can differ from the forward's by an f32 ulp; and summation order).
 `sph_from_ray`: 1e-6 (atan2 and sqrt in two libraries).  Losses: 1e-6
-relative."""
+relative.
+
+The cases that compile JAX programs per spec (rows, encode, VJP, the
+total-variation gradient) and the losses' run from
+test_torch_hashgrid_<spec>.py, files of at most four cases, which the
+tier-1 run queues behind the longest JAX test file; their checks are
+here."""
 
 import jax
 import jax.numpy as jnp
@@ -88,8 +94,7 @@ def test_offsets_at_default_specs(kw):
         assert ts.total_params == 697_776
 
 
-@pytest.mark.parametrize("name", list(SPECS))
-def test_rows_and_weights_exact(name):
+def check_rows_and_weights_exact(name):
     """`_level_indices_cf` on integer corners (negative ones too) and the
     level geometry on x01 in [-0.06, 1.06] against the JAX rows and
     weights, exactly."""
@@ -107,8 +112,7 @@ def test_rows_and_weights_exact(name):
         np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
 
 
-@pytest.mark.parametrize("name", list(SPECS))
-def test_encode_matches_jax(name):
+def check_encode_matches_jax(name):
     js, ts = specs(name)
     x, table = inputs(js, 2)
     want = np.asarray(J.hash_encode_cf(jnp.asarray(x), jnp.asarray(table), js))
@@ -131,8 +135,7 @@ def _vjp_both(js, ts, x, table, g):
     return np.asarray(jgx), np.asarray(jgt), xt.grad, tt.grad
 
 
-@pytest.mark.parametrize("name", list(SPECS))
-def test_vjp_matches_jax(name):
+def check_vjp_matches_jax(name):
     """The table gradient (scatter-add over each level's rows) and dy_dx."""
     js, ts = specs(name)
     x, table = inputs(js, 3)
@@ -154,8 +157,7 @@ def test_no_input_gradient_when_input_grad_is_off():
     assert rel(tgt.numpy(), jgt) <= 1e-5
 
 
-@pytest.mark.parametrize("name", ["hash3", "bg2"])
-def test_tv_grad_matches_jax(name):
+def check_tv_grad_matches_jax(name):
     js, ts = specs(name)
     x, table = inputs(js, 7, lo=0.0, hi=1.0)
     want = np.asarray(J.hash_encode_tv_grad(jnp.asarray(x.T), jnp.asarray(table), js, 1e-3))
@@ -215,7 +217,7 @@ def test_morton3d_matches_jax_and_inverts():
         np.asarray(jgu.morton3d_invert(jnp.asarray(want.astype(np.uint32)))), c)
 
 
-def test_losses_match_jax():
+def check_losses_match_jax():
     rng = np.random.default_rng(11)
     pred, tgt = rng.normal(0, 1, (2, 64, 3)).astype(np.float32)
     w = rng.uniform(0, 1, (16, 24)).astype(np.float32)

@@ -1,0 +1,37 @@
+"""The golden hash grid on the `tiled3` spec of `test_torch_hashgrid.py`
+against the JAX package (and the losses): cases of that file (its set-up,
+checks and tolerances), in a file of at most four cases that the tier-1 run
+queues behind the longest JAX test file."""
+
+import pytest
+
+from test_torch_hashgrid import (
+    check_encode_matches_jax,
+    check_losses_match_jax,
+    check_rows_and_weights_exact,
+    check_vjp_matches_jax,
+)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+
+@pytest.mark.parametrize("name", ["tiled3"])
+def test_rows_and_weights_exact(name):
+    """The rows and corner weights against the JAX package's."""
+    check_rows_and_weights_exact(name)
+
+
+@pytest.mark.parametrize("name", ["tiled3"])
+def test_encode_matches_jax(name):
+    """The encode against the JAX package's."""
+    check_encode_matches_jax(name)
+
+
+@pytest.mark.parametrize("name", ["tiled3"])
+def test_vjp_matches_jax(name):
+    """The table gradient and dy_dx against the JAX package's."""
+    check_vjp_matches_jax(name)
+
+
+def test_losses_match_jax():
+    """mape, huber and the distortion loss and their gradients."""
+    check_losses_match_jax()

@@ -24,6 +24,9 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, pkgutil, sys, tngp_torch\n"
         "for m in pkgutil.walk_packages(tngp_torch.__path__, 'tngp_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('data.sdf', 'models.sdf', 'train.sdf_trainer', 'cli.main_sdf',\n"
+        "          'cli.viewer', 'utils.profiling'):\n"
+        "    assert 'tngp_torch.' + m in sys.modules, m\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_LIBS!r})\n"
         "print(len(list(pkgutil.walk_packages(tngp_torch.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -38,6 +41,10 @@ def test_no_source_imports_jax_or_tngp():
                                                             ROOT / "bench_torch.py"]
     assert len(files) > 10
     assert {"diagnostics", "cli", "native"} <= {f.parent.name for f in files}
+    assert {"tngp_torch/data/sdf.py", "tngp_torch/models/sdf.py",
+            "tngp_torch/train/sdf_trainer.py", "tngp_torch/cli/main_sdf.py",
+            "tngp_torch/cli/viewer.py", "tngp_torch/utils/profiling.py"} <= {
+        str(f.relative_to(ROOT)) for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders
     for line in ("from tngp.ops import x\n", "import msgpack\n", "import cv2, numpy\n",

@@ -13,12 +13,9 @@ import torch
 from tngp.data.rays import full_image_rays as jax_full_image_rays
 from tngp.ops import grid_utils as jgu
 from tngp.ops import march as jm
-from tngp.ops.rays import near_far_from_aabb as jax_near_far
 from tngp_torch.data.rays import full_image_rays
 from tngp_torch.data.synthetic import orbit_poses
-from tngp_torch.ops import grid_utils as tgu
 from tngp_torch.ops import march as tm
-from tngp_torch.ops.rays import near_far_from_aabb
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 H = 32
@@ -51,23 +48,6 @@ def _both(fn_j, fn_t, *arrays, **kw):
     return j, t
 
 
-def test_near_far_packbits_probe_match():
-    o, d = _rays(64, 0)
-    (nj, fj), (nt, ft) = _both(
-        lambda a, b: jax_near_far(a, b, jnp.asarray(AABB), 0.05),
-        lambda a, b: near_far_from_aabb(a, b, AABB, 0.05), o, d)
-    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
-    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
-    rng = np.random.default_rng(1)
-    grid = rng.uniform(size=(2, 4096)).astype(np.float32)
-    bj, bt = _both(lambda g: jgu.packbits(g, 0.7), lambda g: tgu.packbits(g, 0.7), grid)
-    np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
-    cells = rng.integers(0, 8192, 5000)
-    pj, pt = _both(jgu.bitfield_probe, tgu.bitfield_probe, np.asarray(bj).reshape(-1), cells)
-    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
-    np.testing.assert_array_equal(pt.numpy(), grid.reshape(-1)[cells] > 0.7)
-
-
 @pytest.mark.parametrize("cascades,dilate", [(1, 1), (1, 3), (2, 2)])
 def test_build_dilated_cell_grid_matches(cascades, dilate):
     bound = 1.0 if cascades == 1 else 2.0
@@ -75,63 +55,6 @@ def test_build_dilated_cell_grid_matches(cascades, dilate):
     gj, gt = _both(lambda b: jm.build_dilated_cell_grid(b, **kw),
                    lambda b: tm.build_dilated_cell_grid(b, **kw), _bitfield(2, cascades))
     np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
-
-
-def test_nonzero_static_matches_jnp():
-    rng = np.random.default_rng(3)
-    for n_set, size in ((50, 80), (50, 20), (0, 16)):
-        mask = np.zeros(300, bool)
-        mask[rng.permutation(300)[:n_set]] = True
-        (want,) = jnp.nonzero(jnp.asarray(mask), size=size, fill_value=299)
-        got = tm.nonzero_static(torch.from_numpy(mask), size, 299)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-@pytest.mark.parametrize(
-    "M_budget,ladder_steps,ray_chunk_cap,chunk_budget,noise",
-    [
-        (4096, None, None, None, False),  # budget covers everything
-        (1024, None, 8, 2048, False),  # eval first pass: cap + chunk budget
-        (640, 128, None, None, True),  # ladder window + noise, budget drops
-        (512, 64, 2, 256, False),  # every truncation mode at once
-    ],
-)
-def test_march_rays_chunked_exact(M_budget, ladder_steps, ray_chunk_cap, chunk_budget,
-                                  noise):
-    """Integer outputs exact; t0 and resume_t equal too (the same f32
-    expressions evaluate bit for bit) — allclose at 1 ulp is the stated
-    tolerance for the floats."""
-    N, S = 96, 256
-    o, d = _rays(N, 4)
-    bf = _bitfield(5)
-    nears, fars = jax_near_far(jnp.asarray(o), jnp.asarray(d), jnp.asarray(AABB), 0.05)
-    nears, fars = np.asarray(nears), np.asarray(fars)
-    nz = np.random.default_rng(6).uniform(size=N).astype(np.float32) if noise else None
-    kw = dict(bound=1.0, cascades=1, grid_size=H, dt_gamma=0.0, max_steps=S,
-              M_budget=M_budget, G=8, chunk_budget=chunk_budget,
-              ladder_steps=ladder_steps, ray_chunk_cap=ray_chunk_cap)
-    cj = jm.march_rays_chunked(jnp.asarray(o), jnp.asarray(d), jnp.asarray(nears),
-                               jnp.asarray(fars), jnp.asarray(bf),
-                               noise=None if nz is None else jnp.asarray(nz), **kw)
-    ct = tm.march_rays_chunked(torch.from_numpy(o), torch.from_numpy(d),
-                               torch.from_numpy(nears.copy()), torch.from_numpy(fars.copy()),
-                               torch.from_numpy(bf.copy()),
-                               noise=None if nz is None else torch.from_numpy(nz), **kw)
-    for name in ("sel", "sel_valid", "m_eff", "ray_mask", "num_points"):
-        np.testing.assert_array_equal(getattr(ct, name).numpy(),
-                                      np.asarray(getattr(cj, name)), err_msg=name)
-    for name in ("t0", "resume_t"):
-        np.testing.assert_allclose(getattr(ct, name).numpy(), np.asarray(getattr(cj, name)),
-                                   rtol=1.2e-7, atol=0, err_msg=name)
-    assert 0 < int(ct.m_eff) and (M_budget == 4096 or not bool(ct.ray_mask.all()))
-
-    # ladder_samples on the selected prefix
-    lk = dict(bound=1.0, cascades=1, grid_size=H, dt_gamma=0.0, max_steps=S)
-    lj = jm.ladder_samples(cj.sel, jnp.asarray(o), jnp.asarray(d), cj.t0, **lk)
-    lt = tm.ladder_samples(ct.sel, torch.from_numpy(o), torch.from_numpy(d), ct.t0, **lk)
-    np.testing.assert_array_equal(lt[0].numpy(), np.asarray(lj[0]))
-    for a, b in zip(lt[1:], lj[1:]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1.2e-7, atol=1e-7)
 
 
 def test_full_image_rays_and_orbit_poses():
@@ -146,29 +69,3 @@ def test_full_image_rays_and_orbit_poses():
     ot, dt = full_image_rays(poses[1], intr, 30, 40, device="cpu")
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0, atol=2e-7)
-
-
-def test_occupancy_create_cell_centers_and_blob_scene():
-    """bench.py's scene: blob density at the cell centres, packed at 1.0.
-    Positions are the same f32 expressions (exact); the blob density sums
-    exp() terms, so allclose at 1e-6 relative."""
-    from tngp.data.synthetic import make_blob_field as jax_blob
-    from tngp.render import occupancy as jocc
-    from tngp_torch.data.synthetic import make_blob_field
-    from tngp_torch.render import occupancy as tocc
-
-    jg, tg = jocc.create(1, H), tocc.create(1, H, device="cpu")
-    assert tuple(tg.density_grid.shape) == jg.density_grid.shape
-    assert tuple(tg.bitfield.shape) == jg.bitfield.shape and tg.cascades == 1
-    xj = jocc._cells_to_world_cf(jocc._linear_coords(H), 0, 1.0, H, None)
-    xt = tocc.cell_centers_cf(0, 1.0, H, device="cpu")
-    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
-    dj = np.array(jax_blob(0).density(None, xj))
-    dt = make_blob_field(0, device="cpu").density(None, xt).numpy()
-    np.testing.assert_allclose(dt, dj, rtol=1e-6, atol=1e-6)
-    sj, rj = jax_blob(0).sigma_rgb(None, xj[:, :500], xj[:, :500])
-    st, rt = make_blob_field(0, device="cpu").sigma_rgb(None, xt[:, :500], xt[:, :500])
-    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(tgu.packbits(torch.from_numpy(dj), 1.0).numpy(),
-                                  np.asarray(jgu.packbits(jnp.asarray(dj), 1.0)))

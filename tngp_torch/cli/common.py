@@ -2,9 +2,9 @@
 and defaults (`add_common_args`), `build_configs` and `load_dataset`.
 
 The card is used unless `TNGP_PLATFORM=cpu` asks for the CPU; there is no
-fallback when no card is found.  Options the port has not ported yet raise
-`NotImplementedError` naming their ROADMAP item (`check_ported`); none is
-ignored.
+fallback when no card is found.  The one option the port has not ported
+yet, CLIP guidance, raises `NotImplementedError` naming its ROADMAP item
+(`check_ported`); none is ignored.
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="forbid the tier ladder from growing the budget above "
                         "compact_fraction when rays get dropped")
     p.add_argument("--profile", type=str, default="",
-                   help="directory: profile the first epoch (not ported yet)")
+                   help="directory: write a torch.profiler trace of the first epoch")
     # model
     p.add_argument("--fp16", action="store_true", help="bf16 MLPs")
     # dataset
@@ -84,9 +84,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--downscale", type=int, default=1)
     # experimental
     p.add_argument("--no_grid", action="store_true",
-                   help="uniform+importance sampling instead of the occupancy grid "
-                        "(not ported yet)")
-    p.add_argument("--error_map", action="store_true", help="not ported yet")
+                   help="uniform+importance sampling instead of the occupancy grid")
+    p.add_argument("--error_map", action="store_true",
+                   help="sample rays by a per-pixel error map")
     p.add_argument("--rand_pose", type=int, default=-1,
                    help="> 0: every Nth step is a CLIP-guided random-pose step (not ported yet)")
     p.add_argument("--clip_text", type=str, default=None,
@@ -98,18 +98,10 @@ def add_common_args(p: argparse.ArgumentParser):
 
 
 def check_ported(opt) -> None:
-    """Raise on every option whose path the port does not have yet."""
-    unported = [
-        (getattr(opt, "gui", False), "--gui", "queue 1 item 4 (cli/viewer.py)"),
-        (opt.no_grid, "--no_grid", "queue 1 item 4 (use_grid=False training)"),
-        (opt.error_map, "--error_map", "queue 1 item 4 (the error map)"),
-        (opt.rand_pose > 0 or opt.clip_text is not None, "--rand_pose/--clip_text",
-         "queue 1 item 13 (CLIP guidance)"),
-        (bool(opt.profile), "--profile", "queue 1 item 4 (--profile)"),
-    ]
-    for is_set, flag, item in unported:
-        if is_set:
-            raise NotImplementedError(f"{flag} is not ported to tngp_torch yet (ROADMAP.md {item})")
+    """Raise on the option whose path the port does not have yet."""
+    if opt.rand_pose > 0 or opt.clip_text is not None:
+        raise NotImplementedError("--rand_pose/--clip_text is not ported to tngp_torch yet "
+                                  "(ROADMAP.md queue 1 item 13 (CLIP guidance))")
 
 
 def build_configs(opt) -> tuple[RenderConfig, TrainConfig]:

@@ -7,9 +7,12 @@ Trains the deformation-field D-NeRF (`--basis`: the temporal-basis variant,
 `TNGP_PLATFORM=cpu`) over a time grid of `--time_size` slices updated every
 100 steps, with checkpoints and resume (`--ckpt latest`), then evaluates
 the validation split at each frame's time; `--test` renders the training
-poses from the latest checkpoint to PNG frames.  The dataset's frames carry
-a `time` in [0, 1] (`transforms_*.json`).  The flags and defaults are the
-JAX CLI's.
+poses from the latest checkpoint to PNG frames; `--gui` serves the web
+viewer with its time slider on `--gui_port` instead of training.  The
+dataset's frames carry a `time` in [0, 1] (`transforms_*.json`).  The
+flags and defaults are the JAX CLI's; as in the JAX package, D-NeRF's
+step neither samples by nor updates the error map, and `--no_grid` has no
+D-NeRF path.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def main(argv=None):
     p.add_argument("--time_size", type=int, default=64)
     p.add_argument("--deform_reg", type=float, default=1e-3)
     p.add_argument("--gui", action="store_true",
-                   help="launch the web viewer with a time slider (not ported yet)")
+                   help="launch the web viewer with a time slider")
     p.add_argument("--gui_port", type=int, default=7860)
     p.add_argument("--basis", action="store_true", help="temporal-basis variant")
     p.add_argument("--hyper", action="store_true", help="ambient-dimension variant")
@@ -57,6 +60,11 @@ def main(argv=None):
     trainer = DNeRFTrainer(model, train_ds, cfg, tc, valid_dataset=valid_ds,
                            time_size=opt.time_size, deform_reg=opt.deform_reg,
                            update_interval=100, device=dev)
+    if opt.gui:
+        from .viewer import run_viewer
+
+        run_viewer(trainer, port=opt.gui_port)
+        return trainer
     if opt.test:
         trainer.test(train_ds.poses)
         return trainer

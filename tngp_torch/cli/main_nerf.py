@@ -5,7 +5,9 @@
 Trains on the card (the CPU with `TNGP_PLATFORM=cpu`) with checkpoints and
 resume (`--ckpt latest`), validates, renders the test poses to PNG frames
 and exports a mesh; `--test` renders and exports from the latest
-checkpoint.  The flags and defaults are the JAX CLI's.
+checkpoint; `--gui` serves the web viewer (`cli/viewer.py`) on
+`--gui_port` instead of training; `--no_grid` trains the grid-free path.
+The flags and defaults are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ def main(argv=None):
     p.add_argument("--encoding", type=str, default="hashgrid_window",
                    choices=["hashgrid_window", "hashgrid", "tiledgrid"],
                    help="position encoder: the windowed grid, or the golden hash/tiled grid")
-    p.add_argument("--gui", action="store_true", help="launch the web viewer (not ported yet)")
+    p.add_argument("--gui", action="store_true", help="launch the web viewer")
     p.add_argument("--gui_port", type=int, default=7860)
     p.add_argument("--mesh_resolution", type=int, default=256)
     p.add_argument("--skip_test_render", action="store_true")
@@ -59,7 +61,14 @@ def main(argv=None):
         valid_ds = load_dataset(opt, "val", dev)
     except FileNotFoundError:
         valid_ds = None
-    trainer = Trainer(model, train_ds, cfg, tc, valid_dataset=valid_ds, device=dev)
+    trainer = Trainer(model, train_ds, cfg, tc, valid_dataset=valid_ds, device=dev,
+                      use_grid=not opt.no_grid)
+
+    if opt.gui:
+        from .viewer import run_viewer
+
+        run_viewer(trainer, port=opt.gui_port)
+        return trainer
 
     steps_per_epoch = tc.steps_per_epoch or train_ds.num_frames
     max_epochs = int(np.ceil(opt.iters / steps_per_epoch))

@@ -18,8 +18,9 @@ def ngp_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     'sigma_net': {'dense_i': [in, out]}, 'color_net': {...}}} (the outer
     'params' level is optional) -> {'encoder.embeddings': ..., ...}.  Every
     submodule of the tree maps the same way, so the window and the flat
-    golden tables, the background's `encoder_bg` and `bg_net`, and D-NeRF's
-    `deform_net`, `basis_net` and `ambient_net` come along."""
+    golden tables, the background's `encoder_bg` and `bg_net`, D-NeRF's
+    `deform_net`, `basis_net` and `ambient_net`, and `SDFNetwork`'s
+    `encoder` and `backbone` come along."""
     tree = params.get("params", params)
     out = {}
     for net, leaves in tree.items():
@@ -92,9 +93,10 @@ def adam_state_to_flax(optimizer: torch.optim.Adam, model: torch.nn.Module):
 
 
 def optax_adam_state_dict(optimizer: torch.optim.Adam, model: torch.nn.Module) -> dict:
-    """The flax state dict of the JAX trainer's optimizer state, optax
-    `adam` over `exponential_decay` (`tngp/train/trainer.py:51-59`): the
-    chain's first state is scale_by_adam's (count, mu, nu), its second
+    """The flax state dict of the JAX trainers' optimizer state, optax
+    `adam` over `exponential_decay` (`tngp/train/trainer.py:51-59`, and the
+    SDF trainer's staircase schedule, `tngp/train/sdf_trainer.py:49-58`):
+    the chain's first state is scale_by_adam's (count, mu, nu), its second
     the schedule's count.  Counts are int32 0-d arrays."""
     count, mu, nu = adam_state_to_flax(optimizer, model)
     c = np.asarray(count, np.int32)

@@ -1,6 +1,7 @@
-"""Mesh export on the host: isosurface extraction by marching tetrahedra and
-PLY / OBJ writers — the port of `tngp/native/__init__.py`
-(`marching_tetrahedra`, `save_ply`, `save_obj`).
+"""Mesh operations on the host — the port of `tngp/native/__init__.py`:
+signed distance to a triangle mesh and area-weighted surface sampling
+(`MeshSDF`, the SDF dataset's labels), isosurface extraction by marching
+tetrahedra, the OBJ reader and the PLY / OBJ writers.
 
 `src/meshops.cpp` is the port's own copy of the JAX package's C++ source,
 byte for byte, so both packages extract the same mesh.  It is compiled with
@@ -54,6 +55,20 @@ def get_lib() -> ctypes.CDLL:
                 raise RuntimeError(f"building {SOURCE} failed:\n{res.stderr}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
+        lib.sdf_build.restype = ctypes.c_void_p
+        lib.sdf_build.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int64,
+        ]
+        lib.sdf_free.argtypes = [ctypes.c_void_p]
+        lib.sdf_query.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.sdf_sample_surface.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
+            ctypes.POINTER(ctypes.c_float),
+        ]
         lib.mt_extract.restype = ctypes.c_void_p
         lib.mt_extract.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
@@ -71,21 +86,73 @@ def get_lib() -> ctypes.CDLL:
         return lib
 
 
+def _fptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _iptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+
+
+class MeshSDF:
+    """Signed distance to a triangle mesh, positive inside (a BVH for the
+    closest point, ray parity for the sign), and area-weighted sampling of
+    its surface.  The C++ state is freed with the object."""
+
+    def __init__(self, vertices: np.ndarray, faces: np.ndarray):
+        self.vertices = np.ascontiguousarray(vertices, np.float32)
+        self.faces = np.ascontiguousarray(faces, np.int32)
+        self._h = get_lib().sdf_build(_fptr(self.vertices), len(self.vertices),
+                                      _iptr(self.faces), len(self.faces))
+
+    def __call__(self, points: np.ndarray) -> np.ndarray:
+        """points [N, 3] -> signed distances [N] float32."""
+        pts = np.ascontiguousarray(points, np.float32)
+        out = np.empty(len(pts), np.float32)
+        get_lib().sdf_query(self._h, _fptr(pts), len(pts), _fptr(out))
+        return out
+
+    def sample_surface(self, n: int, seed: int = 0) -> np.ndarray:
+        """n points [n, 3] float32 on the surface, drawn from `seed`."""
+        out = np.empty((n, 3), np.float32)
+        get_lib().sdf_sample_surface(self._h, n, seed, _fptr(out))
+        return out
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h and _lib is not None:
+            _lib.sdf_free(h)
+
+
 def marching_tetrahedra(field: np.ndarray, iso: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
     """The iso surface of a [X, Y, Z] scalar field, in grid coordinates.
     Returns (vertices [V, 3] float32, faces [F, 3] int32)."""
     f = np.ascontiguousarray(field, np.float32)
     X, Y, Z = f.shape
     lib = get_lib()
-    h = lib.mt_extract(f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), X, Y, Z, iso)
+    h = lib.mt_extract(_fptr(f), X, Y, Z, iso)
     nv, nf = lib.mt_num_verts(h), lib.mt_num_faces(h)
     verts = np.empty((nv, 3), np.float32)
     faces = np.empty((nf, 3), np.int32)
     if nv:
-        lib.mt_get(h, verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                   faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+        lib.mt_get(h, _fptr(verts), _iptr(faces))
     lib.mt_free(h)
     return verts, faces
+
+
+def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The `v` and `f` records of an OBJ file (polygons fan-triangulated).
+    Returns (vertices [V, 3] float32, faces [F, 3] int32)."""
+    verts, faces = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("v "):
+                verts.append([float(t) for t in line.split()[1:4]])
+            elif line.startswith("f "):
+                idx = [int(t.split("/")[0]) - 1 for t in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
 
 
 def save_obj(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:

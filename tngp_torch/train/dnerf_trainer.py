@@ -34,6 +34,7 @@ from .trainer import Trainer, masked_mse
 
 class DNeRFTrainer(Trainer):
     adaptive_tiers = False  # the JAX package runs subclass steps at one budget
+    error_map_step = False  # the JAX D-NeRF step ignores the error map
     eval_tag = "dnerf eval"
 
     def __init__(

@@ -1,4 +1,4 @@
-"""Trainer — the port of the base NGP grid path of `tngp/train/trainer.py`:
+"""Trainer — the port of `tngp/train/trainer.py` `Trainer`:
 per-step Adam(0.9, 0.99, eps 1e-15) with the exponential lr decay to 0.1x
 over `iters`, a per-step EMA, the density-grid update and the dilated-grid
 rebuild every `update_extra_interval` steps, adaptive sample-budget tiers;
@@ -13,14 +13,26 @@ static, so a step makes no host sync; the trainer reads demand from the
 device once per grid-update interval (`host_reads` counts those reads), and
 losses stay on the device until an epoch ends.
 
+With `use_grid=False` (the CLIs' `--no_grid`) a step renders through the
+grid-free uniform + importance-sampled path (`render_rays_uniform`, every
+ray kept, num_rays * (num_steps + upsample_steps) samples), with no grid
+update and no tiers, and the eval renders that path in chunks.  With
+`TrainConfig.error_map` a [frames, 128 * 128] map of per-pixel errors
+weights each step's ray draw from its frame's row, and the step writes
+0.1 * old + 0.9 * the ray's error back at the rays' coarse pixels, where
+the ray kept all its samples (a budget-dropped ray keeps its old entry).
+`profile_dir` profiles the first epoch (`utils/profiling.py`), and each
+epoch's loss and it/s go to TensorBoard under `<workspace>/run/<name>`
+where `tensorboardX` or `torch.utils.tensorboard` imports.
+
 Subclasses (`DNeRFTrainer`) override the hooks `make_grid`, `set_grid`,
 `update_grid`, `sample_batch`, `loss_on_batch` and `render_image`, set
-`update_interval`, and run without budget tiers (`adaptive_tiers = False`),
-as the JAX package enables tiers for the base step only.
+`update_interval`, and run without budget tiers (`adaptive_tiers = False`)
+and without error-map updates (`error_map_step = False`), as the JAX
+package gives tiers and the map's update to the base step only.
 
-Not ported yet: `mesh=` (data parallelism), `use_grid=False` (the uniform
-training path), the error map, the CLIP step, TensorBoard and the profiler
-(`TrainConfig` raises on their options).
+Not ported yet: `mesh=` (data parallelism) and the CLIP step
+(`TrainConfig` raises on its options).
 """
 
 from __future__ import annotations
@@ -53,11 +65,13 @@ from ..render.renderer import (
     dilated_chunk_grid,
     render_rays_eval,
     render_rays_train,
+    render_rays_uniform,
     train_sample_budget,
 )
 from ..utils.colors import srgb_to_linear
 from ..utils.config import TrainConfig
 from ..utils.image_io import write_png
+from ..utils.profiling import profile_trace
 from . import checkpoint as ckpt_io
 from .ema import ema_init, ema_update
 from .metrics import PSNRMeter
@@ -78,16 +92,44 @@ def make_optimizer(params, tc: TrainConfig, constant_lr: bool = False):
 def masked_mse(image: torch.Tensor, gt_rgb: torch.Tensor, ray_mask: torch.Tensor):
     """Mean over kept rays of the per-ray mean squared error.  Returns
     (loss, number of kept rays)."""
-    per_ray = ((image - gt_rgb) ** 2).mean(dim=-1)
+    return masked_mean(((image - gt_rgb) ** 2).mean(dim=-1), ray_mask)
+
+
+def masked_mean(per_ray: torch.Tensor, ray_mask: torch.Tensor):
+    """(mean of `per_ray` over the kept rays, number of kept rays)."""
     rm = ray_mask.float()
     kept = rm.sum()
     return (per_ray * rm).sum() / torch.clamp(kept, min=1.0), kept
+
+
+@torch.no_grad()
+def update_error_map(error_map: torch.Tensor, frame: int, inds_coarse: torch.Tensor,
+                     per_ray: torch.Tensor, ray_mask: torch.Tensor) -> None:
+    """The error map's update, in place: at each ray's coarse pixel of row
+    `frame`, 0.1 * old + 0.9 * the ray's error where the ray kept all its
+    samples, else the old entry.  A pixel named by several rays gets one of
+    their values (which one is unspecified, as in XLA's scatter)."""
+    row = error_map[frame]
+    old = row[inds_coarse]
+    row[inds_coarse] = torch.where(ray_mask > 0, 0.1 * old + 0.9 * per_ray, old)
+
+
+def _summary_writer(logdir: str):
+    """A TensorBoard writer into `logdir`, or None where neither
+    `tensorboardX` nor `torch.utils.tensorboard` imports."""
+    for mod in ("tensorboardX", "torch.utils.tensorboard"):
+        try:
+            return __import__(mod, fromlist=["SummaryWriter"]).SummaryWriter(logdir)
+        except Exception:
+            continue
+    return None
 
 
 class Trainer:
     """Occupancy-grid NeRF trainer over an `nn.Module` field."""
 
     adaptive_tiers = True  # budget tiers for this step (the base NGP step only)
+    error_map_step = True  # the step samples by and updates the error map
     eval_tag = "eval"  # the tag of evaluate's log line
 
     def __init__(
@@ -101,13 +143,15 @@ class Trainer:
         device="cuda",
         constant_lr: bool = False,  # fixed lr, as a benchmark loop wants
         full_grid_updates: int = 16,  # the first updates query every cell
+        use_grid: bool = True,  # False: the grid-free uniform path
     ):
         # ray and pose arithmetic stays true f32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        if not (cfg.march_dense and 0.0 < cfg.compact_fraction < 1.0):
+        if use_grid and not (cfg.march_dense and 0.0 < cfg.compact_fraction < 1.0):
             raise NotImplementedError(
                 "the trainer runs the march_dense path with compact_fraction in (0, 1)")
+        self.use_grid = use_grid
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -131,6 +175,9 @@ class Trainer:
         self.H, self.W = dataset.H, dataset.W
         self.n_frames = dataset.num_frames
         self.channels = int(self.images.shape[-1])
+        self.error_map = (
+            torch.ones((self.n_frames, 128 * 128), dtype=torch.float32, device=self.device)
+            if tc.error_map else None)
 
         # params / optimizer / ema / grid
         self.params = [p for p in self.model.parameters() if p.requires_grad]
@@ -149,12 +196,13 @@ class Trainer:
         self._frame_renderers: dict = {}  # (chunk, cfg) -> FrameRenderer
         # the log file, written once the workspace exists (the CLI makes it)
         self.log_path = os.path.join(tc.workspace, f"log_{tc.name}.txt")
+        self.writer = None  # TensorBoard's, made at the first scalar (`log_scalars`)
 
         # adaptive sample-budget tiers: fractions of the configured one, an
         # overdrive tier above it, each with its static sample budget
         f = cfg.compact_fraction
         fracs = [f]
-        if tc.adaptive_budget and self.adaptive_tiers:
+        if tc.adaptive_budget and self.adaptive_tiers and use_grid:
             fracs = [f / 4.0, f / 2.0, f]
             f_over = min(2.0 * f, 0.9)
             if tc.adaptive_overdrive and f_over > f:
@@ -175,23 +223,60 @@ class Trainer:
             with open(self.log_path, "a") as f:
                 f.write(msg + "\n")
 
+    def log_scalars(self, **scalars):
+        """TensorBoard scalars `train/<name>` at the current step, once the
+        workspace exists (the writer is made at the first call there, and
+        is False where neither library imports)."""
+        if self.writer is None and os.path.isdir(self.tc.workspace):
+            self.writer = _summary_writer(
+                os.path.join(self.tc.workspace, "run", self.tc.name)) or False
+        if self.writer:
+            for name, value in scalars.items():
+                self.writer.add_scalar(f"train/{name}", value, self.global_step)
+
+    def set_cfg(self, cfg: RenderConfig):
+        """Replace the render config (the viewer's dt_gamma / max_steps
+        controls): the tiers' configs and budgets and the dilated chunk
+        grids are rebuilt from it; frame renderers are cached per cfg, so
+        the next frame renders with it."""
+        fracs = [c.compact_fraction for c in self._tier_cfgs]
+        self.cfg = cfg
+        self._tier_cfgs = [dataclasses.replace(cfg, compact_fraction=f) for f in fracs]
+        self._tier_M = [train_sample_budget(self.tc.num_rays, c) for c in self._tier_cfgs]
+        self.set_grid(self.grid)
+
     @property
     def tier_M(self) -> int:
         """The sample budget of the current tier."""
         return self._tier_M[self._tier]
 
     # --------------------------------------------------------------- train step
+    @property
+    def uses_error_map(self) -> bool:
+        return self.error_map is not None and self.error_map_step
+
     def sample_batch(self):
         """One step's rays, targets, march noise and background, drawn on the
         device (the frame index on the host, from a numpy generator: no
         tensor is read back).  Returns dict(frame, rays_o, rays_d, gt_rgb,
-        noise, bg), `frame` the host index."""
+        noise, bg), `frame` the host index; with the error map the rays are
+        drawn by the frame's row and `inds_coarse` holds their coarse
+        pixels; on the grid-free path `perturb` [N, num_steps] and `u` [N,
+        upsample_steps] replace `noise`."""
         N = self.tc.num_rays
         idx = int(self.host_rng.integers(self.n_frames))
         r = sample_rays(self.poses[idx], self.intrinsics, self.H, self.W, N,
-                        generator=self.gen, patch_size=self.tc.patch_size)
+                        generator=self.gen, patch_size=self.tc.patch_size,
+                        error_map=self.error_map[idx] if self.uses_error_map else None)
         gt = self.images[idx].reshape(-1, self.channels)[r["inds"]]  # [N, C]
-        noise = torch.rand((N,), generator=self.gen, device=self.device)
+        extra = {}
+        if self.use_grid:
+            extra["noise"] = torch.rand((N,), generator=self.gen, device=self.device)
+        else:
+            for k, S in (("perturb", self.cfg.num_steps), ("u", self.cfg.upsample_steps)):
+                extra[k] = torch.rand((N, S), generator=self.gen, device=self.device)
+        if "inds_coarse" in r:
+            extra["inds_coarse"] = r["inds_coarse"]
         if self.channels == 4 and self.cfg.bg_radius <= 0:
             bg = torch.rand((N, 3), generator=self.gen, device=self.device)
             gt_rgb = gt[:, :3] * gt[:, 3:] + bg * (1.0 - gt[:, 3:])
@@ -199,29 +284,52 @@ class Trainer:
             bg = None  # -> 1.0 inside the render
             gt_rgb = gt[:, :3]
         return {"frame": idx, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
-                "gt_rgb": gt_rgb, "noise": noise, "bg": bg}
+                "gt_rgb": gt_rgb, "bg": bg, **extra}
 
     def loss_on_batch(self, batch):
-        """Render the batch at the current tier and return (loss, num_points,
-        kept rays), all on the device, the loss with its graph."""
-        out = render_rays_train(
-            self.field, None, batch["rays_o"], batch["rays_d"], self.grid.bitfield,
-            self._tier_cfgs[self._tier], noise=batch["noise"], bg_color=batch["bg"],
-            dilated_grid=self._dgrid,
-        )
-        loss, kept = masked_mse(out["image"], batch["gt_rgb"], out["ray_mask"])
-        return loss, out["num_points"], kept
+        """Render the batch at the current tier (or on the grid-free path)
+        and return (loss, num_points, kept rays), all on the device, the loss
+        with its graph.  With the error map the rays' errors and mask go
+        into the batch (`per_ray`, `ray_mask`) for `train_step`'s update."""
+        N = batch["rays_o"].shape[0]
+        if self.use_grid:
+            out = render_rays_train(
+                self.field, None, batch["rays_o"], batch["rays_d"], self.grid.bitfield,
+                self._tier_cfgs[self._tier], noise=batch["noise"], bg_color=batch["bg"],
+                dilated_grid=self._dgrid,
+            )
+            ray_mask, npts = out["ray_mask"], out["num_points"]
+        else:
+            cfg = self.cfg
+            out = render_rays_uniform(
+                self.field, None, batch["rays_o"], batch["rays_d"], cfg,
+                num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps,
+                perturb=batch["perturb"], u=batch["u"], bg_color=batch["bg"],
+            )
+            ray_mask = torch.ones((N,), dtype=torch.bool, device=self.device)
+            npts = torch.full((), N * (cfg.num_steps + cfg.upsample_steps),
+                              dtype=torch.int32, device=self.device)
+        per_ray = ((out["image"] - batch["gt_rgb"]) ** 2).mean(dim=-1)
+        loss, kept = masked_mean(per_ray, ray_mask)
+        if self.uses_error_map:
+            batch["per_ray"], batch["ray_mask"] = per_ray.detach(), ray_mask
+        return loss, npts, kept
 
-    def train_step(self):
-        """One optimiser step with the per-step EMA.  Returns (loss,
+    def train_step(self, batch=None):
+        """One optimiser step with the per-step EMA (and the error map's
+        update) on `batch`, sampled here when None.  Returns (loss,
         num_points, kept rays) as device scalars; makes no host sync."""
-        loss, npts, kept = self.loss_on_batch(self.sample_batch())
+        batch = self.sample_batch() if batch is None else batch
+        loss, npts, kept = self.loss_on_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         ema_update(self.ema_params, self.params, self.tc.ema_decay)
+        if self.uses_error_map:
+            update_error_map(self.error_map, batch["frame"], batch["inds_coarse"],
+                             batch["per_ray"], batch["ray_mask"])
         self.global_step += 1
         return loss.detach(), npts, kept
 
@@ -252,7 +360,7 @@ class Trainer:
         march changes only with the bitfield: it is rebuilt here and nowhere
         else, never inside a step."""
         self.grid = grid
-        self._dgrid = dilated_chunk_grid(grid.bitfield, self.cfg)
+        self._dgrid = dilated_chunk_grid(grid.bitfield, self.cfg) if self.use_grid else None
 
     def update_grid(self):
         """One density-grid update from the live field (`run_steps` calls it
@@ -268,12 +376,12 @@ class Trainer:
 
     def run_steps(self, steps: int):
         """`steps` train steps with the grid update and the tier read at
-        every `update_interval`-th step.  Returns (losses, num_points, kept)
-        as device tensors [steps]; the only host reads are the tier reads,
-        one per interval."""
+        every `update_interval`-th step (none on the grid-free path).
+        Returns (losses, num_points, kept) as device tensors [steps]; the
+        only host reads are the tier reads, one per interval."""
         losses, pts, kepts = [], [], []
         for _ in range(steps):
-            if self.global_step % self.update_interval == 0:
+            if self.use_grid and self.global_step % self.update_interval == 0:
                 if len(self._tier_M) > 1 and pts:
                     # one host read per grid-update interval
                     demand, kept = torch.stack([pts[-1].float(), kepts[-1]]).tolist()
@@ -287,6 +395,16 @@ class Trainer:
         return torch.stack(losses), torch.stack(pts), torch.stack(kepts)
 
     def train_one_epoch(self, steps: int) -> float:
+        """`steps` steps; the first epoch runs under the profiler when
+        `profile_dir` is set.  Returns the epoch's mean loss."""
+        if self.tc.profile_dir and self.epoch <= 1:
+            with profile_trace(self.tc.profile_dir):
+                avg = self._train_one_epoch(steps)
+            self.log(f"profiler trace written to {self.tc.profile_dir}")
+            return avg
+        return self._train_one_epoch(steps)
+
+    def _train_one_epoch(self, steps: int) -> float:
         t0 = time.time()
         losses, pts, _ = self.run_steps(steps)
         total_loss, total_pts = torch.stack([losses.sum(), pts.sum().float()]).tolist()
@@ -294,6 +412,7 @@ class Trainer:
         dt = time.time() - t0
         avg = total_loss / steps
         self.stats["loss"].append(avg)
+        self.log_scalars(loss=avg, its_per_s=steps / dt)
         self.log(f"[epoch {self.epoch}] loss={avg:.6f} "
                  f"psnr~{-10 * np.log10(max(avg, 1e-12)):.2f} steps={steps} "
                  f"{steps / dt:.1f} it/s pts/step={int(total_pts) // steps}")
@@ -356,7 +475,7 @@ class Trainer:
         holds the frame renderer's `last_stats` and `last_render_cut` its
         `last_cut`."""
         cfg = self.cfg
-        if not (cfg.eval_stream and cfg.march_chunk > 0
+        if not (self.use_grid and cfg.eval_stream and cfg.march_chunk > 0
                 and cfg.max_steps % cfg.march_chunk == 0):
             return self.render_image_chunked(pose, intrinsics, use_ema, chunk, bg_color, W, H)
         fr = self.frame_renderer(chunk)
@@ -379,11 +498,13 @@ class Trainer:
     def render_image_chunked(self, pose, intrinsics=None, use_ema: bool = True,
                              chunk: int = 4096, bg_color=None, W=None, H=None):
         """Full-image eval render in `chunk`-ray pieces of `render_rays_eval`
-        (zero-padded to whole chunks), each with its own residual rounds.
-        Arguments and return as `render_image`; `last_render_stats` holds
-        the samples queried, the valid ones, the residual rounds, the host
-        reads and the chunk count, `last_render_cut` (a device tensor
-        [H, W]) the rays a chunk's round cap left alive."""
+        (zero-padded to whole chunks), each with its own residual rounds, or
+        on the grid-free path of the deterministic `render_rays_uniform`
+        under the current cfg.  Arguments and return as `render_image`;
+        `last_render_stats` holds the samples queried, the valid ones, the
+        residual rounds, the host reads and the chunk count,
+        `last_render_cut` (a device tensor [H, W]) the rays a chunk's round
+        cap left alive."""
         return self._render_frame(pose, intrinsics, use_ema, chunk, bg_color, W, H,
                                   self.field, self.grid.bitfield)
 
@@ -396,15 +517,20 @@ class Trainer:
         pad = (-n) % chunk
         o = torch.nn.functional.pad(o, (0, 0, 0, pad))
         d = torch.nn.functional.pad(d, (0, 0, 0, pad))
-        if dgrid is None:
-            dgrid = dilated_chunk_grid(bitfield, self.cfg)
+        cfg = self.cfg
+        if dgrid is None and self.use_grid:
+            dgrid = dilated_chunk_grid(bitfield, cfg)
         imgs, deps, cuts = [], [], []
         stats = {"samples": 0, "valid_samples": 0, "rounds": 0, "host_reads": 0, "chunks": 0}
         with self.ema_weights() if use_ema else contextlib.nullcontext():
             for s in range(0, n + pad, chunk):
-                out = render_rays_eval(field, None, o[s:s + chunk], d[s:s + chunk],
-                                       bitfield, self.cfg, bg_color=bg_color,
-                                       dilated_grid=dgrid)
+                if self.use_grid:
+                    out = render_rays_eval(field, None, o[s:s + chunk], d[s:s + chunk],
+                                           bitfield, cfg, bg_color=bg_color,
+                                           dilated_grid=dgrid)
+                else:
+                    out = self._uniform_eval_chunk(field, o[s:s + chunk], d[s:s + chunk],
+                                                   bg_color)
                 imgs.append(out["image"])
                 deps.append(out["depth"])
                 cuts.append(out["cut"])
@@ -416,6 +542,16 @@ class Trainer:
         img = torch.cat(imgs)[:n].reshape(H, W, 3).cpu().numpy()
         dep = torch.cat(deps)[:n].reshape(H, W).cpu().numpy()
         return img, dep
+
+    def _uniform_eval_chunk(self, field, o, d, bg_color) -> dict:
+        """One chunk of the grid-free eval, with `render_rays_eval`'s keys."""
+        cfg = self.cfg
+        with torch.no_grad():
+            out = render_rays_uniform(field, None, o, d, cfg, num_steps=cfg.num_steps,
+                                      upsample_steps=cfg.upsample_steps, bg_color=bg_color)
+        m = o.shape[0] * (cfg.num_steps + cfg.upsample_steps)
+        return {**out, "cut": torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device),
+                "samples": m, "valid_samples": m, "rounds": 0, "host_reads": 0}
 
     def evaluate(self, dataset: NeRFDataset, write_images: bool = False) -> float:
         """Mean PSNR of the EMA render over the dataset's frames (RGBA
@@ -497,7 +633,8 @@ class Trainer:
             "opt_state": optax_adam_state_dict(self.optimizer, self.model),
             "ema": flax_params_from_ngp_state_dict(self._named(self.ema_params)),
             "grid": occupancy_grid_state_dict(self.grid),
-            "error_map": np.zeros(0, np.float32),
+            "error_map": (np.zeros(0, np.float32) if self.error_map is None
+                          else self.error_map.cpu().numpy().copy()),
         }
 
     def save_checkpoint(self, best: bool = False):
@@ -539,6 +676,8 @@ class Trainer:
                                                  g["mean_density"], g["iter_density"],
                                                  device=self.device))
         self._grid_updates = int(np.asarray(g["iter_density"]))
+        if self.error_map is not None:
+            self.error_map.copy_(torch.as_tensor(np.asarray(payload["error_map"], np.float32)))
         self.epoch = meta.get("epoch", 0)
         self.global_step = meta.get("global_step", 0)
         best = (meta.get("stats") or {}).get("best_result")

@@ -9,11 +9,9 @@ from typing import Optional
 
 # option -> (its default, the ROADMAP queue 1 item that ports it)
 _NOT_PORTED = {
-    "error_map": (False, "item 4 (the error map)"),
     "rand_pose": (-1, "item 13 (CLIP guidance)"),
     "clip_text": (None, "item 13 (CLIP guidance)"),
     "clip_model_path": ("openai/clip-vit-base-patch16", "item 13 (CLIP guidance)"),
-    "profile_dir": ("", "item 4 (--profile)"),
 }
 
 

@@ -6,6 +6,8 @@ numpy from the PNG specification (https://www.w3.org/TR/png/):
   [H, W] or [H, W, C] in the file's channel order (RGB(A), where cv2 gives
   BGR(A)).
 - `write_png`: 8-bit grayscale, RGB or RGBA arrays, every row unfiltered.
+- `encode_png` / `decode_png`: the same codec on bytes in memory (the
+  web viewer's frames).
 - `downscale_area`: shrink by an integer factor as `cv2.resize(...,
   interpolation=cv2.INTER_AREA)` does to (W // f, H // f): a box mean of
   f x f pixels rounded half up when f divides both sides, else cv2's
@@ -59,7 +61,11 @@ def _unfilter_slow(ftype: int, row: bytearray, prior: bytes, bpp: int) -> None:
 
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_png` of a PNG file's bytes (`path` names it in errors)."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
@@ -111,6 +117,13 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Write uint8 [H, W], [H, W, 3] or [H, W, 4] as an 8-bit PNG."""
+    data = encode_png(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """The bytes of `write_png`'s file (`level`: zlib's compression level)."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"write_png expects uint8, got {img.dtype}")
@@ -120,11 +133,12 @@ def write_png(path: str, img: np.ndarray) -> None:
         raise ValueError(f"write_png expects [H, W], [H, W, 3] or [H, W, 4], got {img.shape}")
     H, W = img.shape[:2]
     rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * C)], axis=1)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+    return b"".join([
+        _SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)),
+        _chunk(b"IEND", b""),
+    ])
 
 
 def _area_weights(n_src: int, n_dst: int) -> np.ndarray:
