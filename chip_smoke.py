@@ -131,6 +131,37 @@ Phases (any failure exits non-zero and prints no result line):
      within 0.12 of the sphere's, then `python -m tngp_torch.cli.main_sdf
      sphere` for 2 epochs of 20 steps (mesh at 128^3) and a resumed run
      bitwise from its checkpoint;
+  6g. TensoRF at full width (`tensorf_phase`): `TensoRFNetwork` VM at the
+     CLI's defaults (resolution0 128, ranks 16 / 48, colour features 27,
+     3x128 bf16 MLP) on phase 4's scene and render config, 4096 rays a
+     step, density_thresh 10 (the CLI's), lr 1e-2, milestones (128, 176,
+     224, 272, 320) (cut from the CLI's 2000-7000) towards resolution1 300:
+     a step through the kernels
+     against the plain path (each of its 12 factor gradients'
+     `scatter_add_any` on the step's own inputs within the reordering
+     bound), 64 timed steps at 128 (12 launches a step), the five shrinks
+     and upsamples (one must crop; the last ends at the 300^3 voxel budget),
+     the same check and 64 timed steps at the last resolution, the loss
+     falling, the EMA PSNR over the 12 views; CP at ranks 96 / 288 for 32
+     steps (6 launches a step, its check); then `main_tensorf` on the blob
+     scene as a blender dataset at the CLI's defaults with
+     `--upsample_model_steps 48` (appended to the five defaults: one
+     upsample, to the 300^3 budget) for 96 iterations, `--ckpt latest`
+     resuming across that upsample bitwise, and `--cp` for 24;
+  6h. CCNeRF at full width (`ccnerf_phase`): `CCConfig` defaults
+     (resolution 128, SH degree 4, five groups), 4096 rays x 128 slots of
+     the slab march (max_steps 512), lr1 2e-2 / lr2 1e-3: a step through the
+     kernels against the plain path (its 30 factor gradients within the
+     reordering bound), 64 timed steps (30 launches a step), each of the five
+     prefixes' losses on a fixed batch falling; `cc_finalize` keeping the
+     frame within 1e-3, the five default `--rank_levels` compressions'
+     PSNR and parameter counts, a two-object `CCScene` frame on its own
+     occupancy grid; `main_ccnerf` at the CLI's defaults for 48 iterations
+     (six `cc_models` files), then `--compose` (six objects, finite);
+     then `tngp_torch.diagnostics.tensor_steps` in a subprocess (its own
+     profiler session): the device ms a step of the same trainers (TensoRF
+     VM at 128 and at its last resolution, CCNeRF), and the idle share of
+     each, 1 - that / the phase's own ms/step;
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes (the
      scatter-adds' at the frame round's, the first pass's under `shapes`;
@@ -149,7 +180,10 @@ Phases (any failure exits non-zero and prints no result line):
      shape (one a step), the whole path's under `launches_all_levels`, and
      phase 3b's frame's under `launches_per_frame`; the SDF step's level 0
      and level 15 have rows of their own, and the grid-free step's bin sort,
-     forward and table gradient theirs (`_grid_free`);
+     forward and table gradient theirs (`_grid_free`); so do the grid
+     samples' factor gradients on phases 6g and 6h's captures: TensoRF VM's
+     colour plane and line at the last resolution, CP's rank-288 line, and
+     CCNeRF's rank-64 line with its masked slots on the two centre rows;
   7b. `main_nerf synthetic --profile DIR` for 2 epochs: a non-empty Chrome
      trace of the first (last, because after a profile the profiler records
      nothing more in the process);
@@ -1427,6 +1461,429 @@ def sdf_phase(dev, seed: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# TensoRF (phase 6g): milestones cut from the CLI's (2000, 3000, 4000, 5500,
+# 7000) so that the run reaches resolution1 = 300 in TF_STEPS steps
+TF_TIMED = 64  # TensoRF: timed steps at 128 and at the last resolution
+TF_CP_STEPS = 32  # the CP model's steps (ranks 96 / 288)
+TF_CLI_ITERS = 96  # main_tensorf's first run: 8 epochs of the 12 views, an upsample at 48
+TF_CLI_UPSAMPLE = 48  # appended to the CLI's five milestones (its append quirk)
+CC_TIMED = 64  # CCNeRF: timed steps
+CC_CLI_ITERS = 48  # main_ccnerf: 4 epochs of the 12 views
+RANK_LEVELS = ((8, 0, 8, 0), (16, 2, 16, 2), (32, 4, 32, 16), (64, 8, 64, 32), (64, 16, 64, 64))
+
+
+def grid_sample_check(tr, model, label: str) -> dict:
+    """`step_kernels_vs_plain` on a batch of trainer `tr`, capturing every
+    plane and line gradient the grid samples hand to `scatter_add`; each
+    capture's `scatter_add_any` within the reordering bound against the
+    plain version (`check_scatter_add`).  Returns the step's errors, the
+    captures (idx, vals, rows) and the worst err/bound."""
+    from tngp_torch.ops import grid_sample as gs
+
+    calls = []
+    st = step_kernels_vs_plain(tr, model, label, capturing(gs, "scatter_add", calls))
+    caps = [tuple(a.detach() if torch.is_tensor(a) else a for a in c[:3]) for c in calls]
+    checks = [check_scatter_add(i, v, r, "any", f"{label}, factor gradient {k}")
+              for k, (i, v, r) in enumerate(caps)]
+    worst = max(w for _, w in checks)
+    log(f"{label}, kernels vs plain path: loss {st['loss_k']:.8f} vs {st['loss_p']:.8f}; "
+        f"gradient norm-relative errors max {max(st['rels'].values()):.2e} (<= 3e-2); "
+        f"{len(caps)} factor gradients through scatter_add_any on this step's inputs "
+        f"(shapes {sorted({(tuple(v.shape), r) for _, v, r in caps})}): max|err| vs plain "
+        f"{max(e for e, _ in checks):.3g}, worst err/bound {worst:.3f}")
+    return dict(caps=caps, errs=checks, worst=worst, rels=st["rels"])
+
+
+def timed_steps(tr, steps: int) -> tuple:
+    """`steps` steps of `tr` between two synchronizes, the launch counts
+    reset first.  Returns (seconds, losses, launches)."""
+    from tngp_torch import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    losses, _, _ = tr.run_steps(steps)
+    torch.cuda.synchronize()
+    return time.time() - t0, losses, {n: k.launches for n, k in kernels.KERNELS.items()}
+
+
+def step_device_times(cfg, seed: int) -> dict:
+    """`tngp_torch.diagnostics.tensor_steps` in a subprocess (its own
+    profiler session: this process's is kept for phase 7b): the device ms a
+    step of the trainers of phases 6g (TensoRF VM at 128 and at its last
+    resolution) and 6h (CCNeRF), built there by the same functions on the
+    same scene and render config (`cfg`, checked here)."""
+    import subprocess
+
+    from tngp_torch.diagnostics import tensor_steps
+
+    if tensor_steps.render_config() != cfg:
+        raise SystemExit(f"tensor_steps: its render config is not this run's: "
+                         f"{tensor_steps.render_config()} vs {cfg}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-m", "tngp_torch.diagnostics.tensor_steps", "--seed",
+                        str(seed)], cwd=here, capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise SystemExit(f"tensor_steps failed ({p.returncode}):\n{p.stdout[-3000:]}\n"
+                         f"{p.stderr[-3000:]}")
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    for name in ("tensorf_first", "tensorf_last", "ccnerf"):
+        r = out[name]
+        log(f"[device] {name} (resolution {r['resolution']}, from step {r['step'] - out['steps']}): "
+            f"{r['device_ms_per_step']:.3f} ms of device time a step over {out['steps']} "
+            f"profiled steps")
+        if not r["device_ms_per_step"] > 0.0:
+            raise SystemExit(f"tensor_steps: no device time recorded for {name}: {r}")
+    for k, ms, n in out["top_kernels_all_three"]:
+        log(f"[device]   {ms:10.3f} ms x{n:<6d} {k}")
+    log(f"[device] tensor_steps subprocess {time.time() - t0:.1f} s")
+    return out
+
+
+def idle_share(device: dict, name: str, wall_ms: float, label: str) -> float:
+    """1 - the profiled device ms a step of `name` / the phase's own wall
+    a step (`wall_ms`, the host clock, unprofiled), logged with both."""
+    dev_ms = device[name]["device_ms_per_step"]
+    share = 1.0 - dev_ms / wall_ms
+    log(f"[idle] {label}: {wall_ms:.2f} ms/step (the phase's timed window) against "
+        f"{dev_ms:.3f} ms of device time a step (tensor_steps): idle share {share:.3f}")
+    if not share < 1.0:
+        raise SystemExit(f"[idle] {label}: no device time")
+    return share
+
+
+def tensorf_phase(dev, ds, cfg, seed: int) -> dict:
+    """TensoRF at full width (phase 6g): `tensor_steps.tensorf_trainer`,
+    `TensoRFNetwork` VM at the CLI's defaults (resolution0 128, ranks 16 /
+    48, colour features 27, 3x128 bf16 MLP) on the blob scene `ds`, 4096
+    rays a step, bench.py's render config `cfg` with the CLI's
+    density_thresh 10, lr 1e-2, milestones TF_MILESTONES towards
+    resolution1 300.  After TF_WARM steps, one step
+    through the kernels against the plain path (each factor gradient's
+    scatter_add_any on that step's inputs within the reordering bound);
+    TF_TIMED timed steps at 128, the kernel 12 times a step; on to TF_STEPS
+    across the five shrinks and upsamples (at least one shrink must crop,
+    the last must end at the 300^3 voxel budget); the same check and
+    TF_TIMED timed steps at the last resolution, 12 launches a step; the
+    loss falls and the EMA's PSNR over the 12 views.  Then CP at ranks 96 /
+    288 for TF_CP_STEPS steps (6 launches a step, its check), and the entry
+    point (`tensorf_cli_runs`).  Returns the numbers and the captures phase
+    7 times."""
+    import shutil
+    import tempfile
+
+    from tngp_torch.diagnostics.tensor_steps import (TF_MILESTONES, TF_STEPS, TF_WARM,
+                                                     tensorf_trainer)
+    from tngp_torch.models import TensoRFNetwork
+    from tngp_torch.train import TensoRFTrainer
+
+    t_phase = time.time()
+    tr = tensorf_trainer(ds, cfg, seed, dev)
+    model, cfg, tc = tr.model, tr.cfg, tr.tc
+    n_params = sum(p.numel() for p in tr.params)
+    log(f"[tensorf] VM {model.resolution}, ranks {model.sigma_rank} / {model.color_rank}, "
+        f"{n_params:,} parameters; milestones {TF_MILESTONES} -> {tr.upsample_resolutions}")
+    loss_w, _, _ = tr.run_steps(TF_WARM)
+    first = grid_sample_check(tr, model, "[tensorf] a VM step at 128")
+    if len(first["caps"]) != 12:
+        raise SystemExit(f"[tensorf] {len(first['caps'])} factor gradients in a VM step, not 12")
+    del first
+    dt1, loss1, la1 = timed_steps(tr, TF_TIMED)
+    ms1 = dt1 / TF_TIMED * 1e3
+    if la1["scatter_add_any"] != 12 * TF_TIMED:
+        raise SystemExit(f"[tensorf] scatter_add_any {la1['scatter_add_any']} times in "
+                         f"{TF_TIMED} steps, not 12 a step")
+    loss_m, _, _ = tr.run_steps(TF_STEPS - tr.global_step)
+    ups = tr.upsamples
+    for u in ups:
+        log(f"[tensorf] step {u['step']}: {u['old']} -> shrunk {u['shrunk']} -> {u['new']}, "
+            f"box {[round(a, 3) for a in u['aabb']]} (threshold {u['thresh']:.3f})")
+    res = tuple(tr.model.resolution)
+    if [u["step"] for u in ups] != list(TF_MILESTONES):
+        raise SystemExit(f"[tensorf] upsamples at {[u['step'] for u in ups]}")
+    if not any(u["shrunk"] != u["old"] for u in ups):
+        raise SystemExit("[tensorf] no shrink cropped the factors")
+    if not abs(np.prod(res) / 300**3 - 1) < 0.05:
+        raise SystemExit(f"[tensorf] the last resolution {res} is not the 300^3 budget")
+    last = grid_sample_check(tr, tr.model, f"[tensorf] a VM step at {res}")
+    dt2, loss2, la2 = timed_steps(tr, TF_TIMED)
+    ms2 = dt2 / TF_TIMED * 1e3
+    if la2["scatter_add_any"] != 12 * TF_TIMED:
+        raise SystemExit(f"[tensorf] scatter_add_any {la2['scatter_add_any']} times at the "
+                         f"last resolution, not 12 a step")
+    losses = torch.cat([loss_w, loss1, loss_m, loss2]).tolist()
+    first16, last16 = float(np.mean(losses[:16])), float(np.mean(losses[-16:]))
+    psnr = tr.evaluate(ds)
+    log(f"[tensorf] {TF_TIMED} timed steps at 128: {ms1:.2f} ms/step, "
+        f"{N_RAYS * 1e3 / ms1:,.0f} rays/s; at {res}: {ms2:.2f} ms/step, "
+        f"{N_RAYS * 1e3 / ms2:,.0f} rays/s (grid updates included); scatter_add_any 12 a step "
+        f"in both; loss first 16 steps {first16:.6f}, last 16 {last16:.6f}; EMA PSNR over the "
+        f"12 views {psnr:.2f} dB after {tr.global_step} steps")
+    if not (np.isfinite(losses).all() and last16 < first16 and np.isfinite(psnr)):
+        raise SystemExit(f"[tensorf] the loss did not fall: {first16} -> {last16}, PSNR {psnr}")
+    plane = max((c for c in last["caps"] if c[2] > 1000), key=lambda c: c[1].shape[1])
+    line = max((c for c in last["caps"] if c[2] <= 1000), key=lambda c: c[1].shape[1])
+    errs = {id(c): e for c, e in zip(last["caps"], last["errs"])}
+    out = dict(ms1=ms1, ms2=ms2, res=res, psnr=psnr, launches=la2, steps=TF_TIMED,
+               plane=plane, line=line, plane_err=errs[id(plane)], line_err=errs[id(line)])
+    del tr, model, last
+
+    # CP at the CLI's --cp ranks
+    cp = TensoRFNetwork(bound=1.0, decomposition="cp", sigma_rank=(96,) * 3,
+                        color_rank=(288,) * 3, compute_dtype=torch.bfloat16, device=dev,
+                        seed=seed)
+    tr = TensoRFTrainer(cp, ds, cfg, tc, upsample_model_steps=(), device=dev)
+    tr.run_steps(1)  # the first grid update
+    chk = grid_sample_check(tr, cp, "[tensorf] a CP step at 128")
+    if len(chk["caps"]) != 6:
+        raise SystemExit(f"[tensorf] {len(chk['caps'])} factor gradients in a CP step, not 6")
+    dt3, loss3, la3 = timed_steps(tr, TF_CP_STEPS)
+    ms3 = dt3 / TF_CP_STEPS * 1e3
+    loss3 = loss3.tolist()
+    log(f"[tensorf] CP (ranks 96 / 288): {TF_CP_STEPS} steps, {ms3:.2f} ms/step, loss "
+        f"{loss3[0]:.6f} -> {np.mean(loss3[-8:]):.6f}; scatter_add_any {la3['scatter_add_any']}")
+    if la3["scatter_add_any"] != 6 * TF_CP_STEPS or not np.isfinite(loss3).all():
+        raise SystemExit(f"[tensorf] CP: scatter_add_any {la3['scatter_add_any']} times, "
+                         f"loss {loss3[-1]}")
+    cp_line = max(chk["caps"], key=lambda c: c[1].shape[1])
+    cerrs = {id(c): e for c, e in zip(chk["caps"], chk["errs"])}
+    out.update(ms_cp=ms3, cp_line=cp_line, cp_line_err=cerrs[id(cp_line)], launches_cp=la3,
+               steps_cp=TF_CP_STEPS)
+    del tr, cp, chk
+
+    root = tempfile.mkdtemp(prefix="tngp_tensorf_cli_")
+    try:
+        out.update(tensorf_cli_runs(dev, ds, root, seed))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall"] = time.time() - t_phase
+    log(f"[tensorf] phase 6g wall {out['wall']:.1f} s")
+    return out
+
+
+def blender_root(dev, ds, root: str) -> list:
+    """The blob scene `ds` as a blender-format dataset under `root` (12
+    train views; 4 held views for val and test).  Returns the held poses."""
+    from tngp_torch.data import orbit_poses
+    from tngp_torch.data.synthetic import make_blob_field, render_gt_images
+
+    held = orbit_poses(4, radius=2.35, elevation=0.3)
+    held_imgs = render_gt_images(make_blob_field(0, device=dev), held, ds.intrinsics, ds.H,
+                                 ds.W, 1.0, 512, device=dev)
+    write_blender_dataset(root, {"train": (ds.poses, ds.images, None),
+                                 "val": (held, held_imgs, None),
+                                 "test": (held, held_imgs, None)}, ds.W, float(ds.intrinsics[0]))
+    return held
+
+
+def tensorf_cli_runs(dev, ds, root: str, seed: int) -> dict:
+    """`tngp_torch.cli.main_tensorf.main` on the blob scene as a blender
+    dataset with the CLI's defaults (bound 2: 2 cascades, dt_gamma 1/128,
+    resolution0 128, resolution1 300) and -O: TF_CLI_ITERS iterations with
+    `--upsample_model_steps TF_CLI_UPSAMPLE` (appended to the five default
+    milestones, so the run upsamples once, straight to the 300^3 budget),
+    then `--ckpt latest` resumes across that upsample (the module rebuilt to
+    the checkpoint's resolution and box, the first EMA render bitwise equal
+    to run 1's last) and trains on; then `--cp` for 24 iterations."""
+    from tngp_torch.cli import main_tensorf
+
+    held = blender_root(dev, ds, root)
+    ws = os.path.join(root, "ws_tf")
+    argv = [root, "-O", "--workspace", ws, "--seed", str(seed), "--eval_interval", "10",
+            "--upsample_model_steps", str(TF_CLI_UPSAMPLE)]
+    t0 = time.time()
+    tr1 = main_tensorf.main(argv + ["--iters", str(TF_CLI_ITERS)])
+    dt1 = time.time() - t0
+    losses = tr1.stats["loss"]
+    log(f"[tensorf-cli] python -m tngp_torch.cli.main_tensorf {' '.join(argv[1:])} --iters "
+        f"{TF_CLI_ITERS}: {tr1.global_step} steps in {dt1:.1f} s (checkpoints and the "
+        f"validation images included); milestones {tr1.upsample_model_steps}; upsamples "
+        f"{[(u['step'], u['shrunk'], u['new']) for u in tr1.upsamples]}; epoch loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    if (tr1.cfg.cascades, tr1.cfg.bound) != (2, 2.0) or [u["step"] for u in tr1.upsamples] != [
+            TF_CLI_UPSAMPLE]:
+        raise SystemExit(f"[tensorf-cli] not the CLI's defaults, or no upsample: {tr1.cfg}, "
+                         f"{tr1.upsamples}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise SystemExit(f"[tensorf-cli] the loss did not fall: {losses}")
+    psnr = tr1.evaluate(tr1.valid_dataset)
+    img_last, _ = tr1.render_image(held[0])
+    end1, res1 = (tr1.epoch, tr1.global_step), tuple(tr1.model.resolution)
+    del tr1
+    resumed_run("[tensorf-cli]", lambda: main_tensorf.main(
+        argv + ["--iters", str(TF_CLI_ITERS + 2 * ds.num_frames)]),
+        lambda tr: tr.render_image(held[0])[0], img_last, end1, 2 * ds.num_frames)
+    tr_cp = main_tensorf.main([root, "-O", "--cp", "--workspace", os.path.join(root, "ws_cp"),
+                               "--seed", str(seed), "--iters", "24"])
+    lcp = tr_cp.stats["loss"]
+    log(f"[tensorf-cli] --cp: {tr_cp.global_step} steps, ranks {tr_cp.model.sigma_rank} / "
+        f"{tr_cp.model.color_rank}, epoch loss {', '.join(f'{v:.6f}' for v in lcp)}; run 1's "
+        f"validation PSNR {psnr:.2f} dB at {res1}")
+    if tr_cp.model.decomposition != "cp" or not (np.isfinite(lcp).all() and np.isfinite(psnr)):
+        raise SystemExit(f"[tensorf-cli] --cp: {tr_cp.model.decomposition}, {lcp}")
+    return dict(cli_psnr=psnr)
+
+
+def cc_prefix_losses(tr, batch) -> list:
+    """The MSE of each of the cc_cfg.K prefixes on `batch`, no gradient."""
+    with torch.no_grad():
+        tr.loss_on_batch(batch)
+    return batch["prefix_losses"].tolist()
+
+
+def ccnerf_phase(dev, ds, cfg, seed: int) -> dict:
+    """CCNeRF at full width (phase 6h): `tensor_steps.ccnerf_trainer`,
+    `CCConfig` defaults (resolution 128, SH degree 4, five groups) on the
+    blob scene `ds`, 4096 rays a step,
+    K 128 slots, max_steps 512, lr1 2e-2 / lr2 1e-3.  One step through the
+    kernels against the plain path after the first grid update (each of the
+    30 factor gradients' scatter_add_any on that step's inputs within the
+    reordering bound); CC_WARM untimed and CC_TIMED timed steps, 30 launches
+    a step; each of the five prefixes' losses on a fixed batch (drawn after
+    the first step) falling.  Then `cc_finalize`: the full-rank frame kept; the five
+    default `--rank_levels` compressions rendered (PSNR over the 12 views,
+    parameter count); a two-object `CCScene` frame on its own occupancy
+    grid; and the entry point (`ccnerf_cli_runs`)."""
+    import shutil
+    import tempfile
+
+    from tngp_torch.data import full_image_rays
+    from tngp_torch.diagnostics.tensor_steps import CC_WARM, ccnerf_trainer
+    from tngp_torch.models.ccnerf import CCNeRF, CCScene, cc_compress, cc_finalize, count_params
+    from tngp_torch.render import FieldFns, dilated_chunk_grid
+    from tngp_torch.render.frame_eval import FrameRenderer
+    from tngp_torch.render.occupancy import create, update_density_grid
+
+    t_phase = time.time()
+    tr = ccnerf_trainer(ds, cfg, seed, dev)
+    cc_cfg = tr.cc_cfg
+    n_params = sum(p.numel() for p in tr.params)
+    log(f"[ccnerf] CCConfig {cc_cfg}: {n_params:,} parameters; {N_RAYS} rays x {cfg.K} slots "
+        f"a step, max_steps {cfg.max_steps}")
+    loss_0, _, _ = tr.run_steps(1)  # the first grid update
+    probe = tr.sample_batch()
+    pl0 = cc_prefix_losses(tr, probe)
+    chk = grid_sample_check(tr, tr.model, "[ccnerf] a CC step")
+    if len(chk["caps"]) != 30:
+        raise SystemExit(f"[ccnerf] {len(chk['caps'])} factor gradients in a CC step, not 30")
+    line = max((c for c in chk["caps"] if c[2] <= 1000), key=lambda c: c[1].shape[1])
+    line_err = {id(c): e for c, e in zip(chk["caps"], chk["errs"])}[id(line)]
+    centre = torch.bincount(line[0], minlength=line[2])
+    del chk
+    loss_w, _, _ = tr.run_steps(CC_WARM)
+    dt, loss_t, la = timed_steps(tr, CC_TIMED)
+    ms = dt / CC_TIMED * 1e3
+    pl1 = cc_prefix_losses(tr, probe)
+    log(f"[ccnerf] {CC_TIMED} timed steps: {ms:.2f} ms/step, {N_RAYS * 1e3 / ms:,.0f} rays/s "
+        f"(grid updates included); scatter_add_any {la['scatter_add_any']} times (30 a step); "
+        f"loss {float(loss_0[0]):.6f} -> {float(loss_t[-8:].mean()):.6f}; the five prefixes' "
+        f"MSE on a fixed batch {[round(v, 6) for v in pl0]} -> {[round(v, 6) for v in pl1]}; "
+        f"the line gradient's busiest rows {centre.topk(2).indices.tolist()} take "
+        f"{int(centre.topk(2).values.sum()):,} of {line[0].numel():,} adds")
+    if la["scatter_add_any"] != 30 * CC_TIMED:
+        raise SystemExit(f"[ccnerf] scatter_add_any {la['scatter_add_any']} times, not 30 a step")
+    if not all(b < a for a, b in zip(pl0, pl1)):
+        raise SystemExit(f"[ccnerf] a prefix's loss did not fall: {pl0} -> {pl1}")
+
+    # finalize, the compressions, a composed scene
+    H, W = ds.H, ds.W
+    pose = ds.poses[0]
+    img_full, _ = tr.render_image(pose, use_ema=False)
+    fparams, fcfg = cc_finalize(tr.model.numpy_params(), tr.cc_cfg)
+    tr.set_model(CCNeRF(fcfg, fparams, device=dev))
+    img_fin, _ = tr.render_image(pose, use_ema=False)
+    fin_err = float(np.abs(img_fin - img_full).max())
+    log(f"[ccnerf] cc_finalize: one group of ranks {fcfg.rank_vec_density} / "
+        f"{fcfg.rank_mat_density} / {fcfg.rank_vec} / {fcfg.rank_mat}; the frame of view 0 "
+        f"within {fin_err:.2e} of the trained field's")
+    if not fin_err <= 1e-3:
+        raise SystemExit(f"[ccnerf] the finalized field's frame differs by {fin_err}")
+    levels = []
+    for ranks in RANK_LEVELS:
+        cparams, ccfg = cc_compress(fparams, fcfg, ranks)
+        tr.set_model(CCNeRF(ccfg, cparams, device=dev))
+        psnr = tr.evaluate(ds)
+        levels.append((ranks, count_params(cparams), psnr))
+    tr.set_model(CCNeRF(fcfg, fparams, device=dev))
+    psnr_full = tr.evaluate(ds)
+    log(f"[ccnerf] compressions (ranks dv, dm, cv, cm: parameters, PSNR over the 12 views): "
+        + "; ".join(f"{r}: {n:,}, {p:.2f} dB" for r, n, p in levels)
+        + f"; full {count_params(fparams):,}, {psnr_full:.2f} dB")
+    if not all(np.isfinite(p) for _, _, p in levels):
+        raise SystemExit(f"[ccnerf] a compression's PSNR is not finite: {levels}")
+    scene = CCScene(device=dev)
+    for i in range(2):
+        ang = 0.7 * i
+        R = np.array([[np.cos(ang), 0, -np.sin(ang)], [0, 1, 0],
+                      [np.sin(ang), 0, np.cos(ang)]], np.float32)
+        scene.add(fparams, fcfg, R=R, s=1.0 / (1 + 0.3 * i),
+                  t=np.array([0.4 * i - 0.4, 0, 0], np.float32))
+    field = FieldFns(sigma_rgb=lambda p, x, d: scene.sigma_rgb_cf(x, d),
+                     density=lambda p, x: scene.density_cf(x)["sigma"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grid = update_density_grid(create(cfg.cascades, cfg.grid_size, device=dev), None, gen,
+                               density_fn=field.density, bound=cfg.bound,
+                               grid_size=cfg.grid_size, density_thresh=cfg.density_thresh,
+                               full=True)
+    o, d = full_image_rays(torch.as_tensor(pose, device=dev), torch.as_tensor(
+        ds.intrinsics, device=dev), H, W, device=dev)
+    with torch.no_grad():
+        img_s, _ = FrameRenderer(field, cfg, chunk=4096).render(
+            None, o, d, grid.bitfield, dilated_chunk_grid(grid.bitfield, cfg), None)
+    img_s = img_s.reshape(H, W, 3).cpu().numpy()
+    occ = float((grid.density_grid > cfg.density_thresh).float().mean())
+    log(f"[ccnerf] a two-object CCScene frame of view 0 ({H}x{W}, its own grid {occ:.4f} "
+        f"occupied): mean {img_s.mean():.4f}, differs from the one object's by "
+        f"{float(np.abs(img_s - img_fin).mean()):.4f} on average")
+    if not (np.isfinite(img_s).all() and np.abs(img_s - img_fin).mean() > 1e-4):
+        raise SystemExit("[ccnerf] the composed frame is not finite or not another frame")
+    del tr, scene
+    root = tempfile.mkdtemp(prefix="tngp_ccnerf_cli_")
+    try:
+        ccnerf_cli_runs(dev, ds, root, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.time() - t_phase
+    log(f"[ccnerf] phase 6h wall {wall:.1f} s")
+    return dict(ms=ms, launches=la, steps=CC_TIMED, line=line, line_err=line_err,
+                centre=int(centre.topk(2).values.sum()), psnr_full=psnr_full)
+
+
+def ccnerf_cli_runs(dev, ds, root: str, seed: int) -> None:
+    """`tngp_torch.cli.main_ccnerf.main` on the blob scene as a blender
+    dataset with the CLI's defaults (bound 2, `CCConfig(bound=2)`) and -O
+    for CC_CLI_ITERS iterations: the full model and the five default
+    compressions in `<workspace>/cc_models/`; then `--compose` builds the
+    six-object demo scene, whose density and colour at 4096 points are
+    finite."""
+    from tngp_torch.cli import main_ccnerf
+
+    blender_root(dev, ds, root)
+    ws = os.path.join(root, "ws_cc")
+    argv = [root, "-O", "--workspace", ws, "--seed", str(seed)]
+    t0 = time.time()
+    tr = main_ccnerf.main(argv + ["--iters", str(CC_CLI_ITERS)])
+    dt = time.time() - t0
+    files = sorted(os.listdir(os.path.join(ws, "cc_models")))
+    losses = tr.stats["loss"]
+    log(f"[ccnerf-cli] python -m tngp_torch.cli.main_ccnerf {' '.join(argv[1:])} --iters "
+        f"{CC_CLI_ITERS}: {tr.global_step} steps in {dt:.1f} s; epoch loss "
+        f"{', '.join(f'{v:.6f}' for v in losses)}; cc_models {files}")
+    if len(files) != 6 or not np.isfinite(losses).all():
+        raise SystemExit(f"[ccnerf-cli] {files}, {losses}")
+    del tr
+    scene = main_ccnerf.main(argv + ["--compose"])
+    x = torch.rand((3, 4096), device=dev) * 2.0 - 1.0
+    d = torch.nn.functional.normalize(torch.randn((3, 4096), device=dev), dim=0)
+    with torch.no_grad():
+        sig, rgb = scene.sigma_rgb_cf(x, d)
+    log(f"[ccnerf-cli] --compose: {len(scene.objects)} objects; density at 4096 points in "
+        f"[{float(sig.min()):.3g}, {float(sig.max()):.3g}]")
+    if len(scene.objects) != 6 or not (torch.isfinite(sig).all() and torch.isfinite(rgb).all()):
+        raise SystemExit("[ccnerf-cli] --compose did not give a finite six-object scene")
+
+
 def profile_cli_run(seed: int) -> dict:
     """`main_nerf synthetic -O --profile DIR` for 2 epochs of the 16-frame
     blob scene: the first epoch's torch.profiler trace must be a non-empty
@@ -2305,6 +2762,18 @@ def main() -> int:
     # ---- 6f. SDF at full width, and the SDF entry point ---------------------
     sdf = sdf_phase(dev, args.seed)
 
+    # ---- 6g. TensoRF at full width, and the TensoRF entry point -------------
+    tf = tensorf_phase(dev, ds, cfg, args.seed)
+
+    # ---- 6h. CCNeRF at full width, and the CCNeRF entry point ---------------
+    cc = ccnerf_phase(dev, ds, cfg, args.seed)
+    steps_dev = step_device_times(cfg, args.seed)
+    idle = {"tensorf_first": idle_share(steps_dev, "tensorf_first", tf["ms1"],
+                                        "[tensorf] VM at 128"),
+            "tensorf_last": idle_share(steps_dev, "tensorf_last", tf["ms2"],
+                                       f"[tensorf] VM at {tf['res']}"),
+            "ccnerf": idle_share(steps_dev, "ccnerf", cc["ms"], "[ccnerf]")}
+
     # ---- 7. timing at the paths' shapes ------------------------------------
     # per callable: ms (CUDA events around 20 back-to-back calls), host_us
     # (200 calls, no sync) and, at the end of the phase because the
@@ -2474,6 +2943,32 @@ def main() -> int:
                 launches_all_levels=total, levels=sdf["levels"], steps=sdf["steps"],
                 call=f"SDF table gradient: {what}")
 
+    # TensoRF's and CCNeRF's factor gradients (phases 6g, 6h), one launch per
+    # factor in each backward (12 a VM step, 6 a CP step, 30 a CC step), on
+    # the captures of each phase's kernel check; each row's `launches`
+    # counts its own factor's (one a step), the whole path's under
+    # `launches_all_factors`
+    for label, cap, err, total, factors, steps, path, what in (
+            ("tensorf_plane", tf["plane"], tf["plane_err"], tf["launches"]["scatter_add_any"],
+             12, tf["steps"], "tensorf vm",
+             f"TensoRF VM colour plane gradient at the last resolution {tf['res']}"),
+            ("tensorf_line", tf["line"], tf["line_err"], tf["launches"]["scatter_add_any"], 12,
+             tf["steps"], "tensorf vm",
+             f"TensoRF VM colour line gradient at the last resolution {tf['res']}"),
+            ("tensorf_cp_line", tf["cp_line"], tf["cp_line_err"],
+             tf["launches_cp"]["scatter_add_any"], 6, tf["steps_cp"], "tensorf cp",
+             "TensoRF CP colour line gradient (rank 288) at resolution 128"),
+            ("ccnerf_line", cc["line"], cc["line_err"], cc["launches"]["scatter_add_any"], 30,
+             cc["steps"], "ccnerf",
+             f"CCNeRF group-0 line gradient (rank 64, align_corners=False; masked slots at "
+             f"position 0: the two centre rows take {cc['centre']:,} of the adds)")):
+        i_c, v_c, r_c = cap
+        e_c, w_c = err
+        add_row(f"scatter_add_any_{label}", "any", total // factors, e_c, i_c, v_c, r_c,
+                path=path, worst_err_over_bound=w_c, launches_per_step=total // factors // steps,
+                launches_all_factors=total, factors=factors, steps=steps,
+                adds_per_row=i_c.numel() / r_c, call=f"grid-sample factor gradient: {what}")
+
     # the backward kernel, on the inputs a training step gave it (captured
     # above), on uniform samples at the top tier and on the other inputs.
     # Bytes: samples, cotangents and block windows in, the whole gradient
@@ -2633,7 +3128,12 @@ def main() -> int:
         f"{sdf['ms_step']:.2f} ms/step ({sdf['samples_s']:,.0f} samples/s, host labels "
         f"{sdf['host_share']:.3f} of the step; bf16 {sdf['ms16']:.2f} ms/step), loss "
         f"{sdf['losses'][0]:.5f} -> {sdf['losses'][-1]:.5f}, mesh median radius "
-        f"{sdf['radius']:.4f} (sphere {sdf['rad']:.4f}); run wall {time.time() - t_run:.1f} s")
+        f"{sdf['radius']:.4f} (sphere {sdf['rad']:.4f}); TensoRF VM {tf['ms1']:.2f} ms/step at "
+        f"128, {tf['ms2']:.2f} at {tf['res']} (idle {idle['tensorf_first']:.3f}, "
+        f"{idle['tensorf_last']:.3f}), EMA PSNR {tf['psnr']:.2f} dB, CP "
+        f"{tf['ms_cp']:.2f} ms/step, CLI PSNR {tf['cli_psnr']:.2f} dB; CCNeRF {cc['ms']:.2f} "
+        f"ms/step (idle {idle['ccnerf']:.3f}), full model {cc['psnr_full']:.2f} "
+        f"dB; run wall {time.time() - t_run:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,7 +25,9 @@ def test_importing_every_module_loads_no_jax():
         "for m in pkgutil.walk_packages(tngp_torch.__path__, 'tngp_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('data.sdf', 'models.sdf', 'train.sdf_trainer', 'cli.main_sdf',\n"
-        "          'cli.viewer', 'utils.profiling'):\n"
+        "          'cli.viewer', 'utils.profiling', 'ops.grid_sample', 'models.tensorf',\n"
+        "          'models.ccnerf', 'train.tensorf_trainer', 'train.cc_trainer',\n"
+        "          'cli.main_tensorf', 'cli.main_ccnerf', 'diagnostics.tensor_steps'):\n"
         "    assert 'tngp_torch.' + m in sys.modules, m\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_LIBS!r})\n"
         "print(len(list(pkgutil.walk_packages(tngp_torch.__path__))), bad)\n"
@@ -43,7 +45,11 @@ def test_no_source_imports_jax_or_tngp():
     assert {"diagnostics", "cli", "native"} <= {f.parent.name for f in files}
     assert {"tngp_torch/data/sdf.py", "tngp_torch/models/sdf.py",
             "tngp_torch/train/sdf_trainer.py", "tngp_torch/cli/main_sdf.py",
-            "tngp_torch/cli/viewer.py", "tngp_torch/utils/profiling.py"} <= {
+            "tngp_torch/cli/viewer.py", "tngp_torch/utils/profiling.py",
+            "tngp_torch/ops/grid_sample.py", "tngp_torch/models/tensorf.py",
+            "tngp_torch/models/ccnerf.py", "tngp_torch/train/tensorf_trainer.py",
+            "tngp_torch/train/cc_trainer.py", "tngp_torch/cli/main_tensorf.py",
+            "tngp_torch/cli/main_ccnerf.py", "tngp_torch/diagnostics/tensor_steps.py"} <= {
         str(f.relative_to(ROOT)) for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders

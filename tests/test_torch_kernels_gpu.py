@@ -319,6 +319,41 @@ def test_scatter_add_matches_plain(cuda, indices, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [16, 48, 64])
+def test_scatter_add_any_at_a_line_gradient_shape(cuda, C):
+    """The general form where TensoRF's and CCNeRF's line gradients put it:
+    the two corners of 131,072 samples into a line of 128 rows, about 2,048
+    adds a row (C = 16 and 48: TensoRF VM's sigma and colour ranks, 64:
+    CCNeRF's vector groups), and a line whose slots mostly sit at one
+    position (CCNeRF's masked samples at 0: rows 63 and 64 take most
+    adds).  Each row within (n - 1) 2^-24 sum|v| of the exact (f64) sum;
+    a line gradient through `grid_sample_1d_cf_vjp` equals the scatter of
+    its own corners within the same bound."""
+    from tngp_torch.ops import grid_sample as gs
+
+    rng = np.random.default_rng(C)
+    B, D = 131_072, 128
+    w = torch.from_numpy(rng.uniform(-1, 1, B).astype(np.float32)).to(cuda)
+    w[: B // 2] = 0.0  # masked slots at position 0
+    g = torch.from_numpy(rng.normal(size=(C, B)).astype(np.float32)).to(cuda)
+    corners = gs._corners_1d(D, w, False)
+    idx = torch.cat([c[0] for c in corners])
+    vals = torch.cat([(g * c[1][None]).T for c in corners]).contiguous()
+    exact = torch.zeros((D, C), dtype=torch.float64, device=cuda).index_add_(0, idx,
+                                                                           vals.double())
+    sabs = torch.zeros((D, C), dtype=torch.float64, device=cuda).index_add_(
+        0, idx, vals.double().abs())
+    n = torch.bincount(idx, minlength=D).double()[:, None]
+    tol = (n - 1).clamp(min=0) * 2.0**-24 * sabs
+    assert int(n.max()) > B // 2  # the centre rows' contention
+    got = ks.scatter_add(idx, vals, D, indices="any")
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    line = torch.zeros((C, D), device=cuda, requires_grad=True)
+    gs.grid_sample_1d_cf_vjp(line, w, align_corners=False).backward(g)
+    assert bool(((line.grad.T.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.gpu
 def test_scatter_kernels_replay_in_a_cuda_graph(cuda):
     """`kernel_times.graph_replay_ms`, the device timing used where the
     profiler records nothing, captures each scatter-add form and the

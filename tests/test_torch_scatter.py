@@ -127,7 +127,10 @@ def test_callers_indices_hold_their_statements(monkeypatch):
     `nonzero_static(alive, Na, N - 1)` ascends, with fewer and with more
     alive rays than Na; the frame renderer's round update (the same
     compaction at each tier width) is unique, its unused slots given
-    distinct rows past the frame, which the scatter drops."""
+    distinct rows past the frame, which the scatter drops; the grid
+    samples' plane and line gradients (TensoRF VM and CP, CCNeRF's
+    `align_corners=False` factors) state "any", one call per factor, their
+    indices inside the plane or line, repeats included."""
     from tngp_torch.kernels import window_encoder as kw
     from tngp_torch.ops import composite
     from tngp_torch.ops.grid_utils import packbits
@@ -187,3 +190,30 @@ def test_callers_indices_hold_their_statements(monkeypatch):
     assert any(bool((i == r).any()) for i, r in comp)
     for i, _ in comp + rounds:
         assert _ascending(i)
+
+    from tngp_torch.models import TensoRFNetwork
+    from tngp_torch.models.ccnerf import CCConfig, CCNeRF
+    from tngp_torch.ops import grid_sample
+
+    gs_calls = []
+    _recording(monkeypatch, grid_sample, gs_calls)
+    x = torch.rand((3, 300), generator=gen) * 2.4 - 1.2
+    dd = torch.nn.functional.normalize(torch.randn((3, 300), generator=gen), dim=0)
+    for decomposition, n_calls in (("vm", 12), ("cp", 6)):
+        net = TensoRFNetwork(resolution=(8, 10, 12), sigma_rank=(2, 2, 2),
+                             color_rank=(3, 3, 3), color_feat_dim=4, hidden_dim=8,
+                             decomposition=decomposition, device="cpu")
+        before = len(gs_calls)
+        sig, rgb = net.sigma_rgb_cf(x, dd)
+        (sig.sum() + rgb.sum()).backward()
+        assert len(gs_calls) - before == n_calls
+    cc = CCNeRF(CCConfig(resolution=(8, 10, 12), rank_vec_density=(2, 2),
+                         rank_mat_density=(0, 2), rank_vec=(2, 2), rank_mat=(0, 2)),
+                device="cpu")
+    before = len(gs_calls)
+    sig, rgb = cc.sigma_rgb_cf(x, dd, residual=True)
+    (sig.sum() + rgb.sum()).backward()
+    assert len(gs_calls) - before == 12  # 3 factors x (vd, md, vc, mc)
+    assert {s for _, _, s, _ in gs_calls} == {"any"}
+    for _, i, _, r in gs_calls:
+        assert int(i.min()) >= 0 and int(i.max()) < r and torch.unique(i).numel() < i.numel()

@@ -1,7 +1,8 @@
 """Transmittance compositing — the port of `tngp/ops/composite.py`:
 `composite_stream` over globally compacted samples, with its closed-form
-backward (`_composite_stream_core_bwd`).  The `[N, K]` slab compositors
-(`composite_weights`, `composite_rays_cf`) come with the slab render branch.
+backward (`_composite_stream_core_bwd`), and the `[N, K]` slab compositors
+`composite_weights` and `composite_rays_cf` (CCNeRF's step), which plain
+autograd differentiates as XLA differentiates the JAX functions.
 
 Per ray segment of the ray-major sample stream:
 
@@ -165,3 +166,32 @@ def composite_stream_ref(sigmas, rgbs_cf, dts, gaps, ray_id, valid, n_rays: int,
     out = torch.zeros((n_rays, 5), dtype=torch.float32, device=vals.device)
     out = out.index_add(0, rid, vals)
     return out[:, 3], out[:, 4], out[:, 0:3]
+
+
+def composite_weights(sigmas: torch.Tensor, dts: torch.Tensor, mask: torch.Tensor,
+                      T_thresh: float = 1e-4) -> torch.Tensor:
+    """Per-sample weights `T_i * alpha_i` over `[N, K]` slabs, zeroed after
+    the first sample whose running transmittance falls below `T_thresh`
+    (that sample keeps its weight)."""
+    m = mask.float()
+    tau = sigmas.float() * dts.float() * m
+    acc = torch.cumsum(tau, dim=-1)  # inclusive
+    T_before = torch.exp(-(acc - tau))
+    alpha = -torch.expm1(-tau)
+    weights = T_before * alpha * m
+    stop = (torch.exp(-acc) < T_thresh).float()
+    alive = (torch.cumsum(stop, dim=-1) - stop) < 0.5  # exclusive: the first stopper stays
+    return weights * alive.float()
+
+
+def composite_rays_cf(sigmas: torch.Tensor, rgbs_cf: torch.Tensor, dts: torch.Tensor,
+                      gaps: torch.Tensor, mask: torch.Tensor, T_thresh: float = 1e-4):
+    """Slab compositor, channels first: sigmas, dts, gaps, mask [N, K],
+    rgbs_cf [3, N, K].  Returns (weights_sum [N], depth [N], image [N, 3],
+    weights [N, K]); depth sums `w_i * sum_{j<=i} gap_j`."""
+    weights = composite_weights(sigmas, dts, mask, T_thresh)
+    t_cum = torch.cumsum(gaps.float() * mask.float(), dim=-1)
+    weights_sum = weights.sum(dim=-1)
+    depth = (weights * t_cum).sum(dim=-1)
+    image = torch.einsum("nk,cnk->nc", weights, rgbs_cf.float())
+    return weights_sum, depth, image, weights

@@ -1,6 +1,8 @@
-"""Occupancy-grid ray marching with static shapes — the port of the eval
-march in `tngp/ops/march.py` (`march_rays_chunked`, `ladder_samples` and the
-helpers they use).
+"""Occupancy-grid ray marching with static shapes — the port of
+`tngp/ops/march.py`'s chunked march (`march_rays_chunked`, `ladder_samples`
+and the helpers they use) and of its slab march `march_rays` (without
+`group`: CCNeRF's step), which compacts each ray's first K occupied rungs
+into an `[N, K]` slab.
 
 The ladder: every ray visits the same deterministic rungs
 
@@ -10,8 +12,8 @@ whose closed form (`_t_ladder`) is evaluated for all rungs in parallel.  The
 chunked march probes G-rung chunk midpoints against a dilated occupancy
 grid, fine-probes only the candidate chunks and emits the first `M_budget`
 valid samples in flat (ray-major) order.  For the same inputs its integer
-outputs (`sel`, `sel_valid`, `m_eff`, `ray_mask`, `num_points`) equal the JAX
-package's exactly; the float arithmetic follows the JAX expressions
+outputs (`sel`, `sel_valid`, `m_eff`, `ray_mask`, `num_points`; the slab
+march's `mask`, `counts` and selected rungs) equal the JAX package's exactly; the float arithmetic follows the JAX expressions
 operation by operation so that the occupancy probes agree bit for bit.
 
 Indices are int64 here (int32 in the JAX package); the values are equal.
@@ -385,3 +387,109 @@ def ladder_samples(
     x_cf = torch.clamp(o_cf + t[None, :] * d_cf, -bound, bound)
     t_rel = t + dt - t0s
     return ray_id, x_cf, d_cf, dt, t_rel
+
+
+class MarchResult(NamedTuple):
+    """Result of the slab march `march_rays`: channels-first positions and
+    directions, `[N, K]` slabs, masked slots at position 0 and dt 0."""
+
+    xyzs_cf: torch.Tensor  # [3, N, K] sample positions (clamped to +-bound)
+    dirs_cf: torch.Tensor  # [3, N, K] ray directions (broadcast)
+    dts: torch.Tensor  # [N, K] marching dt at each sample
+    gaps: torch.Tensor  # [N, K] real t advance since the previous sample
+    ts: torch.Tensor  # [N, K] sample t
+    mask: torch.Tensor  # [N, K] bool validity
+    counts: torch.Tensor  # [N] occupied rungs found (uncapped)
+    next_t: torch.Tensor  # [N] resume t
+    sel_idx: torch.Tensor  # [N, K] selected rung of each slot
+
+
+def march_rays(
+    rays_o: torch.Tensor,  # [N, 3]
+    rays_d: torch.Tensor,  # [N, 3]
+    t_start: torch.Tensor,  # [N]
+    fars: torch.Tensor,  # [N]
+    bitfield: torch.Tensor,
+    *,
+    bound: float,
+    cascades: int,
+    grid_size: int,
+    dt_gamma: float = 0.0,
+    max_steps: int = 1024,
+    K: int = 128,
+    noise: torch.Tensor | None = None,  # [N] in [0, 1): fraction of the first dt
+) -> MarchResult:
+    """Probe every ladder rung of every ray against the bitfield and keep
+    each ray's first K occupied rungs before `fars` (`tngp/ops/march.py:
+    236-355`, `group=0`): slot k holds the first rung whose running count of
+    valid rungs reaches k + 1, found by a branch-free binary search over the
+    counts; `next_t` is the (K+1)-th valid rung when the ray overflowed,
+    else one rung past the ladder's end, capped at `fars`."""
+    dev = rays_o.device
+    N = rays_o.shape[0]
+    S = max_steps
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * (2 ** (cascades - 1)) / grid_size
+
+    o = rays_o.float()
+    d = rays_d.float()
+    t0 = t_start.float()
+    if noise is not None:
+        dt0 = torch.clamp(t0 * dt_gamma, dt_min, dt_max)
+        t0 = t0 + dt0 * noise.float()
+    fars = fars.float()
+
+    ts = _t_ladder(t0, torch.arange(S, device=dev), dt_gamma, dt_min, dt_max)  # [N, S]
+    dts = _dts(ts, dt_gamma, dt_min, dt_max)
+    px = torch.clamp(o[:, 0:1] + ts * d[:, 0:1], -bound, bound)
+    py = torch.clamp(o[:, 1:2] + ts * d[:, 1:2], -bound, bound)
+    pz = torch.clamp(o[:, 2:3] + ts * d[:, 2:3], -bound, bound)
+    mx = torch.maximum(px.abs(), torch.maximum(py.abs(), pz.abs()))
+    lvl = mip_level_from_max(mx, dts, cascades, grid_size)
+    cell = grid_cell_index_comp(px, py, pz, lvl, bound, cascades, grid_size)
+    occ = bitfield_probe(bitfield, cell.reshape(-1)).reshape(N, S)
+    valid = occ & (ts < fars[:, None])
+    counts = valid.sum(dim=-1)
+
+    # slot k <- the first rung s with rank[s] >= k + 1 (K + 1 slots: the
+    # last is the resume point)
+    rank = torch.cumsum(valid.long(), dim=-1)  # [N, S]
+    kk = K + 1
+    want = torch.arange(1, kk + 1, device=dev)[None, :]  # [1, K+1]
+    lo = torch.zeros((N, kk), dtype=torch.int64, device=dev)
+    hi = torch.full((N, kk), S, dtype=torch.int64, device=dev)
+    for _ in range(max(1, S.bit_length())):
+        mid = (lo + hi) >> 1
+        r = torch.gather(rank, 1, torch.clamp(mid, max=S - 1))
+        go_right = r < want
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    found = torch.clamp(lo, max=S - 1)  # [N, K+1]
+    sel_idx = found[:, :K]
+    maskf = (counts[:, None] >= want)[:, :K]
+
+    packed = torch.stack([ts, dts, px, py, pz], dim=0)  # [5, N, S]
+    sel = torch.gather(packed, 2, sel_idx[None].expand(5, N, K))  # [5, N, K]
+    t_sel, dt_sel, xyz_sel = sel[0], sel[1], sel[2:]
+
+    # gap = (t_i + dt_i) - (t_{i-1} + dt_{i-1}), with t_{-1} + dt_{-1} := t0
+    t_post = t_sel + dt_sel
+    prev = torch.cat([t0[:, None], t_post[:, :-1]], dim=1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    gaps = torch.where(maskf, t_post - prev, zero)
+
+    ladder_end = ts[:, -1] + dts[:, -1]
+    resume_t = torch.gather(ts, 1, found[:, K:K + 1])[:, 0]
+    next_t = torch.minimum(torch.where(counts > K, resume_t, ladder_end), fars)
+
+    return MarchResult(
+        xyzs_cf=torch.where(maskf[None], xyz_sel, zero),
+        dirs_cf=d.T[:, :, None].expand(3, N, K),
+        dts=torch.where(maskf, dt_sel, zero),
+        gaps=gaps,
+        ts=torch.where(maskf, t_sel, zero),
+        mask=maskf,
+        counts=counts,
+        next_t=next_t,
+        sel_idx=sel_idx,
+    )

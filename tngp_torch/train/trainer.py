@@ -25,8 +25,14 @@ the ray kept all its samples (a budget-dropped ray keeps its old entry).
 epoch's loss and it/s go to TensorBoard under `<workspace>/run/<name>`
 where `tensorboardX` or `torch.utils.tensorboard` imports.
 
-Subclasses (`DNeRFTrainer`) override the hooks `make_grid`, `set_grid`,
-`update_grid`, `sample_batch`, `loss_on_batch` and `render_image`, set
+Subclasses (`DNeRFTrainer`, `TensoRFTrainer`, `CCTrainer`) override the
+hooks `make_grid`, `set_grid`, `update_grid`, `sample_batch`,
+`loss_on_batch`, `render_image`, `before_step` (called first in every step
+of `run_steps`), `make_optimizer`, and the checkpoint's `_params_tree`,
+`_opt_state_tree`, `_load_opt_state`, `_geometry` and
+`_rebuild_to_geometry` (the sidecar's model shape, read before the arrays,
+as `tngp/train/trainer.py:669-679,689-695`); `set_model` installs a module
+of a new shape with a fresh optimizer, EMA and frame renderers.  They set
 `update_interval`, and run without budget tiers (`adaptive_tiers = False`)
 and without error-map updates (`error_map_step = False`), as the JAX
 package gives tiers and the map's update to the base step only.
@@ -153,12 +159,11 @@ class Trainer:
                 "the trainer runs the march_dense path with compact_fraction in (0, 1)")
         self.use_grid = use_grid
         self.device = torch.device(device)
-        self.model = model.to(self.device)
         self.cfg = cfg
         self.tc = tc
+        self.constant_lr = constant_lr
         self.dataset = dataset
         self.valid_dataset = valid_dataset
-        self.field = field if field is not None else FieldFns.from_model(model)
         self.full_grid_updates = full_grid_updates
         self.gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         self.host_rng = np.random.default_rng(tc.seed)  # frame choice
@@ -179,10 +184,8 @@ class Trainer:
             torch.ones((self.n_frames, 128 * 128), dtype=torch.float32, device=self.device)
             if tc.error_map else None)
 
-        # params / optimizer / ema / grid
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer, self.scheduler = make_optimizer(self.params, tc, constant_lr)
-        self.ema_params = ema_init(self.params)
+        # model / params / optimizer / ema / grid
+        self.set_model(model, field)
         self._grid_updates = 0  # host copy of grid.iter_density
         self.update_interval = tc.update_extra_interval  # grid update cadence (steps)
         self.set_grid(self.make_grid())
@@ -193,7 +196,6 @@ class Trainer:
         self.stats = {"loss": [], "results": [], "best_result": None}
         self.last_render_stats: dict = {}
         self.last_render_cut = None  # [H, W] rays the last render's round cap left alive
-        self._frame_renderers: dict = {}  # (chunk, cfg) -> FrameRenderer
         # the log file, written once the workspace exists (the CLI makes it)
         self.log_path = os.path.join(tc.workspace, f"log_{tc.name}.txt")
         self.writer = None  # TensorBoard's, made at the first scalar (`log_scalars`)
@@ -233,6 +235,24 @@ class Trainer:
         if self.writer:
             for name, value in scalars.items():
                 self.writer.add_scalar(f"train/{name}", value, self.global_step)
+
+    def make_optimizer(self):
+        """(optimizer, scheduler) over `self.params`: `make_optimizer`'s Adam
+        and schedule (a subclass with other groups or schedules overrides
+        this)."""
+        return make_optimizer(self.params, self.tc, self.constant_lr)
+
+    def set_model(self, model: torch.nn.Module, field: Optional[FieldFns] = None):
+        """Install `model` (at construction, and after a change of shape):
+        its field (`FieldFns.from_model` unless given), the parameter list,
+        a fresh optimizer and schedule, an EMA of copies of its weights, and
+        no cached frame renderer (they hold the old field)."""
+        self.model = model.to(self.device)
+        self.field = field if field is not None else FieldFns.from_model(self.model)
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.optimizer, self.scheduler = self.make_optimizer()
+        self.ema_params = ema_init(self.params)
+        self._frame_renderers: dict = {}  # (chunk, cfg) -> FrameRenderer
 
     def set_cfg(self, cfg: RenderConfig):
         """Replace the render config (the viewer's dt_gamma / max_steps
@@ -277,7 +297,7 @@ class Trainer:
                 extra[k] = torch.rand((N, S), generator=self.gen, device=self.device)
         if "inds_coarse" in r:
             extra["inds_coarse"] = r["inds_coarse"]
-        if self.channels == 4 and self.cfg.bg_radius <= 0:
+        if self.random_bg():
             bg = torch.rand((N, 3), generator=self.gen, device=self.device)
             gt_rgb = gt[:, :3] * gt[:, 3:] + bg * (1.0 - gt[:, 3:])
         else:
@@ -285,6 +305,12 @@ class Trainer:
             gt_rgb = gt[:, :3]
         return {"frame": idx, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
                 "gt_rgb": gt_rgb, "bg": bg, **extra}
+
+    def random_bg(self) -> bool:
+        """Whether RGBA targets go over a random background drawn each step
+        (the render composites on it): when the field has no background
+        model."""
+        return self.channels == 4 and self.cfg.bg_radius <= 0
 
     def loss_on_batch(self, batch):
         """Render the batch at the current tier (or on the grid-free path)
@@ -381,6 +407,7 @@ class Trainer:
         only host reads are the tier reads, one per interval."""
         losses, pts, kepts = [], [], []
         for _ in range(steps):
+            self.before_step()
             if self.use_grid and self.global_step % self.update_interval == 0:
                 if len(self._tier_M) > 1 and pts:
                     # one host read per grid-update interval
@@ -393,6 +420,10 @@ class Trainer:
             pts.append(npts)
             kepts.append(kept)
         return torch.stack(losses), torch.stack(pts), torch.stack(kepts)
+
+    def before_step(self):
+        """Called first in each step of `run_steps`, before the grid update
+        (TensoRF's shrink and upsample)."""
 
     def train_one_epoch(self, steps: int) -> float:
         """`steps` steps; the first epoch runs under the profiler when
@@ -624,14 +655,36 @@ class Trainer:
         names = [n for n, p in self.model.named_parameters() if p.requires_grad]
         return dict(zip(names, tensors))
 
+    def _params_tree(self, tensors) -> dict:
+        """The flax tree of `tensors` (the parameters or the EMA)."""
+        return flax_params_from_ngp_state_dict(self._named(tensors))
+
+    def _opt_state_tree(self) -> dict:
+        return optax_adam_state_dict(self.optimizer, self.model)
+
+    def _load_opt_state(self, tree) -> int:
+        """Load `_opt_state_tree`'s layout; returns the step count."""
+        return load_optax_adam_state(self.optimizer, self.model, tree)
+
+    def _geometry(self):
+        """The model's shape, written to the checkpoint's sidecar so that a
+        load can rebuild the model to it first (TensoRF's resolution and
+        box, CCNeRF's ranks); None for a model of fixed shape."""
+        return None
+
+    def _rebuild_to_geometry(self, geometry) -> None:
+        """Rebuild the model (and its optimizer, EMA and frame renderers) to
+        a checkpoint's `geometry` before its arrays are read; nothing to do
+        for a model of fixed shape."""
+
     def _payload(self) -> dict:
         """The checkpoint payload under the JAX package's names
         (`tngp/train/trainer.py:660-667`), as flax state dicts of numpy
         arrays."""
         return {
-            "params": flax_params_from_ngp_state_dict(self._named(self.params)),
-            "opt_state": optax_adam_state_dict(self.optimizer, self.model),
-            "ema": flax_params_from_ngp_state_dict(self._named(self.ema_params)),
+            "params": self._params_tree(self.params),
+            "opt_state": self._opt_state_tree(),
+            "ema": self._params_tree(self.ema_params),
             "grid": occupancy_grid_state_dict(self.grid),
             "error_map": (np.zeros(0, np.float32) if self.error_map is None
                           else self.error_map.cpu().numpy().copy()),
@@ -646,13 +699,18 @@ class Trainer:
         return ckpt_io.save_checkpoint(
             self.tc.workspace, self.tc.name, self.epoch, self.global_step, payload,
             stats={"best_result": self.stats["best_result"]},
-            max_keep=self.tc.max_keep_ckpt, best=best,
+            max_keep=self.tc.max_keep_ckpt, best=best, geometry=self._geometry(),
         )
 
     def load_checkpoint(self, path: str):
         """Restore weights, Adam state, EMA, grid, epoch and step from a
         checkpoint of either package (non-strict: entries the file lacks
-        keep their current values, each reported).  Returns the report."""
+        keep their current values, each reported), the model first rebuilt
+        to the sidecar's geometry where it records one.  Returns the
+        report."""
+        geometry = ckpt_io.load_meta(path).get("geometry")
+        if geometry:
+            self._rebuild_to_geometry(geometry)
         payload, meta = ckpt_io.load_checkpoint(path, self._payload())
         rep = meta.get("_load_report", {})
         for kind in ("missing", "unexpected", "mismatched"):
@@ -664,12 +722,13 @@ class Trainer:
         ema = self._named(self.ema_params)
         for name, value in ngp_state_dict_from_flax(payload["ema"]).items():
             ema[name].copy_(value)
-        count = load_optax_adam_state(self.optimizer, self.model, payload["opt_state"])
+        count = self._load_opt_state(payload["opt_state"])
         if self.scheduler is not None:
-            lr = self.tc.lr * 0.1 ** min(count / self.tc.iters, 1.0)
-            self.scheduler.last_epoch = count
-            self.scheduler._last_lr = [lr] * len(self.optimizer.param_groups)
-            for group in self.optimizer.param_groups:
+            sched = self.scheduler
+            lrs = [base * f(count) for base, f in zip(sched.base_lrs, sched.lr_lambdas)]
+            sched.last_epoch = count
+            sched._last_lr = lrs
+            for group, lr in zip(self.optimizer.param_groups, lrs):
                 group["lr"] = lr
         g = payload["grid"]
         self.set_grid(occupancy_grid_from_arrays(g["density_grid"], g["bitfield"],
