@@ -162,6 +162,24 @@ Phases (any failure exits non-zero and prints no result line):
      profiler session): the device ms a step of the same trainers (TensoRF
      VM at 128 and at its last resolution, CCNeRF), and the idle share of
      each, 1 - that / the phase's own ms/step;
+  6i. the other render paths at full width (`render_paths_phase`): the
+     flagship network and bench.py's render config with march_group 8 (the
+     CLI's default) on phase 4's scene, one trainer per training path: the
+     grouped slab march with the global budget (`march_dense=False`), without
+     it (`compact_fraction=1`: 524,288 slab slots a step through the slab
+     compositor) and the stream march (`march_chunk=0`); 32 untimed and 64
+     timed steps each (ms/step, the loss falling, everything finite), no host
+     sync in a step over 16 further steps, no tier read on the slab paths,
+     one step through the kernels against the plain versions and each kernel
+     it launched on that step's own inputs; then 800x800 frames of phase 5's
+     trained weights with `march_chunk=0` (the stream first pass and the
+     grouped slab residual rounds) and with `eval_stream=False` (the
+     full-width round loop): time, rounds, host reads, each held at phase
+     3's criterion to the same frame through the plain versions and to
+     phase 5's frame-renderer frame, the rays a round cap left alive apart;
+     then `main_nerf` with `--no_march_dense` (96 iterations and a bitwise
+     `--ckpt latest` resume), `--march_chunk 0` and `--compact_fraction 1`
+     (48 each): the loss falls, a finite validation PSNR;
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes (the
      scatter-adds' at the frame round's, the first pass's under `shapes`;
@@ -184,6 +202,8 @@ Phases (any failure exits non-zero and prints no result line):
      samples' factor gradients on phases 6g and 6h's captures: TensoRF VM's
      colour plane and line at the last resolution, CP's rank-288 line, and
      CCNeRF's rank-64 line with its masked slots on the two centre rows;
+     and the encoder's forward and table gradient on phase 6i's
+     `compact_fraction=1` step (524,288 samples, `_slab`);
   7b. `main_nerf synthetic --profile DIR` for 2 epochs: a non-empty Chrome
      trace of the first (last, because after a profile the profiler records
      nothing more in the process);
@@ -1884,6 +1904,255 @@ def ccnerf_cli_runs(dev, ds, root: str, seed: int) -> None:
         raise SystemExit("[ccnerf-cli] --compose did not give a finite six-object scene")
 
 
+# The other render paths (phase 6i): each trainer's untimed, timed and
+# host-sync steps, and the CLI runs' iterations (96 = 8 epochs of the 12 views)
+RP_WARM, RP_TIMED, RP_SYNC = 32, 64, 16
+RP_CLI = (("--no_march_dense", ["--no_march_dense"], 96),
+          ("--march_chunk 0", ["--march_chunk", "0"], 48),
+          ("--compact_fraction 1", ["--compact_fraction", "1"], 48))
+
+
+def frame_agreement(a_img, a_dep, b_img, b_dep, mask):
+    """Pixels beyond image 1e-4 or depth 1e-3 among `mask`, and the largest
+    image and depth errors there (phase 3's criterion: at most 1e-4 of the
+    pixels beyond, those within 1e-2)."""
+    d_i = np.abs(a_img - b_img).max(axis=-1)[mask]
+    d_d = np.abs(a_dep - b_dep)[mask]
+    if not d_i.size:
+        return 0, 0.0, 0.0
+    return int(((d_i > 1e-4) | (d_d > 1e-3)).sum()), float(d_i.max()), float(d_d.max())
+
+
+def render_paths_phase(dev, ds, cfg, trainer, frame5, check_bwd, seed: int) -> dict:
+    """The other render paths at full width (phase 6i): the flagship network
+    and bench.py's render config with `march_group` 8 (the CLI's default)
+    on phase 4's scene.  Three trainers, one per training path: the grouped
+    slab march with the global budget (`march_dense=False`: `compact_mask`,
+    the stream compositor on the gaps), without it (`compact_fraction=1`:
+    `composite_rays_cf` over all 4096 x 128 = 524,288 slots) and the stream
+    march (`march_chunk=0`: `compact_mask_hier`); each RP_WARM untimed and
+    RP_TIMED timed steps (ms/step, the loss falling, everything finite), no
+    host sync inside a step over RP_SYNC further steps, no tier read on the
+    slab paths, and one step through the kernels against the plain versions
+    (phase 4's tolerances) with each kernel it launched held to its plain
+    version on that step's own inputs.  Then two 800x800 frames of phase
+    5's trained weights through `Trainer.render_image`: `march_chunk=0`
+    (the stream first pass and the grouped slab residual rounds) and
+    `eval_stream=False` (the full-width round loop), each timed with its
+    rounds and host reads, and held at phase 3's criterion to the same
+    frame through the plain versions and to phase 5's frame-renderer frame
+    `frame5` (image, depth, cut rays), the rays a round cap left alive in
+    either set apart.  Then `main_nerf` on the blob scene as a blender
+    dataset with each flag of RP_CLI: the loss falls, a finite validation
+    PSNR; the `--no_march_dense` run resumes with `--ckpt latest` bitwise.
+    Returns the numbers, and the `compact_fraction=1` step's encoder inputs
+    and launches for phase 7's rows."""
+    import shutil
+    import tempfile
+
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.data import orbit_poses
+    from tngp_torch.kernels import window_encoder as kw
+    from tngp_torch.models import NGPNetwork
+    from tngp_torch.ops import composite as comp_mod
+    from tngp_torch.train import Trainer
+    from tngp_torch.utils import TrainConfig
+
+    t_phase = time.time()
+    info = kernels.KERNELS
+    base = dataclasses.replace(cfg, march_group=8)
+    paths = {"slab_budget": dataclasses.replace(base, march_dense=False),
+             "slab_all": dataclasses.replace(base, march_dense=False, compact_fraction=1.0),
+             "stream": dataclasses.replace(base, march_chunk=0)}
+    tc = TrainConfig(num_rays=N_RAYS, lr=1e-2, seed=seed, adaptive_overdrive=False,
+                     use_checkpoint="scratch")
+    out = {"train": {}, "eval": {}, "cli": {}}
+    for name, pcfg in paths.items():
+        model = NGPNetwork(encoding="hashgrid_window", bound=1.0, compute_dtype=torch.bfloat16,
+                           device=dev, seed=seed)
+        tr = Trainer(model, ds, pcfg, tc, device=dev, constant_lr=True, full_grid_updates=2)
+        tiered = len(tr._tier_M) > 1
+        if tiered != pcfg.march_dense or (tr._dgrid is None) != (pcfg.march_chunk == 0):
+            raise SystemExit(f"[paths] {name}: tiers {tr._tier_M}, dilated grid "
+                             f"{tr._dgrid is not None} for {pcfg}")
+        loss_w, _, _ = tr.run_steps(RP_WARM)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss_t, pts, kept = tr.run_steps(RP_TIMED)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = {k: v.launches for k, v in info.items()}
+        step_syncs, _ = step_host_syncs(tr, RP_SYNC)
+        losses = torch.cat([loss_w, loss_t])
+        first16, last16 = float(losses[:16].mean()), float(losses[-16:].mean())
+        need = ["scatter_add_unique", "bin_dest", "window_encode_fwd", "window_encode_bwd"]
+        if pcfg.compact_fraction < 1.0:
+            need.append("scatter_add_sorted")  # the stream compositor's per-ray sums
+        log(f"[paths] train {name} (march_dense {pcfg.march_dense}, compact_fraction "
+            f"{pcfg.compact_fraction}, march_group {pcfg.march_group}, march_chunk "
+            f"{pcfg.march_chunk}): {RP_TIMED} timed steps {1e3 * dt / RP_TIMED:.2f} ms/step "
+            f"({RP_TIMED * N_RAYS / dt:,.1f} rays/s) after {RP_WARM}; budget M {tr.tier_M} "
+            f"(tiers {tr._tier_M}); demand {float(pts.float().mean()):,.0f} valid rungs a step, "
+            f"{float(kept.float().mean()):,.0f} of {N_RAYS} rays kept; loss first 16 "
+            f"{first16:.6f}, last 16 {last16:.6f}; host syncs inside train_step over "
+            f"{RP_SYNC} further steps {sum(step_syncs)}, tier reads {tr.host_reads}; "
+            f"launches {launches}")
+        if sum(step_syncs) != 0:
+            raise SystemExit(f"[paths] {name}: train_step made host syncs: {step_syncs}")
+        if not tiered and tr.host_reads != 0:
+            raise SystemExit(f"[paths] {name}: {tr.host_reads} tier reads on a path without tiers")
+        if not (np.isfinite(first16) and last16 < first16):
+            raise SystemExit(f"[paths] {name}: the loss did not fall: {first16} -> {last16}")
+        if not all(bool(torch.isfinite(p).all()) for p in tr.params + tr.ema_params):
+            raise SystemExit(f"[paths] {name}: a parameter is not finite")
+        if min(launches[k] for k in need) <= 0:
+            raise SystemExit(f"[paths] {name}: a kernel of the path never launched: {launches}")
+
+        calls = {"bin_dest": [], "window_encode_fwd": [], "window_encode_bwd": [],
+                 "scatter_add": [], "scatter_add_composite": []}
+
+        @contextlib.contextmanager
+        def capture():
+            with contextlib.ExitStack() as stack:
+                for k in ("bin_dest", "window_encode_fwd", "window_encode_bwd", "scatter_add"):
+                    stack.enter_context(capturing(kw, k, calls[k]))
+                stack.enter_context(capturing(comp_mod, "scatter_add",
+                                              calls["scatter_add_composite"]))
+                yield
+
+        st = step_kernels_vs_plain(tr, model, f"[paths] {name} step", capture())
+        x01 = calls["bin_dest"][-1][0].detach()
+        d_k, t_k = kw.bin_dest(x01)
+        d_r, t_r = kw.bin_dest_ref(x01)
+        if not (torch.equal(d_k, d_r) and torch.equal(t_k, t_r)):
+            raise SystemExit(f"[paths] {name}: bin_dest disagrees with the plain bin_dest")
+        xyz4, wob, table = (a.detach() for a in calls["window_encode_fwd"][-1][:3])
+        spec, block = calls["window_encode_fwd"][-1][3:5]
+        err_fwd = max_abs(kw.window_encode_fwd(xyz4, wob, table, spec, block),
+                          kw.window_encode_fwd_plain(xyz4, wob, table, spec, block))
+        if not err_fwd <= 6e-6:
+            raise SystemExit(f"[paths] {name}: window_encode_fwd vs plain {err_fwd}")
+        g_sorted = calls["window_encode_bwd"][-1][2].detach()
+        err_bwd, n_max, zd = check_bwd(xyz4, wob, g_sorted, f"[paths] {name} step")
+        scat = []
+        for (idx, vals, rows), indices in (
+                [(c[:3], "unique") for c in calls["scatter_add"]]
+                + [(c[:3], "sorted") for c in calls["scatter_add_composite"]]):
+            scat.append(check_scatter_add(idx.detach(), vals.detach(), rows, indices,
+                                          f"[paths] {name} step")[0])
+        log(f"[paths] {name}, one step through the kernels vs the plain path: loss "
+            f"{st['loss_k']:.8f} vs {st['loss_p']:.8f}; gradient norm-relative errors "
+            + ", ".join(f"{n} {v:.2e}" for n, v in st["rels"].items())
+            + f" (<= 3e-2); on the step's own inputs (M = {x01.shape[1]:,}, M_pad = "
+            f"{xyz4.shape[0]:,}): bin_dest exact, window_encode_fwd max|err| {err_fwd:.3g} "
+            f"(<= 6e-6), window_encode_bwd {err_bwd:.3g} within the reordering bound (n up to "
+            f"{n_max:.0f}; zeros differ in {zd} of n >= 3), {len(scat)} scatter-adds "
+            f"({len(calls['scatter_add'])} unique, {len(calls['scatter_add_composite'])} "
+            f"sorted) max|err| {max(scat):.3g} within their bounds")
+        out["train"][name] = dict(ms=1e3 * dt / RP_TIMED, first16=first16, last16=last16,
+                                  launches=launches, tiers=tr._tier_M, M=tr.tier_M)
+        if name == "slab_all":
+            out["slab_inputs"] = dict(xyz4=xyz4, wob=wob, table=table, g_sorted=g_sorted,
+                                      spec=spec, err_fwd=err_fwd, err_bwd=err_bwd,
+                                      launches=launches, steps=RP_TIMED, M=x01.shape[1])
+        del tr, model
+
+    # ---- eval: phase 5's trained weights on two other eval paths ------------
+    img5, dep5, cut5 = frame5
+    R = RES
+    pose = orbit_poses(4, radius=2.35, elevation=0.3)[1]  # phase 5's pose
+    cfg0 = trainer.cfg
+    try:
+        for label, over in (("march_chunk 0", dict(march_chunk=0)),
+                            ("eval_stream False", dict(eval_stream=False))):
+            trainer.set_cfg(dataclasses.replace(cfg0, march_group=8, **over))
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img, dep = trainer.render_image(pose, use_ema=True, chunk=N_RAYS, W=R, H=R)
+            dt = time.time() - t0
+            launches = {k: v.launches for k, v in info.items()}
+            st = dict(trainer.last_render_stats)
+            cut = trainer.last_render_cut.cpu().numpy()
+            with kernels.plain_versions():
+                img_p, dep_p = trainer.render_image(pose, use_ema=True, chunk=N_RAYS, W=R, H=R)
+            cut_p = trainer.last_render_cut.cpu().numpy()
+            need = ["scatter_add_unique", "bin_dest", "window_encode_fwd"]
+            if cfg0.eval_stream and "eval_stream" not in over:
+                need.append("scatter_add_sorted")  # the first pass's compositor, the rounds
+            n_p, ei_p, ed_p = frame_agreement(img, dep, img_p, dep_p, ~(cut | cut_p))
+            n_5, ei_5, ed_5 = frame_agreement(img, dep, img5, dep5, ~(cut | cut5))
+            log(f"[paths] eval {label} (march_group 8): one {R}x{R} frame of phase 5's trained "
+                f"weights through Trainer.render_image {dt:.3f} s, {R * R / dt:,.1f} rays/s; "
+                f"{st['rounds']} rounds over {st['chunks']} chunks, {st['host_reads']} host "
+                f"reads, {st['samples']:,} samples queried ({st['valid_samples']:,} valid); "
+                f"rays left alive by a round cap {int(cut.sum())} (plain {int(cut_p.sum())}, "
+                f"phase 5 {int(cut5.sum())}); vs the plain versions: {n_p} pixels beyond image "
+                f"1e-4 or depth 1e-3, max|err| image {ei_p:.3g}, depth {ed_p:.3g}; vs phase "
+                f"5's frame renderer: {n_5} pixels beyond, max|err| image {ei_5:.3g}, depth "
+                f"{ed_5:.3g} (at most {int(1e-4 * R * R)} beyond, those within 1e-2); launches "
+                f"{launches}")
+            if img.shape != (R, R, 3) or not np.isfinite(img).all():
+                raise SystemExit(f"[paths] eval {label}: not a finite [R, R, 3] image")
+            if min(launches[k] for k in need) <= 0:
+                raise SystemExit(f"[paths] eval {label}: a kernel of the path never launched: "
+                                 f"{launches}")
+            for what, (n, ei, ed) in (("the plain versions", (n_p, ei_p, ed_p)),
+                                      ("phase 5's frame", (n_5, ei_5, ed_5))):
+                if n > 1e-4 * R * R or ei > 1e-2 or ed > 1e-2:
+                    raise SystemExit(f"[paths] eval {label} vs {what}: {n} pixels beyond image "
+                                     f"1e-4 or depth 1e-3, image {ei}, depth {ed}")
+            out["eval"][label] = dict(dt=dt, rounds=st["rounds"], host_reads=st["host_reads"],
+                                      chunks=st["chunks"], cut=int(cut.sum()), vs_plain=n_p,
+                                      vs_frame5=n_5, launches=launches)
+    finally:
+        trainer.set_cfg(cfg0)
+
+    # ---- the CLI with the flags -------------------------------------------
+    root = tempfile.mkdtemp(prefix="tngp_paths_")
+    try:
+        held = blender_root(dev, ds, root)
+        for i, (flag, argv_f, iters) in enumerate(RP_CLI):
+            argv = [root, "-O", "--workspace", os.path.join(root, f"ws{i}"), "--seed", str(seed),
+                    "--eval_interval", "4", "--skip_test_render", "--mesh_resolution", "64",
+                    *argv_f]
+            kernels.reset_launch_counts()
+            t0 = time.time()
+            tr = main_nerf.main(argv + ["--iters", str(iters)])
+            dt = time.time() - t0
+            launches = {k: v.launches for k, v in info.items()}
+            losses, results = tr.stats["loss"], tr.stats["results"]
+            log(f"[paths] main_nerf {flag}: {tr.global_step} steps in {dt:.1f} s (validation "
+                f"and mesh included); march_dense {tr.cfg.march_dense}, compact_fraction "
+                f"{tr.cfg.compact_fraction}, march_group {tr.cfg.march_group}, march_chunk "
+                f"{tr.cfg.march_chunk}; epoch loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+                f"validation PSNR {', '.join(f'{r:.2f}' for r in results)} dB; launches "
+                f"{launches}")
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise SystemExit(f"[paths] main_nerf {flag}: the loss did not fall: {losses}")
+            if not (results and np.isfinite(results).all()):
+                raise SystemExit(f"[paths] main_nerf {flag}: no finite validation PSNR")
+            if min(launches[k] for k in ("bin_dest", "window_encode_fwd",
+                                         "window_encode_bwd")) <= 0:
+                raise SystemExit(f"[paths] main_nerf {flag}: a kernel never launched: "
+                                 f"{launches}")
+            out["cli"][flag] = dict(dt=dt, psnr=results[-1], loss=(losses[0], losses[-1]))
+            if flag == "--no_march_dense":
+                img_last, _ = tr.render_image(held[0])
+                end1 = (tr.epoch, tr.global_step)
+                del tr
+                resumed_run(f"[paths] main_nerf {flag}", lambda: main_nerf.main(
+                    argv + ["--iters", str(iters + 2 * ds.num_frames), "--ckpt", "latest"]),
+                    lambda t: t.render_image(held[0])[0], img_last, end1, 2 * ds.num_frames)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall"] = time.time() - t_phase
+    log(f"[paths] phase 6i wall {out['wall']:.1f} s")
+    return out
+
+
 def profile_cli_run(seed: int) -> dict:
     """`main_nerf synthetic -O --profile DIR` for 2 epochs of the 16-frame
     blob scene: the first epoch's torch.profiler trace must be a non-empty
@@ -2404,6 +2673,8 @@ def main() -> int:
             if counts[name] <= 0:
                 raise SystemExit(f"{label}: a kernel of the eval path never launched: {counts}")
 
+    frames = {}  # label -> the frame renderer's (image, depth, cut rays)
+
     def timed_frame(pose, use_ema, label):
         """One 800x800 frame through `Trainer.render_image` (the frame
         renderer), then the same pose through `render_image_chunked` (the
@@ -2471,15 +2742,7 @@ def main() -> int:
         # chunked path stops each chunk after ceil(max_steps / K_eval) + 2
         # rounds; they are counted and shown apart, the rest held
         done = ~(cut_f | cut_c)
-
-        def beyond(a_img, a_dep, b_img, b_dep, mask):
-            """Pixels beyond image 1e-4 or depth 1e-3 among `mask`, and the
-            largest image and depth errors there."""
-            d_i = np.abs(a_img - b_img).max(axis=-1)[mask]
-            d_d = np.abs(a_dep - b_dep)[mask]
-            return int(((d_i > 1e-4) | (d_d > 1e-3)).sum()), float(d_i.max()), float(d_d.max())
-
-        n_out, err_img, err_dep = beyond(img, dep, img_c, dep_c, done)
+        n_out, err_img, err_dep = frame_agreement(img, dep, img_c, dep_c, done)
         log(f"[eval] {label}, chunked render_rays_eval: {dt_c:.3f} s, {R * R / dt_c:,.1f} "
             f"rays/s; {st_c['rounds']} residual rounds over {st_c['chunks']} chunks, "
             f"{st_c['host_reads']} host reads, {st_c['valid_samples']:,} valid samples (frame "
@@ -2500,6 +2763,7 @@ def main() -> int:
         if n_out > 1e-4 * R * R or err_img > 1e-2 or err_dep > 1e-2:
             raise SystemExit(f"{label}: the frame renderer and the chunked path differ in "
                              f"{n_out} pixels, image {err_img}, depth {err_dep}")
+        frames[label] = (img, dep, cut_f)
         return dt, counts, st, dt_c, counts_c, st_c
 
     t0 = time.time()
@@ -2774,6 +3038,13 @@ def main() -> int:
                                        f"[tensorf] VM at {tf['res']}"),
             "ccnerf": idle_share(steps_dev, "ccnerf", cc["ms"], "[ccnerf]")}
 
+    # ---- 6i. the other render paths at full width --------------------------
+    paths = render_paths_phase(dev, ds, cfg, trainer, frames["trained EMA weights"], check_bwd,
+                               args.seed)
+    si = paths["slab_inputs"]
+    if si["spec"] != spec:
+        raise SystemExit(f"[paths] slab step: not the flagship encoder spec: {si['spec']}")
+
     # ---- 7. timing at the paths' shapes ------------------------------------
     # per callable: ms (CUDA events around 20 back-to-back calls), host_us
     # (200 calls, no sync) and, at the end of the phase because the
@@ -3013,6 +3284,28 @@ def main() -> int:
             shape=f"the grid-free step's {Mg:,} samples (M_pad {Mg_pad:,}, {n_live_g:,} live)",
             **extra)
 
+    # the slab step's encoder (phase 6i, compact_fraction 1: every one of the
+    # 4096 x 128 = 524,288 slab slots queried), on that step's own inputs
+    xyz4_s, wob_s, table_s, g_sorted_s = si["xyz4"], si["wob"], si["table"], si["g_sorted"]
+    n_live_s = int((xyz4_s[:, 3] > 0).sum())
+    for name, kernel, err, fn_k, fn_p, fn_lib, nbytes, lib_call in (
+            ("window_encode_fwd_slab", "window_encode_fwd", si["err_fwd"],
+             lambda: kw.window_encode_fwd(xyz4_s, wob_s, table_s, spec, BLOCK),
+             lambda: kw.window_encode_fwd_plain(xyz4_s, wob_s, table_s, spec, BLOCK), None,
+             encoder_bytes("fwd", xyz4_s, wob_s, spec, BLOCK), None),
+            ("window_encode_bwd_slab", "window_encode_bwd", si["err_bwd"],
+             lambda: kw.window_encode_bwd(xyz4_s, wob_s, g_sorted_s, spec, BLOCK),
+             lambda: kw.window_encode_bwd_plain(xyz4_s, wob_s, g_sorted_s, spec, BLOCK),
+             bwd_library(xyz4_s, wob_s, g_sorted_s),
+             encoder_bytes("bwd", xyz4_s, wob_s, spec, BLOCK),
+             "index_add_ of precomputed rows and values (nearest call, not the same function)")):
+        extra = {} if lib_call is None else {"library_call": lib_call}
+        row(name, kernel, si["launches"][kernel], err, fn_k, fn_p, fn_lib, nbytes,
+            n_live_s * L * (10 + 8 * (3 + 2 * C)), F32_OPS_PER_S,
+            path="ngp slab march, compact_fraction 1 (phase 6i)", steps=si["steps"],
+            shape=f"the slab step's {si['M']:,} samples (M_pad {xyz4_s.shape[0]:,}, "
+                  f"{n_live_s:,} live)", **extra)
+
     lib_real = bwd_library(xyz4_r, wob_r, g_sorted_r)
     ms_uniform = events_ms(lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK))
     n_live = int((xyz4_r[:, 3] > 0).sum())
@@ -3133,7 +3426,12 @@ def main() -> int:
         f"{idle['tensorf_last']:.3f}), EMA PSNR {tf['psnr']:.2f} dB, CP "
         f"{tf['ms_cp']:.2f} ms/step, CLI PSNR {tf['cli_psnr']:.2f} dB; CCNeRF {cc['ms']:.2f} "
         f"ms/step (idle {idle['ccnerf']:.3f}), full model {cc['psnr_full']:.2f} "
-        f"dB; run wall {time.time() - t_run:.1f} s")
+        f"dB; other render paths: "
+        + ", ".join(f"{k} {v['ms']:.2f} ms/step" for k, v in paths["train"].items())
+        + "; frames " + ", ".join(f"{k} {v['dt']:.3f} s ({v['rounds']} rounds, {v['host_reads']} "
+                                   f"host reads)" for k, v in paths["eval"].items())
+        + "; CLI PSNR " + ", ".join(f"{k} {v['psnr']:.2f} dB" for k, v in paths["cli"].items())
+        + f"; run wall {time.time() - t_run:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,7 +22,6 @@ on the card (`tests/test_torch_kernels_gpu.py`, `chip_smoke.py`)."""
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from tngp.kernels.window_encoder import bin_dest as jax_bin_dest
@@ -122,11 +121,15 @@ def _x01(case, M, seed):
     return x
 
 
-@pytest.mark.parametrize("case,M,block", [
+MIRROR_CASES = [
     ("uniform", 1100, 512), ("uniform", 1, 512), ("uniform", 1024, 64),
     ("one_tile", 1500, 512), ("empty_tiles", 700, 128), ("nan_inf", 1300, 512),
-])
-def test_three_stage_mirror_matches_jax_bin_dest(case, M, block):
+]
+
+
+def check_three_stage_mirror_matches_jax_bin_dest(case, M, block):
+    """The three stages mirrored in numpy against JAX's `bin_dest`,
+    exactly (`test_torch_bin_dest_{1,2}.py` run the cases)."""
     x = _x01(case, M, seed=M + block)
     dest, tob, rank, tot = _bin_dest_mirror(x, block)
     d_j, t_j = jax_bin_dest(jnp.asarray(x), block=block)
@@ -144,7 +147,7 @@ def test_three_stage_mirror_matches_jax_bin_dest(case, M, block):
     assert len(set(dest.tolist())) == M and int(dest.max()) < wk.padded_size(M, block)
 
 
-def test_scan_runs_cover_every_row_once():
+def check_scan_runs_cover_every_row_once():
     """Stage 2's runs (one per thread of a column's block, R = ceil(NBk /
     1024) rows each, the last ones short or empty) cover rows [0, NBk) once
     and in order, for the key block counts of M = 1 .. past the eval's top

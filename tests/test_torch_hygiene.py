@@ -18,7 +18,7 @@ _LIBS = ("jax", "flax", "tngp", "msgpack", "cv2", "imageio")
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:" + "|".join(_LIBS) + r")(?:[.\s,]|$)", re.M)
 
 
-def test_importing_every_module_loads_no_jax():
+def check_importing_every_module_loads_no_jax():
     """Every module of `tngp_torch`, `tngp_torch.diagnostics` included."""
     code = (
         "import importlib, pkgutil, sys, tngp_torch\n"
@@ -27,7 +27,8 @@ def test_importing_every_module_loads_no_jax():
         "for m in ('data.sdf', 'models.sdf', 'train.sdf_trainer', 'cli.main_sdf',\n"
         "          'cli.viewer', 'utils.profiling', 'ops.grid_sample', 'models.tensorf',\n"
         "          'models.ccnerf', 'train.tensorf_trainer', 'train.cc_trainer',\n"
-        "          'cli.main_tensorf', 'cli.main_ccnerf', 'diagnostics.tensor_steps'):\n"
+        "          'cli.main_tensorf', 'cli.main_ccnerf', 'diagnostics.tensor_steps',\n"
+        "          'ops.compaction'):\n"
         "    assert 'tngp_torch.' + m in sys.modules, m\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_LIBS!r})\n"
         "print(len(list(pkgutil.walk_packages(tngp_torch.__path__))), bad)\n"
@@ -49,7 +50,8 @@ def test_no_source_imports_jax_or_tngp():
             "tngp_torch/ops/grid_sample.py", "tngp_torch/models/tensorf.py",
             "tngp_torch/models/ccnerf.py", "tngp_torch/train/tensorf_trainer.py",
             "tngp_torch/train/cc_trainer.py", "tngp_torch/cli/main_tensorf.py",
-            "tngp_torch/cli/main_ccnerf.py", "tngp_torch/diagnostics/tensor_steps.py"} <= {
+            "tngp_torch/cli/main_ccnerf.py", "tngp_torch/diagnostics/tensor_steps.py",
+            "tngp_torch/ops/compaction.py"} <= {
         str(f.relative_to(ROOT)) for f in files}
     offenders = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders, offenders

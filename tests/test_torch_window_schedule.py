@@ -40,6 +40,12 @@ INPUTS = {  # name -> (M, x01 from uniform [0, 1] draws u)
 }
 
 
+# the (spec, input) cases of the schedule checks run in
+# `test_torch_window_schedule_{acc,dx}_{1,2}.py`
+SCHEDULE_CASES = [("small", name) for name in INPUTS] + [("flagship", "uniform"),
+                                                          ("flagship", "crowded")]
+
+
 def _sorted(spec_name, input_name, seed=0):
     """(spec, xyz4, wob, g_sorted) as `window_encode_binned` makes them."""
     spec = wt.WindowSpec.create(**SPECS[spec_name])
@@ -156,10 +162,7 @@ def test_device_walk_on_runs_around_the_long_threshold(S):
     assert any(p[3] for p in pieces) and not all(p[3] for p in pieces)
 
 
-@pytest.mark.parametrize("spec_name,input_name",
-                         [("small", name) for name in INPUTS]
-                         + [("flagship", "uniform"), ("flagship", "crowded")])
-def test_accumulation_per_piece_matches_plain(spec_name, input_name):
+def check_accumulation_per_piece_matches_plain(spec_name, input_name):
     """The table gradient as the kernel forms it: windows that no block
     visits, or whose run is long, zeroed first (a binary search per window,
     as the zeroing kernel); every other entry starts as NaN, so an entry no
@@ -205,8 +208,7 @@ def test_accumulation_per_piece_matches_plain(spec_name, input_name):
     assert bool(((got == 0) == (plain == 0)).all()) and float(plain.abs().max()) > 0
 
 
-@pytest.mark.parametrize("input_name", ["uniform", "crowded"])
-def test_entries_of_two_terms_do_not_depend_on_the_order(input_name):
+def check_entries_of_two_terms_do_not_depend_on_the_order(input_name):
     """What `chip_smoke.py` holds the table-gradient kernel to, whose
     atomics order an entry's terms as they land: the plain version's sums
     taken in reverse order equal its own bitwise on every entry of at most
@@ -248,8 +250,7 @@ def test_level_consts_carry_the_window_counts():
         [1, 1, 1, 2, 3, 7, 16]
 
 
-@pytest.mark.parametrize("input_name", ["tiny", "out_of_range"])
-def test_encoder_bytes_count_the_table_entries_read(input_name):
+def check_encoder_bytes_count_the_table_entries_read(input_name):
     """The encoder's byte bound (`kernel_times.encoder_bytes`): the forward
     reads each table entry a live sample's corner weighs, counted here as the
     nonzero entries of the plain table gradient for unit cotangents (all
@@ -312,10 +313,7 @@ def _dx_mirror(xyz4, wob, table, g_sorted, spec, block):
     return gx, visits
 
 
-@pytest.mark.parametrize("spec_name,input_name",
-                         [("small", name) for name in INPUTS]
-                         + [("flagship", "uniform"), ("flagship", "crowded")])
-def test_input_gradient_schedule_matches_plain(spec_name, input_name):
+def check_input_gradient_schedule_matches_plain(spec_name, input_name):
     """The input-gradient kernel's chunk and level-group walk takes every
     (level, sample) once, writes zeros in the padding slots, and its fixed
     summation order lands within `check_dx`'s reordering bound of

@@ -1,8 +1,10 @@
 """Transmittance compositing — the port of `tngp/ops/composite.py`:
 `composite_stream` over globally compacted samples, with its closed-form
 backward (`_composite_stream_core_bwd`), and the `[N, K]` slab compositors
-`composite_weights` and `composite_rays_cf` (CCNeRF's step), which plain
-autograd differentiates as XLA differentiates the JAX functions.
+`composite_weights`, `composite_rays_cf` (CCNeRF's step and the slab
+training render), `composite_rays` (colours last) and `composite_rays_flat`
+(`[N*K]`-flat samples), which plain autograd differentiates as XLA
+differentiates the JAX functions.
 
 Per ray segment of the ray-major sample stream:
 
@@ -195,3 +197,18 @@ def composite_rays_cf(sigmas: torch.Tensor, rgbs_cf: torch.Tensor, dts: torch.Te
     depth = (weights * t_cum).sum(dim=-1)
     image = torch.einsum("nk,cnk->nc", weights, rgbs_cf.float())
     return weights_sum, depth, image, weights
+
+
+def composite_rays(sigmas: torch.Tensor, rgbs: torch.Tensor, dts: torch.Tensor,
+                   gaps: torch.Tensor, mask: torch.Tensor, T_thresh: float = 1e-4):
+    """`composite_rays_cf` with the colours last, rgbs [N, K, 3]."""
+    return composite_rays_cf(sigmas, rgbs.movedim(-1, 0), dts, gaps, mask, T_thresh)
+
+
+def composite_rays_flat(sigmas: torch.Tensor, rgbs: torch.Tensor, dts: torch.Tensor,
+                        gaps: torch.Tensor, mask: torch.Tensor, T_thresh: float = 1e-4):
+    """`composite_rays` on `[N*K]`-flat samples (rgbs [N*K, 3]) with the
+    slab's mask [N, K]."""
+    N, K = mask.shape
+    return composite_rays(sigmas.reshape(N, K), rgbs.reshape(N, K, 3), dts.reshape(N, K),
+                          gaps.reshape(N, K), mask, T_thresh)

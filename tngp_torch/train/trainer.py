@@ -11,7 +11,10 @@ own rays there.  A step is eager PyTorch: sample -> march -> field ->
 composite -> loss -> backward -> Adam -> EMA.  The sample budget of a tier is
 static, so a step makes no host sync; the trainer reads demand from the
 device once per grid-update interval (`host_reads` counts those reads), and
-losses stay on the device until an epoch ends.
+losses stay on the device until an epoch ends.  Every render path of the
+config runs (`render_rays_train`): the budget tiers only on the
+`march_dense` path with 0 < compact_fraction < 1, as the JAX package; the
+other paths have one budget and no tier read.
 
 With `use_grid=False` (the CLIs' `--no_grid`) a step renders through the
 grid-free uniform + importance-sampled path (`render_rays_uniform`, every
@@ -154,9 +157,6 @@ class Trainer:
         # ray and pose arithmetic stays true f32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        if use_grid and not (cfg.march_dense and 0.0 < cfg.compact_fraction < 1.0):
-            raise NotImplementedError(
-                "the trainer runs the march_dense path with compact_fraction in (0, 1)")
         self.use_grid = use_grid
         self.device = torch.device(device)
         self.cfg = cfg
@@ -201,10 +201,12 @@ class Trainer:
         self.writer = None  # TensorBoard's, made at the first scalar (`log_scalars`)
 
         # adaptive sample-budget tiers: fractions of the configured one, an
-        # overdrive tier above it, each with its static sample budget
+        # overdrive tier above it, each with its static sample budget; only
+        # the march_dense step with a global budget has them
         f = cfg.compact_fraction
         fracs = [f]
-        if tc.adaptive_budget and self.adaptive_tiers and use_grid:
+        if (tc.adaptive_budget and self.adaptive_tiers and use_grid and cfg.march_dense
+                and 0.0 < f < 1.0):
             fracs = [f / 4.0, f / 2.0, f]
             f_over = min(2.0 * f, 0.9)
             if tc.adaptive_overdrive and f_over > f:
