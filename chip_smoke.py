@@ -70,7 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
   5. eval path again with the trained EMA weights: phase 3's frame pair;
   6. D-NeRF training at full width with scripts/bench_dnerf_step.py's
      config (`dnerf_phase`): the pinned NGP step, then D-NeRF on 12 views of
-     128x128 of the dynamic blob scene, 64 untimed and 100 timed steps each;
+     128x128 of the dynamic blob scene, 32 untimed and 48 timed steps each;
      rays/s, ms/step, their ratio, the time-grid update's wall (CUDA events
      on the stream, no host sync in the timed steps), the loss
      halving, no host sync in a step, the input-gradient kernel once per
@@ -79,9 +79,10 @@ Phases (any failure exits non-zero and prints no result line):
      again after training (where a deform net that died in training is
      reported, not failed), and the EMA PSNR over the 12 views at their own
      times;
-  6b. `bench_torch.py`'s `main` at its defaults (1,024 warm-up and 100 timed
-     steps, the chunked eval and eval800 through the frame renderer): its
-     JSON line, every number finite, its kernels launched;
+  6b. `bench_torch.py`'s `main` at its defaults but for the warm-up
+     (TNGP_BENCH_WARMUP=256, cut from 1,024; 100 timed steps, the chunked
+     eval and eval800 through the frame renderer): its JSON line, every
+     number finite, its kernels launched;
   6c. the NGP entry point (`cli_phase`): the blob scene written as a
      blender-format PNG dataset, `tngp_torch.cli.main_nerf.main` with the
      CLI's default render flags (bound 2: 2 cascades, dt_gamma 1/128) and
@@ -108,16 +109,17 @@ Phases (any failure exits non-zero and prints no result line):
      CLI's 64 for time) and pinned config: one step through the kernels
      against the plain versions on a freshly built net (a nonzero deform
      gradient; each level's table-gradient scatter within the reordering
-     bound), the first full time-grid update's wall, 64 untimed and 100
+     bound), the first full time-grid update's wall, 32 untimed and 48
      timed steps (ms/step and rays/s beside phase 6's), the loss halving,
      scatter_add_any once per level in every backward, no host sync in a
-     step, the EMA PSNR; then the basis and hyper variants for 32 steps
+     step, the EMA PSNR; then the basis and hyper variants for 16 steps
      each (finite, falling loss; the kernel once per level per backward);
   6e. the D-NeRF entry point (`dnerf_cli_phase`): phase 6's dynamic scene
      written as a D-NeRF dataset (a `time` per frame), then
      `tngp_torch.cli.main_dnerf.main` with the CLI's default flags and -O
-     for 300 iterations with --time_size 16 (cut from 64): the loss
-     halves, a validation PSNR, the kernel once per level per backward,
+     for 96 iterations (validation every 4 epochs) with --time_size 16
+     (cut from 64): the loss halves, a validation PSNR, the kernel once per
+     level per backward,
      `--ckpt latest` resumes bitwise and trains on, `--test` writes frames,
      `--gui` serves PNG frames at two times that differ;
   6f. SDF at full width (`sdf_phase`): `SDFNetwork` (16 levels x 2^19
@@ -125,12 +127,12 @@ Phases (any failure exits non-zero and prints no result line):
      lr 1e-4: one step through the kernels against the plain path (the loss
      and MLP gradients bitwise, each of the 16 levels' scatter_add_any on
      the step's own inputs within the reordering bound), no host sync in a
-     step, 3 x 100 timed steps (cut from main_sdf's 20 x 100: ms/step,
+     step, 3 x 25 timed steps (cut from main_sdf's 20 x 100: ms/step,
      samples/s, the host's share building labels), the loss falling, one
-     bf16 (`--fp16`) epoch, the mesh at 512^3 with its median vertex radius
-     within 0.12 of the sphere's, then `python -m tngp_torch.cli.main_sdf
-     sphere` for 2 epochs of 20 steps (mesh at 128^3) and a resumed run
-     bitwise from its checkpoint;
+     bf16 (`--fp16`) epoch, the mesh at 128^3 (cut from 512^3) with its
+     median vertex radius within 0.12 of the sphere's, then `python -m
+     tngp_torch.cli.main_sdf sphere` for 2 epochs of 10 steps (mesh at
+     128^3) and a resumed run bitwise from its checkpoint;
   6g. TensoRF at full width (`tensorf_phase`): `TensoRFNetwork` VM at the
      CLI's defaults (resolution0 128, ranks 16 / 48, colour features 27,
      3x128 bf16 MLP) on phase 4's scene and render config, 4096 rays a
@@ -167,7 +169,7 @@ Phases (any failure exits non-zero and prints no result line):
      CLI's default) on phase 4's scene, one trainer per training path: the
      grouped slab march with the global budget (`march_dense=False`), without
      it (`compact_fraction=1`: 524,288 slab slots a step through the slab
-     compositor) and the stream march (`march_chunk=0`); 32 untimed and 64
+     compositor) and the stream march (`march_chunk=0`); 16 untimed and 32
      timed steps each (ms/step, the loss falling, everything finite), no host
      sync in a step over 16 further steps, no tier read on the slab paths,
      one step through the kernels against the plain versions and each kernel
@@ -177,9 +179,29 @@ Phases (any failure exits non-zero and prints no result line):
      full-width round loop): time, rounds, host reads, each held at phase
      3's criterion to the same frame through the plain versions and to
      phase 5's frame-renderer frame, the rays a round cap left alive apart;
-     then `main_nerf` with `--no_march_dense` (96 iterations and a bitwise
+     then `main_nerf` with `--no_march_dense` (48 iterations and a bitwise
      `--ckpt latest` resume), `--march_chunk 0` and `--compact_fraction 1`
      (48 each): the loss falls, a finite validation PSNR;
+  6j. the window encoder's f32 form, the hard scene, data parallelism and
+     CLIP (`hard_dp_clip_phase`): the f32 form of the three encoder kernels
+     against their plain f32 versions (phase 2's tolerances) at phase 4's
+     step shape, on samples outside the cube and on a D-NeRF step's inputs;
+     D-NeRF under TNGP_MXU_F32=1 for 16 steps (the f32 input gradient once
+     per backward, no bf16-form launch); `python -m
+     tngp_torch.scripts.train_hard`'s first 1,000 steps (cut from 30,000,
+     under the 30,000 steps' lr schedule) bf16 and `--mxu_f32` (ms/step, a
+     falling loss, validation PSNR above 30 dB, which a field stalled at
+     the first epoch's loss fails, each run's kernels of its own form
+     only), `bench_eval --frames 2` on the bf16
+     checkpoint (rays/s, rounds, cut rays); `Trainer(mesh=make_mesh())` over
+     NCCL at world size 1 against `Trainer()` (the first batch at phase 4's
+     tolerances, 32 steps' losses within 1e-4 of the loss, no host sync in a
+     step); two gloo ranks on the card
+     (`tngp_torch.diagnostics.dp_ranks`, kernels already built) whose summed
+     gradients match one process's over the whole batch and whose weights
+     stay bitwise equal over 8 steps; `main_nerf --rand_pose 4 --clip_text
+     ... --clip_model_path stub` for 48 iterations (12 finite CLIP losses)
+     and one CLIP step through the kernels against the plain versions;
   7. time each kernel (one row per scatter-add form and caller), its plain
      version and the nearest single PyTorch call at the paths' shapes (the
      scatter-adds' at the frame round's, the first pass's under `shapes`;
@@ -203,7 +225,10 @@ Phases (any failure exits non-zero and prints no result line):
      colour plane and line at the last resolution, CP's rank-288 line, and
      CCNeRF's rank-64 line with its masked slots on the two centre rows;
      and the encoder's forward and table gradient on phase 6i's
-     `compact_fraction=1` step (524,288 samples, `_slab`);
+     `compact_fraction=1` step (524,288 samples, `_slab`); and the f32
+     forms (`_f32`: the forward and table gradient at phase 4's step shape,
+     the input gradient on a D-NeRF step's inputs, each beside its bf16
+     form's time on the same inputs);
   7b. `main_nerf synthetic --profile DIR` for 2 epochs: a non-empty Chrome
      trace of the first (last, because after a profile the profiler records
      nothing more in the process);
@@ -237,8 +262,9 @@ import torch
 RES = 800  # frame side, the reference's test resolution
 WARM_STEPS, TIMED_STEPS = 200, 100  # training: untimed, then timed
 SYNC_STEPS = 32  # further steps under the host-sync log
-DNERF_WARM, DNERF_TIMED = 64, 100  # D-NeRF and pinned NGP: untimed, then timed
+DNERF_WARM, DNERF_TIMED = 32, 48  # D-NeRF and pinned NGP: untimed, then timed
 DNERF_SYNC_STEPS = 16
+BENCH_WARMUP = 256  # bench_torch.py's warm-up steps (its default 1,024)
 DNERF_FRAMES, DNERF_RES, DNERF_TIME_SIZE = 12, 128, 16  # bench_dnerf_step.py's scene and grid
 GRID_SIZE = 128  # occupancy grid side, bench.py's render config
 N_RAYS = 4096  # rays per training step and per eval chunk
@@ -247,8 +273,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT32_OPS_PER_S = 16.7e12  # H100 SXM int32: 64 per clock per SM x 132 SMs x 1.98 GHz
 
 
+T_START = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Prints `msg` after the seconds since the script started."""
+    print(f"{time.time() - T_START:7.1f} {msg}", flush=True)
 
 
 def bound(bytes_moved: float, ops: float, ops_rate: float):
@@ -397,7 +427,7 @@ def check_scatter_add(idx, vals, rows, indices, what):
 
 
 @torch.no_grad()
-def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
+def check_dx(xyz4, wob, table, g_sorted, spec, block, what, mxu_f32=False):
     """The input-gradient kernel against its plain version.  Both form, per
     sample and dimension, the same L*C f32 products g * d (d bit for bit: the
     same bf16 roundings of derivative weights and table values, the 8
@@ -406,12 +436,15 @@ def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
     version in torch's.  Any order of n terms is within (n - 1) 2^-24
     sum|term| of the exact sum, so the two are within 2 (L*C) 2^-24
     sum|g * d| of each other.  Padding slots must be exactly 0 and a second
-    call must give the same bits.  Returns (max |err|, worst err / bound)."""
+    call must give the same bits.  With `mxu_f32` the f32 forms: the same
+    products without the bf16 roundings.  Returns (max |err|, worst err /
+    bound)."""
     from tngp_torch.kernels import window_encoder as kw
 
-    got = kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block)
-    plain = kw.window_encode_dx_plain(xyz4, wob, table, g_sorted, spec, block)
-    d = kw.dx_features(xyz4, wob, table, spec, block)
+    f32 = dict(mxu_f32=mxu_f32)
+    got = kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block, **f32)
+    plain = kw.window_encode_dx_plain(xyz4, wob, table, g_sorted, spec, block, **f32)
+    d = kw.dx_features(xyz4, wob, table, spec, block, **f32)
     tol = 2 * spec.output_dim * 2.0**-24 * (g_sorted.T[None].abs() * d.abs()).sum(1).double()
     err = (got.double() - plain.double()).abs()
     if not bool((err <= tol).all()):
@@ -419,7 +452,7 @@ def check_dx(xyz4, wob, table, g_sorted, spec, block, what):
                          f"{float(err.max())}")
     if not bool((got[:, xyz4[:, 3] == 0] == 0).all()):
         raise SystemExit(f"window_encode_dx ({what}): a padding slot is not zero")
-    if not torch.equal(got, kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block)):
+    if not torch.equal(got, kw.window_encode_dx(xyz4, wob, table, g_sorted, spec, block, **f32)):
         raise SystemExit(f"window_encode_dx ({what}) differs between two calls")
     return float(err.max()), float((err / tol.clamp(min=1e-30)).max())
 
@@ -702,7 +735,7 @@ def hash_step_check(tr, model, what: str) -> dict:
     return dict(deform_max=st["deform_max"], rels=st["rels"], worst_any=worst)
 
 
-VARIANT_STEPS = 32  # the basis and hyper variants' steps in phase 6d
+VARIANT_STEPS = 16  # the basis and hyper variants' steps in phase 6d
 
 
 def dnerf_default_phase(dev, dn: dict, seed: int, profile: bool) -> dict:
@@ -851,7 +884,7 @@ def resumed_run(label: str, run, render, img_last, end1, more_steps: int) -> Non
         raise SystemExit(f"{label} the resumed run did not train on: {tr.global_step}")
 
 
-DNERF_CLI_ITERS = 300  # the D-NeRF CLI phase's first run: 25 epochs of the 12 views
+DNERF_CLI_ITERS = 96  # the D-NeRF CLI phase's first run: 8 epochs of the 12 views
 
 
 def dnerf_cli_phase(dev, dds, seed: int) -> dict:
@@ -889,7 +922,7 @@ def dnerf_cli_phase(dev, dds, seed: int) -> dict:
                                      "test": (held, held_imgs, held_t)},
                               W, float(dds.intrinsics[0]))
         ws = os.path.join(root, "ws")
-        argv = [root, "-O", "--workspace", ws, "--seed", str(seed), "--eval_interval", "10",
+        argv = [root, "-O", "--workspace", ws, "--seed", str(seed), "--eval_interval", "4",
                 "--time_size", str(DNERF_TIME_SIZE)]
         log(f"[dnerf-cli] D-NeRF-format dynamic blob scene ({dds.num_frames} train views at "
             f"times 0..1, 4 val and test views at times {held_t.tolist()}, {H}x{W} PNGs) -> "
@@ -995,7 +1028,7 @@ def write_blender_dataset(root: str, splits: dict, W: int, focal: float) -> floa
     return worst
 
 
-CLI_ITERS = 300  # the CLI phase's first run: 25 epochs of the 12 views
+CLI_ITERS = 300  # the CLI phase's first run: 25 epochs of the 12 views (--test's mesh needs them)
 CLI_TILED_ITERS = 96  # its golden-grid run: 8 epochs
 
 
@@ -1260,11 +1293,11 @@ def cli_viewer_run(root: str, ws: str, H: int, W: int, step: int) -> dict:
     return dict(gui_ms=[round(sec * 1e3, 1) for _, _, sec in replies])
 
 
-SDF_EPOCHS, SDF_STEPS = 3, 100  # timed epochs x steps (main_sdf's defaults: 20 x 100)
+SDF_EPOCHS, SDF_STEPS = 3, 25  # timed epochs x steps (main_sdf's defaults: 20 x 100)
 SDF_SAMPLES = 2**18  # main_sdf's --num_samples
 SDF_LR = 1e-4  # main_sdf's --lr
-SDF_MESH_RES = 512  # main_sdf's --mesh_resolution
-SDF_CLI_EPOCHS, SDF_CLI_STEPS = 2, 20  # the CLI runs: 2 epochs of 20 steps, then one more
+SDF_MESH_RES = 128  # cut from main_sdf's --mesh_resolution 512
+SDF_CLI_EPOCHS, SDF_CLI_STEPS = 2, 10  # the CLI runs: 2 epochs of 10 steps, then one more
 
 
 def sdf_phase(dev, seed: int) -> dict:
@@ -1547,6 +1580,9 @@ def step_device_times(cfg, seed: int) -> dict:
     if p.returncode != 0:
         raise SystemExit(f"tensor_steps failed ({p.returncode}):\n{p.stdout[-3000:]}\n"
                          f"{p.stderr[-3000:]}")
+    for ln in p.stderr.splitlines():
+        if ln.startswith("# "):
+            log(f"[device] {ln[2:]}")
     out = json.loads(p.stdout.strip().splitlines()[-1])
     for name in ("tensorf_first", "tensorf_last", "ccnerf"):
         r = out[name]
@@ -1905,9 +1941,9 @@ def ccnerf_cli_runs(dev, ds, root: str, seed: int) -> None:
 
 
 # The other render paths (phase 6i): each trainer's untimed, timed and
-# host-sync steps, and the CLI runs' iterations (96 = 8 epochs of the 12 views)
-RP_WARM, RP_TIMED, RP_SYNC = 32, 64, 16
-RP_CLI = (("--no_march_dense", ["--no_march_dense"], 96),
+# host-sync steps, and the CLI runs' iterations (48 = 4 epochs of the 12 views)
+RP_WARM, RP_TIMED, RP_SYNC = 16, 32, 16
+RP_CLI = (("--no_march_dense", ["--no_march_dense"], 48),
           ("--march_chunk 0", ["--march_chunk", "0"], 48),
           ("--compact_fraction 1", ["--compact_fraction", "1"], 48))
 
@@ -2285,6 +2321,273 @@ def cli_phase(dev, ds, seed: int) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The window encoder's f32 form, the hard scene, data parallelism and CLIP
+# (phase 6j): train_hard's steps (cut from the script's default 30,000; the
+# lr schedule stays the 30,000 steps'), the validation PSNR they must reach
+# (a field stalled at the first epoch's loss reads 19-22 dB), bench_eval's
+# frames (its default 8), the D-NeRF steps of the f32 input gradient, the
+# NCCL trainers' steps, the gloo ranks' steps and main_nerf's iterations
+HARD_STEPS = 1000
+HARD_PSNR_FLOOR = 30.0
+HARD_EVAL_FRAMES = 2
+F32_DNERF_STEPS = 16
+DP_STEPS = 32
+DP_RANK_STEPS = 8
+CLIP_ITERS = 48
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def one_step_agreement(label, a, b) -> tuple:
+    """(loss, kept, grads) of one batch by two routes, held to phase 4's
+    tolerances (loss 1e-5 relative, every gradient 3e-2 norm-relative: the
+    kernels' f32 summation order through the bf16 MLPs).  Returns (loss
+    relative error, the largest gradient error)."""
+    loss_err = abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+    grad_err = max(rel_err(x, y) for x, y in zip(a[2], b[2]))
+    if not (loss_err <= 1e-5 and grad_err <= 3e-2):
+        raise SystemExit(f"[dp] {label}: loss {float(a[0])} vs {float(b[0])}, gradient error "
+                         f"{grad_err}")
+    return loss_err, grad_err
+
+
+def hard_dp_clip_phase(dev, dn: dict, seed: int) -> dict:
+    """Phase 6j: the f32 form's D-NeRF steps (every `window_encode_dx_f32`
+    launch one per backward); `tngp_torch.scripts.train_hard` for the
+    first HARD_STEPS steps of its 30,000-step schedule, bf16 and
+    `--mxu_f32` (the f32 kernels launched only in the f32 run, the bf16
+    ones only in the other; each run's validation PSNR above
+    HARD_PSNR_FLOOR), `bench_eval` on the
+    bf16 run's checkpoint; `Trainer(mesh=make_mesh())` over NCCL at world
+    size 1 against `Trainer()` (the first batch at phase 4's tolerances, the
+    loss curves within 1e-4 of the loss, no host sync in a step); two gloo ranks on the card (`tngp_torch.diagnostics.dp_ranks`,
+    built kernels loaded, not rebuilt) whose summed gradients match one
+    process's over the whole batch and whose weights stay bitwise equal;
+    and `main_nerf` with CLIP guidance (stub embedder): finite CLIP losses
+    and one CLIP step through the kernels against the plain versions."""
+    import subprocess
+    import tempfile
+
+    from tngp_torch import kernels
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.diagnostics.dp_ranks import dp_trainer, first_batch_grads
+    from tngp_torch.models import DNeRFNetwork
+    from tngp_torch.parallel import init_distributed, make_mesh
+    from tngp_torch.scripts import bench_eval, train_hard
+    from tngp_torch.train import DNeRFTrainer, Trainer
+
+    info = kernels.KERNELS
+    f32_names = ("window_encode_fwd_f32", "window_encode_bwd_f32", "window_encode_dx_f32")
+    bf16_names = ("window_encode_fwd", "window_encode_bwd", "window_encode_dx")
+    out = {}
+    t_phase = time.time()
+
+    def counts():
+        return {name: k.launches for name, k in info.items()}
+
+    # -- D-NeRF under TNGP_MXU_F32=1: the input gradient's f32 form on its path
+    os.environ["TNGP_MXU_F32"] = "1"
+    try:
+        dmodel = DNeRFNetwork(bound=1.0, encoding="hashgrid_window",
+                              compute_dtype=torch.bfloat16, device=dev, seed=seed)
+    finally:
+        os.environ.pop("TNGP_MXU_F32")
+    if not dmodel.encoder.mxu_f32:
+        raise SystemExit("[f32] TNGP_MXU_F32=1 did not select the f32 form of D-NeRF's encoder")
+    dtr = DNeRFTrainer(dmodel, dn["dds"], dn["cfg"], dn["tc"], time_size=DNERF_TIME_SIZE,
+                       update_interval=16, device=dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lf, _, _ = dtr.run_steps(F32_DNERF_STEPS)
+    torch.cuda.synchronize()
+    c = counts()
+    out["dnerf_f32"] = dict(ms=1e3 * (time.time() - t0) / F32_DNERF_STEPS, launches=c)
+    if not (c["window_encode_dx_f32"] == F32_DNERF_STEPS and c["window_encode_fwd_f32"] > 0
+            and max(c[n] for n in bf16_names) == 0 and bool(torch.isfinite(lf).all())):
+        raise SystemExit(f"[f32] D-NeRF with TNGP_MXU_F32=1: launches {c}, losses {lf}")
+    log(f"[f32] D-NeRF with TNGP_MXU_F32=1: {F32_DNERF_STEPS} steps (a full time-grid update "
+        f"inside) {out['dnerf_f32']['ms']:.2f} ms/step, window_encode_dx_f32 once per backward "
+        f"({c['window_encode_dx_f32']}), no bf16-form launch; launches {c}")
+    del dtr, dmodel
+
+    # -- the hard scene: train_hard bf16 and --mxu_f32, then bench_eval
+    root = tempfile.mkdtemp(prefix="tngp_hard_")
+    runs = {}
+    for label, tag, flags in (("bf16", "base", []), ("f32", "f32", ["--mxu_f32"])):
+        ws = os.path.join(root, f"hard_{tag}")
+        kernels.reset_launch_counts()
+        try:
+            r = train_hard.train_hard(train_hard.build_parser().parse_args(
+                ["--workspace", ws, "--tag", tag, *flags]), max_steps=HARD_STEPS)
+        finally:
+            os.environ.pop("TNGP_MXU_F32", None)
+        c = counts()
+        r["launches"] = c
+        runs[label] = r
+        own, other = (f32_names, bf16_names) if flags else (bf16_names, f32_names)
+        if not (min(c[n] for n in own[:2]) > 0 and max(c[n] for n in other) == 0
+                and r["mxu_f32"] == bool(flags)):
+            raise SystemExit(f"[hard] {label}: the encoder ran the wrong form: launches {c}")
+        el = r["epoch_losses"]
+        if not (np.isfinite(r["final_psnr"]) and r["final_psnr"] > HARD_PSNR_FLOOR
+                and el[-1] < el[0]):
+            raise SystemExit(f"[hard] {label}: validation PSNR {r['final_psnr']} after "
+                             f"{HARD_STEPS} steps (must exceed {HARD_PSNR_FLOOR} dB), epoch "
+                             f"losses {el}")
+        log(f"[hard] train_hard {label} ({' '.join(flags) or 'default'}): the first {HARD_STEPS} "
+            f"steps of 30,000 "
+            f"{r['ms_per_step']:.2f} ms/step (train loop), epoch losses {el}, validation PSNR "
+            f"{r['final_psnr']:.2f} dB over the 5 held-out views, wall {r['wall_s']:.1f} s; "
+            f"launches {c}")
+    out["hard"] = runs
+    kernels.reset_launch_counts()
+    be = bench_eval.bench_eval(bench_eval.build_parser().parse_args(
+        ["--workspace", os.path.join(root, "hard_base"), "--frames", str(HARD_EVAL_FRAMES)]))
+    if be is None or not (np.isfinite(be["value"]) and be["value"] > 0):
+        raise SystemExit(f"[hard] bench_eval failed: {be}")
+    be["launches"] = counts()
+    out["eval"] = be
+    log(f"[hard] bench_eval on the bf16 run's checkpoint: {json.dumps(be)}")
+
+    # -- NCCL at world size 1: Trainer(mesh=make_mesh()) against Trainer()
+    if not init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl"):
+        raise SystemExit("[dp] the NCCL process group did not come up")
+    trs = {"mesh": dp_trainer(make_mesh(), dev, seed), "plain": dp_trainer(None, dev, seed),
+           "plain again": dp_trainer(None, dev, seed)}
+    first = {k: first_batch_grads(tr) for k, tr in trs.items()}
+    if not all(int(f[1]) == N_RAYS for f in first.values()):
+        raise SystemExit(f"[dp] the first batch dropped rays: {[int(f[1]) for f in first.values()]}")
+    e_first = one_step_agreement("NCCL mesh vs Trainer() on the first batch", first["mesh"],
+                                 first["plain"])
+    curves, ms = {}, {}
+    for k, tr in trs.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        curves[k], _, _ = tr.run_steps(DP_STEPS)
+        torch.cuda.synchronize()
+        ms[k] = 1e3 * (time.time() - t0) / DP_STEPS
+    # two runs differ by the kernels' summation order, which Adam's
+    # normalised steps carry into the weights: the first batch is held at
+    # phase 4's tolerances above, the curves at 1e-4 of the loss (the gap of
+    # the two unmeshed runs reported beside it)
+    spread = float((curves["plain again"] - curves["plain"]).abs().max())
+    diff = float((curves["mesh"] - curves["plain"]).abs().max())
+    bound_c = 1e-4 * float(curves["plain"].abs().max())
+    syncs, _ = step_host_syncs(trs["mesh"], 16)
+    log(f"[dp] NCCL at world size 1: first batch loss rel err {e_first[0]:.3g}, gradients "
+        f"{e_first[1]:.3g} (<= 1e-5, 3e-2); {DP_STEPS} steps {ms['mesh']:.2f} ms/step with the "
+        f"mesh, {ms['plain']:.2f} / {ms['plain again']:.2f} without; losses max |diff| {diff:.3g} "
+        f"(two unmeshed runs {spread:.3g}; held <= 1e-4 of the loss, {bound_c:.3g}); host syncs "
+        f"over 16 steps "
+        f"{syncs}")
+    if not (diff <= bound_c and bool(torch.isfinite(curves["mesh"]).all())):
+        raise SystemExit(f"[dp] the NCCL mesh's losses differ from the unmeshed run's: {diff}")
+    if sum(syncs) != 0:
+        raise SystemExit(f"[dp] a step under the NCCL mesh made host syncs: {syncs}")
+    out["nccl"] = dict(ms=ms, loss_diff=diff, spread=spread, first=e_first, syncs=syncs)
+    torch.distributed.destroy_process_group()
+    del trs
+
+    # -- two gloo ranks on the card
+    rank_dir = tempfile.mkdtemp(prefix="tngp_ranks_")
+    env = {**os.environ, "TNGP_COORDINATOR": f"localhost:{free_port()}",
+           "TNGP_NUM_PROCESSES": "2"}
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tngp_torch.diagnostics.dp_ranks", rank_dir, "--steps",
+         str(DP_RANK_STEPS), "--backend", "gloo"], env={**env, "TNGP_PROCESS_ID": str(r)},
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit("[dp] a gloo rank failed:\n" + "\n".join(x[-4000:] for x in logs))
+    ranks = [torch.load(os.path.join(rank_dir, f"rank{r}.pt")) for r in range(2)]
+    wall_ranks = time.time() - t0
+    if int(ranks[0]["kept"] + ranks[1]["kept"]) != N_RAYS:
+        raise SystemExit(f"[dp] the gloo ranks dropped rays: {[r['kept'] for r in ranks]}")
+    ref = (first["plain"][0], None, [g.cpu() for g in first["plain"][2]])
+    e_ranks = one_step_agreement("two gloo ranks vs one process over the whole batch",
+                                 (ranks[0]["loss"], None, ranks[0]["grads"]), ref)
+    same = all(torch.equal(a, b) for key in ("grads", "params", "ema")
+               for a, b in zip(ranks[0][key], ranks[1][key]))
+    if not (same and torch.equal(ranks[0]["losses"], ranks[1]["losses"])):
+        raise SystemExit("[dp] the two gloo ranks' gradients, weights or losses differ")
+    out["gloo"] = dict(first=e_ranks, wall_s=wall_ranks, losses=ranks[0]["losses"].tolist())
+    log(f"[dp] two gloo ranks on the card ({wall_ranks:.1f} s with start-up): the summed "
+        f"gradients vs one process over the whole batch: loss rel err {e_ranks[0]:.3g}, "
+        f"gradients {e_ranks[1]:.3g} (<= 1e-5, 3e-2); after {DP_RANK_STEPS} steps the ranks' "
+        f"weights, EMA and losses bitwise equal (losses {ranks[0]['losses'].tolist()})")
+
+    # -- CLIP guidance through main_nerf, the stub embedder
+    closses = []
+    real_clip = Trainer.run_clip_step
+
+    def recorded(self):
+        loss = real_clip(self)
+        closses.append(loss)
+        return loss
+
+    ws = tempfile.mkdtemp(prefix="tngp_clip_")
+    Trainer.run_clip_step = recorded
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    try:
+        tr = main_nerf.main(["synthetic", "-O", "--iters", str(CLIP_ITERS), "--rand_pose", "4",
+                             "--clip_text", "a red sphere", "--clip_model_path", "stub",
+                             "--workspace", ws, "--eval_interval", "100",
+                             "--skip_test_render", "--mesh_resolution", "64"])
+    finally:
+        Trainer.run_clip_step = real_clip
+    wall_clip = time.time() - t0
+    c_run = counts()
+    if not (len(closses) == CLIP_ITERS // 4 and all(np.isfinite(closses))):
+        raise SystemExit(f"[clip] CLIP losses {closses} (expected {CLIP_ITERS // 4} finite)")
+
+    def clip_grads():
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss = tr.clip_loss()
+        loss.backward()
+        return float(loss.detach()), None, [p.grad.clone() for p in tr.params]
+
+    kernels.reset_launch_counts()
+    k = clip_grads()
+    c_step = counts()
+    with kernels.plain_versions():
+        p = clip_grads()
+    tr.optimizer.zero_grad(set_to_none=True)
+    e_clip = one_step_agreement("one CLIP step, kernels vs plain", k, p)
+    if min(c_step[n] for n in ("bin_dest", "scatter_add_unique", "window_encode_fwd",
+                               "window_encode_bwd")) <= 0:
+        raise SystemExit(f"[clip] the CLIP step's kernels did not launch: {c_step}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr.run_clip_step()
+    ms_clip = 1e3 * (time.time() - t0)
+    out["clip"] = dict(losses=closses, wall_s=wall_clip, ms_step=ms_clip, first=e_clip,
+                       launches=c_run)
+    log(f"[clip] main_nerf --rand_pose 4 --clip_text 'a red sphere' --clip_model_path stub: "
+        f"{CLIP_ITERS} iterations in {wall_clip:.1f} s, {len(closses)} CLIP steps, losses "
+        f"{closses[0]:.5f} -> {closses[-1]:.5f}; one CLIP step {ms_clip:.2f} ms (one host read); "
+        f"kernels vs plain: loss rel err {e_clip[0]:.3g}, gradients {e_clip[1]:.3g} (<= 1e-5, "
+        f"3e-2); the step's launches {c_step}")
+    out["wall_s"] = time.time() - t_phase
+    log(f"[6j] phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2483,7 +2786,7 @@ def main() -> int:
         return torch.stack([kw.sorted_corner_addresses(xyz4_t, wob_t, spec, BLOCK, l)[0]
                             for l in range(L)])
 
-    def check_bwd(xyz4_t, wob_t, g_sorted_t, what):
+    def check_bwd(xyz4_t, wob_t, g_sorted_t, what, mxu_f32=False):
         """The backward kernel against its plain version.  Both sum the same
         n bf16-rounded terms of a table entry in f32, the kernel in whatever
         order its atomics land; any order is within (n - 1) 2^-24 sum|term|
@@ -2497,11 +2800,13 @@ def main() -> int:
         n 3 to 63, each within the bound; in 3 of them the plain version on
         the card differed so from its own CPU run), so there the zeros that
         differ are counted.
+        With `mxu_f32` the f32 forms (the same terms unrounded).
         Returns (max |err|, the largest n, entries of n >= 3 whose zeros
         differ)."""
-        got = kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK)
-        plain = kw.window_encode_bwd_plain(xyz4_t, wob_t, g_sorted_t, spec, BLOCK)
-        sabs = kw.window_encode_bwd_plain(xyz4_t, wob_t, g_sorted_t.abs(), spec, BLOCK)
+        f32 = dict(mxu_f32=mxu_f32)
+        got = kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK, **f32)
+        plain = kw.window_encode_bwd_plain(xyz4_t, wob_t, g_sorted_t, spec, BLOCK, **f32)
+        sabs = kw.window_encode_bwd_plain(xyz4_t, wob_t, g_sorted_t.abs(), spec, BLOCK, **f32)
         addr = bwd_addresses(xyz4_t, wob_t)
         live = (xyz4_t[:, 3] > 0).expand(L, 8, -1).reshape(-1).float()
         n = torch.zeros(table.numel(), device=dev).index_add_(0, addr.reshape(-1), live)
@@ -2980,7 +3285,11 @@ def main() -> int:
 
     kernels.reset_launch_counts()
     t0 = time.time()
-    bench_line = bench_torch.main()
+    os.environ["TNGP_BENCH_WARMUP"] = str(BENCH_WARMUP)
+    try:
+        bench_line = bench_torch.main()
+    finally:
+        del os.environ["TNGP_BENCH_WARMUP"]
     launches_bench = {name: k.launches for name, k in info.items()}
     log(f"[bench] bench_torch.main() in {time.time() - t0:.1f} s: {json.dumps(bench_line)}; "
         f"launches {launches_bench}")
@@ -3044,6 +3353,35 @@ def main() -> int:
     si = paths["slab_inputs"]
     if si["spec"] != spec:
         raise SystemExit(f"[paths] slab step: not the flagship encoder spec: {si['spec']}")
+
+    # ---- 6j. the f32 forms, the hard scene, data parallelism, CLIP ----------
+    # the f32 form of the three kernels against their plain f32 versions: the
+    # forward and the table gradient at phase 4's step shape (the top tier's
+    # 131,072 uniform samples), the forward also on samples outside the cube,
+    # the input gradient on a D-NeRF step's inputs and on those samples; the
+    # tolerances of phase 2 (the same terms, rounded alike, summed in another
+    # order; for N(0, 1) values the forward's 8 corners below 5.4e-6)
+    f32 = dict(mxu_f32=True)
+    err_fwd_f32 = max(
+        max_abs(kw.window_encode_fwd(x4, wb, table, spec, BLOCK, **f32),
+                kw.window_encode_fwd_plain(x4, wb, table, spec, BLOCK, **f32))
+        for x4, wb in ((xyz4_t, wob_t), (xyz4_o, wob_o)))
+    if not err_fwd_f32 <= 6e-6:
+        raise SystemExit(f"window_encode_fwd_f32 disagrees with its plain version: {err_fwd_f32}")
+    err_bwd_f32, n_max_f32, zd_f32 = check_bwd(xyz4_t, wob_t, g_sorted_t,
+                                               "f32 form, uniform samples", mxu_f32=True)
+    err_dx_f32, worst_dx_f32 = check_dx(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK,
+                                        "f32 form, a D-NeRF step's inputs", mxu_f32=True)
+    err_dx_f32_o, worst_dx_f32_o = check_dx(xyz4_o, wob_o, table, g_sorted_o, spec, BLOCK,
+                                            "f32 form, x01 in [-0.06, 1.06]", mxu_f32=True)
+    log(f"[f32] the f32 forms against their plain f32 versions: window_encode_fwd_f32 max|err| "
+        f"{err_fwd_f32:.3g} (<= 6e-6; M = {Mt} uniform and x01 in [-0.06, 1.06]), "
+        f"window_encode_bwd_f32 {err_bwd_f32:.3g} (reordering bound, n up to {n_max_f32:.0f}; "
+        f"entries of <= 2 terms equal; zeros differ in {zd_f32} of n >= 3), "
+        f"window_encode_dx_f32 on a D-NeRF step's inputs {err_dx_f32:.3g}, worst err/bound "
+        f"{worst_dx_f32:.3f}, on x01 in [-0.06, 1.06] {err_dx_f32_o:.3g}, {worst_dx_f32_o:.3f} "
+        f"(bitwise the same on a second call)")
+    hj = hard_dp_clip_phase(dev, dn, args.seed)
 
     # ---- 7. timing at the paths' shapes ------------------------------------
     # per callable: ms (CUDA events around 20 back-to-back calls), host_us
@@ -3344,6 +3682,46 @@ def main() -> int:
         shape=f"xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples), g_sorted "
               f"[{xyz4_x.shape[0]}, {L * C}], table [749, 2, 128, 64] -> gx [3, "
               f"{xyz4_x.shape[0]}]")
+    # the f32 forms (phase 6j): the forward and the table gradient on phase
+    # 4's step shape, launches from the `train_hard --mxu_f32` run; the input
+    # gradient on a D-NeRF step's inputs, launches from the f32 D-NeRF steps.
+    # Bounds as the bf16 forms' (the table is f32 in memory either way, 4 B
+    # a value); each row also times the bf16 form on the same inputs
+    n_live_t = int((xyz4_t[:, 3] > 0).sum())
+    hard_f32 = hj["hard"]["f32"]["launches"]
+    for name, err, fn_k, fn_p, fn_bf16, fn_lib, nbytes, ops, launches_n, path, extra in (
+            ("window_encode_fwd_f32", err_fwd_f32,
+             lambda: kw.window_encode_fwd(xyz4_t, wob_t, table_win, spec, BLOCK, **f32),
+             lambda: kw.window_encode_fwd_plain(xyz4_t, wob_t, table_win, spec, BLOCK, **f32),
+             lambda: kw.window_encode_fwd(xyz4_t, wob_t, table_win, spec, BLOCK), None,
+             encoder_bytes("fwd", xyz4_t, wob_t, spec, BLOCK),
+             n_live_t * L * (10 + 8 * (3 + 2 * C)), hard_f32["window_encode_fwd_f32"],
+             "train_hard --mxu_f32", {}),
+            ("window_encode_bwd_f32", err_bwd_f32,
+             lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK, **f32),
+             lambda: kw.window_encode_bwd_plain(xyz4_t, wob_t, g_sorted_t, spec, BLOCK, **f32),
+             lambda: kw.window_encode_bwd(xyz4_t, wob_t, g_sorted_t, spec, BLOCK),
+             bwd_library(xyz4_t, wob_t, g_sorted_t),
+             encoder_bytes("bwd", xyz4_t, wob_t, spec, BLOCK),
+             n_live_t * L * (10 + 8 * (3 + 2 * C)), hard_f32["window_encode_bwd_f32"],
+             "train_hard --mxu_f32",
+             {"library_call": "index_add_ of precomputed rows and values (nearest call, not "
+                              "the same function)"}),
+            ("window_encode_dx_f32", err_dx_f32,
+             lambda: kw.window_encode_dx(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK, **f32),
+             lambda: kw.window_encode_dx_plain(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK,
+                                               **f32),
+             lambda: kw.window_encode_dx(xyz4_x, wob_x, table_x, g_sorted_x, spec, BLOCK), None,
+             dx_bytes, dx_ops, hj["dnerf_f32"]["launches"]["window_encode_dx_f32"],
+             "dnerf, TNGP_MXU_F32=1",
+             {"library_call": "none: no single PyTorch call computes the derivative-weight "
+                              "encode and its contraction"})):
+        row(name, name, launches_n, err, fn_k, fn_p, fn_lib, nbytes, ops, F32_OPS_PER_S,
+            path=path, ms_bf16_form=events_ms(fn_bf16),
+            shape="phase 4's step shape: xyz4 [{:,}, 4] ({:,} samples)".format(
+                xyz4_t.shape[0], n_live_t) if name != "window_encode_dx_f32" else
+            f"a D-NeRF step: xyz4 [{xyz4_x.shape[0]}, 4] ({n_live_x} samples)", **extra)
+
     # the set-scatter on the inputs the grid-update bench compared (2N random
     # writes into H^3 cells; its checks, exact against plain, passed above).
     # Bytes the function needs: idx once, the winning value of each written
@@ -3431,6 +3809,12 @@ def main() -> int:
         + "; frames " + ", ".join(f"{k} {v['dt']:.3f} s ({v['rounds']} rounds, {v['host_reads']} "
                                    f"host reads)" for k, v in paths["eval"].items())
         + "; CLI PSNR " + ", ".join(f"{k} {v['psnr']:.2f} dB" for k, v in paths["cli"].items())
+        + f"; the f32 form: train_hard {hj['hard']['f32']['ms_per_step']:.2f} ms/step, PSNR "
+        f"{hj['hard']['f32']['final_psnr']:.2f} dB (bf16 {hj['hard']['bf16']['ms_per_step']:.2f} "
+        f"ms/step, {hj['hard']['bf16']['final_psnr']:.2f} dB) after {HARD_STEPS} steps; "
+        f"bench_eval {hj['eval']['value']:,.1f} rays/s; NCCL mesh "
+        f"{hj['nccl']['ms']['mesh']:.2f} ms/step (unmeshed {hj['nccl']['ms']['plain']:.2f}); "
+        f"CLIP step {hj['clip']['ms_step']:.2f} ms"
         + f"; run wall {time.time() - t_run:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))

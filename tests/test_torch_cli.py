@@ -1,7 +1,7 @@
-"""The port's entry points' options on the CPU: the one option not ported
-yet (CLIP guidance) raises before anything is built, `--basis` with
-`--hyper` is a usage error, `main_nerf --error_map`, `--no_grid` and
-`--profile` run in the process at small width (`small_models`,
+"""The port's entry points' options on the CPU: CLIP guidance with the stub
+embedder runs, `--basis` with `--hyper` is a usage error, `main_nerf
+--error_map`, `--no_grid` and `--profile` run in the process at small
+width (`small_models`,
 tests/torch_cli_helpers.py), and `--gui` of both NeRF entry points serves
 PNG frames over HTTP.  The runs themselves are in
 `test_torch_cli_runs.py`."""
@@ -21,16 +21,19 @@ def test_main_dnerf_options_that_raise(monkeypatch):
         main_dnerf.main(["synthetic", "--basis", "--hyper"])
 
 
-@pytest.mark.parametrize("flag", [["--rand_pose", "4", "--clip_text", "a chair"]],
-                         ids=["flag3"])
-def test_unported_options_raise(monkeypatch, flag):
-    """CLIP guidance raises before anything is built, naming its ROADMAP
-    item."""
-    from tngp_torch.cli import main_nerf
+def test_clip_guidance_runs(small_models, tmp_path):
+    """`--rand_pose 3 --clip_text ... --clip_model_path stub`: every third
+    step is a CLIP step (stub embedder) and the run trains on."""
+    import math
 
-    monkeypatch.setenv("TNGP_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="not ported to tngp_torch yet .*ROADMAP"):
-        main_nerf.main(["synthetic", *flag])
+    from tngp_torch.cli import main_nerf
+    from tngp_torch.train.clip_guidance import StubEmbedder
+
+    tr = main_nerf.main(["synthetic", "--iters", "8", "--rand_pose", "3", "--clip_text",
+                         "a red sphere", "--clip_model_path", "stub", *FLAGS[:-2],
+                         "--workspace", str(tmp_path / "clip")])
+    assert isinstance(tr.clip_embedder, StubEmbedder) and tr.global_step == 8
+    assert all(math.isfinite(x) for x in tr.stats["loss"])
 
 
 def test_main_nerf_error_map_no_grid_and_profile(small_models, tmp_path):

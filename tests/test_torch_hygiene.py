@@ -88,7 +88,9 @@ def test_every_kernel_is_registered_with_its_source():
 
     assert set(KERNELS) == {"scatter_add_unique", "scatter_add_sorted", "scatter_add_any",
                             "scatter_set", "bin_dest", "window_encode_fwd",
-                            "window_encode_bwd", "window_encode_dx", "int_mul_probe"}
+                            "window_encode_bwd", "window_encode_dx", "int_mul_probe",
+                            "window_encode_fwd_f32", "window_encode_bwd_f32",
+                            "window_encode_dx_f32"}
     for info in KERNELS.values():
         assert (ROOT / info.source).is_file()
         path, line = info.replaces.split(":")

@@ -2,9 +2,8 @@
 and defaults (`add_common_args`), `build_configs` and `load_dataset`.
 
 The card is used unless `TNGP_PLATFORM=cpu` asks for the CPU; there is no
-fallback when no card is found.  The one option the port has not ported
-yet, CLIP guidance, raises `NotImplementedError` naming its ROADMAP item
-(`check_ported`); none is ignored.
+fallback when no card is found.  `build_clip_embedder` makes the CLIP
+step's embedder (`--clip_model_path stub`: the stub embedder).
 """
 
 from __future__ import annotations
@@ -88,20 +87,25 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--error_map", action="store_true",
                    help="sample rays by a per-pixel error map")
     p.add_argument("--rand_pose", type=int, default=-1,
-                   help="> 0: every Nth step is a CLIP-guided random-pose step (not ported yet)")
+                   help="> 0: every Nth step is a CLIP-guided random-pose step")
     p.add_argument("--clip_text", type=str, default=None,
-                   help="text prompt for CLIP guidance (not ported yet)")
+                   help="text prompt for CLIP guidance (needs --rand_pose > 0)")
     p.add_argument("--clip_model_path", type=str, default="openai/clip-vit-base-patch16",
-                   help="local HF CLIP snapshot dir (not ported yet)")
+                   help="local HF CLIP snapshot dir; 'stub' = test embedder")
     p.add_argument("--eval_interval", type=int, default=50)
     return p
 
 
-def check_ported(opt) -> None:
-    """Raise on the option whose path the port does not have yet."""
-    if opt.rand_pose > 0 or opt.clip_text is not None:
-        raise NotImplementedError("--rand_pose/--clip_text is not ported to tngp_torch yet "
-                                  "(ROADMAP.md queue 1 item 13 (CLIP guidance))")
+def build_clip_embedder(opt, device="cuda"):
+    """The embedder of --rand_pose / --clip_text runs (None when disabled):
+    the stub for `--clip_model_path stub`, else the torch CLIP towers from
+    that local snapshot."""
+    if not (getattr(opt, "rand_pose", -1) and opt.rand_pose > 0 and opt.clip_text):
+        return None
+    from ..train.clip_guidance import make_embedder
+
+    kind = "stub" if opt.clip_model_path == "stub" else "torch"
+    return make_embedder(kind, opt.clip_model_path, device=device)
 
 
 def build_configs(opt) -> tuple[RenderConfig, TrainConfig]:

@@ -47,7 +47,7 @@ def cc_config(opt):
 
 
 def main(argv=None):
-    from .common import add_common_args, build_configs, check_ported, load_dataset, select_device
+    from .common import add_common_args, build_configs, load_dataset, select_device
 
     p = argparse.ArgumentParser()
     add_common_args(p)
@@ -58,7 +58,6 @@ def main(argv=None):
                    default="8,0,8,0;16,2,16,2;32,4,32,16;64,8,64,32;64,16,64,64",
                    help="semicolon-separated (dv,dm,cv,cm) compression levels")
     opt = p.parse_args(argv)
-    check_ported(opt)
     dev = select_device()
 
     from ..models.ccnerf import cc_compress, cc_finalize, count_params, save_cc_model

@@ -25,7 +25,7 @@ import torch
 
 
 def main(argv=None):
-    from .common import add_common_args, build_configs, check_ported, load_dataset, select_device
+    from .common import add_common_args, build_configs, load_dataset, select_device
 
     p = argparse.ArgumentParser()
     add_common_args(p)
@@ -39,7 +39,6 @@ def main(argv=None):
     opt = p.parse_args(argv)
     if opt.basis and opt.hyper:
         p.error("--basis and --hyper are mutually exclusive")
-    check_ported(opt)
     dev = select_device()
 
     from ..models import DNeRFBasisNetwork, DNeRFHyperNetwork, DNeRFNetwork

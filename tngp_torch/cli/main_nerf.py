@@ -6,7 +6,9 @@ Trains on the card (the CPU with `TNGP_PLATFORM=cpu`) with checkpoints and
 resume (`--ckpt latest`), validates, renders the test poses to PNG frames
 and exports a mesh; `--test` renders and exports from the latest
 checkpoint; `--gui` serves the web viewer (`cli/viewer.py`) on
-`--gui_port` instead of training; `--no_grid` trains the grid-free path.
+`--gui_port` instead of training; `--no_grid` trains the grid-free path;
+`--rand_pose N --clip_text T` makes every Nth step a CLIP-guided step
+(`--clip_model_path stub` for the stub embedder, else a local snapshot).
 The flags and defaults are the JAX CLI's.
 """
 
@@ -20,7 +22,8 @@ import torch
 
 
 def main(argv=None):
-    from .common import add_common_args, build_configs, check_ported, load_dataset, select_device
+    from .common import (add_common_args, build_clip_embedder, build_configs, load_dataset,
+                         select_device)
 
     p = argparse.ArgumentParser()
     add_common_args(p)
@@ -32,7 +35,6 @@ def main(argv=None):
     p.add_argument("--mesh_resolution", type=int, default=256)
     p.add_argument("--skip_test_render", action="store_true")
     opt = p.parse_args(argv)
-    check_ported(opt)
     dev = select_device()
 
     from ..models import NGPNetwork
@@ -62,7 +64,7 @@ def main(argv=None):
     except FileNotFoundError:
         valid_ds = None
     trainer = Trainer(model, train_ds, cfg, tc, valid_dataset=valid_ds, device=dev,
-                      use_grid=not opt.no_grid)
+                      use_grid=not opt.no_grid, clip_embedder=build_clip_embedder(opt, dev))
 
     if opt.gui:
         from .viewer import run_viewer

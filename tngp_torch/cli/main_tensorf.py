@@ -24,7 +24,7 @@ import torch
 
 
 def main(argv=None):
-    from .common import add_common_args, build_configs, check_ported, load_dataset, select_device
+    from .common import add_common_args, build_configs, load_dataset, select_device
 
     p = argparse.ArgumentParser()
     add_common_args(p)
@@ -35,7 +35,6 @@ def main(argv=None):
                    default=[2000, 3000, 4000, 5500, 7000])
     p.add_argument("--l1_reg_weight", type=float, default=1e-4)
     opt = p.parse_args(argv)
-    check_ported(opt)
     dev = select_device()
 
     from ..models import TensoRFNetwork

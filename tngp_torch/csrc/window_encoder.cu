@@ -89,7 +89,9 @@
 // contract x * scale + shift into an FMA, which would move samples across
 // cell boundaries relative to the plain versions.
 //
-// Numerics as the TPU's default bf16 MXU pass.  Forward
+// Numerics: two forms of each kernel, a template flag F32 and a launcher
+// each (`tngp_window_encode_{fwd,bwd,dx}` and their `_f32` twins).  The
+// default form computes as the TPU's default bf16 MXU pass.  Forward
 // (window_encode_ref with emulate_bf16=True): each corner's table value and
 // weight round to bf16, the product is formed in f32 (exact for two bf16
 // factors) and the 8 corners sum in f32 in corner order.  Backward: the
@@ -98,6 +100,16 @@
 // Input gradient: the forward's numerics with the derivative weights, then
 // f32 products with the cotangents summed in (level, channel) order within a
 // group of levels and the groups' sums added in order.
+// The f32 form (F32 = true; the TPU kernels' `mxu_f32` form, Precision
+// HIGHEST, `window_encode_ref(emulate_bf16=False)`) rounds nothing to bf16:
+// the forward stages each window as f32 words, one plane per channel (64 KB
+// for C = 2; with C = 8 the 256 KB would not fit, so that form gathers from
+// global memory), and every product w * v, w * g or dw * t is a separate
+// round-to-nearest multiply before its add (`__fmul_rn` then `__fadd_rn`, as
+// the plain versions compute them: an f32 product is not exact, so one FMA
+// would round once where they round twice).  The schedules are the default
+// form's: at C = 2 the forward's 64 KB stage leaves three blocks of 512
+// threads a multiprocessor (228 KB), the input gradient's 64 KB + 48 KB two.
 // Padding slots carry validity 0 as the first factor of w and so add
 // nothing.  The cotangents arrive as g_sorted [M_pad, L*C] row-major (the
 // scatter-add sort of the [M, L*C] cotangent rows).
@@ -114,6 +126,21 @@
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A corner's operand as the form uses it: rounded to bf16 in the default
+// form, unrounded in the f32 form.
+template <bool F32>
+__device__ __forceinline__ float operand(float x) {
+  return F32 ? x : bf16_round(x);
+}
+
+// 32-bit planes of WIN_ROWS words a staged window takes: the default form
+// packs two bf16 channels to a word; the f32 form takes one plane per
+// channel, and none with C = 8 (256 KB: it gathers from global memory).
+template <int C, bool F32>
+__host__ __device__ constexpr int stage_planes() {
+  return F32 ? (C <= 4 ? C : 0) : (C + 1) / 2;
 }
 
 // Offsets (within one channel of the window, lo * 64 + hi) and f32 weights
@@ -241,17 +268,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
 }
 
-// Stage the window at tw (C planes of WIN_ROWS f32) into shared memory as
-// bf16 channel pairs, NP = (C + 1) / 2 planes of WIN_ROWS words, rows
-// swizzled: 16-byte loads where tw is 16-byte aligned (the forward's table
-// always is), else 4-byte ones.  The whole block calls it.  With THREADS,
-// the block's size, each thread issues all of its loads before it converts
-// and stores any (one trip to L2 per staging, for registers that the input
-// gradient has to spare and the forward has not); else a loop over the
-// 16-byte groups.
-template <int C, int THREADS = 0>
+// Stage the window at tw (C planes of WIN_ROWS f32) into shared memory,
+// rows swizzled: in the default form as bf16 channel pairs, NP = (C + 1) / 2
+// planes of WIN_ROWS words; in the f32 form as C planes of f32 words.
+// 16-byte loads where tw is 16-byte aligned (the forward's table always is),
+// else 4-byte ones.  The whole block calls it.  With THREADS, the block's
+// size, each thread issues all of its loads before it converts and stores
+// any (one trip to L2 per staging, for registers that the input gradient
+// has to spare and the forward has not); else a loop over the 16-byte
+// groups.
+template <int C, bool F32, int THREADS = 0>
 __device__ __forceinline__ void stage_window(uint4* stage4, const float* __restrict__ tw) {
-  constexpr int NP = (C + 1) / 2, PER = THREADS ? WIN_ROWS / 4 / THREADS : 1;
+  constexpr int NP = stage_planes<C, F32>(), PER = THREADS ? WIN_ROWS / 4 / THREADS : 1;
   static_assert(THREADS == 0 || WIN_ROWS / 4 % THREADS == 0, "the block must divide the window");
   const bool vec = (reinterpret_cast<uintptr_t>(tw) & 15) == 0;
   const int step = THREADS ? THREADS : blockDim.x;
@@ -261,15 +289,15 @@ __device__ __forceinline__ void stage_window(uint4* stage4, const float* __restr
       float4 a[PER], b[PER];
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
-        const float* ta = tw + 2 * np * WIN_ROWS + 4 * (q0 + i * step);
+        const float* ta = tw + (F32 ? np : 2 * np) * WIN_ROWS + 4 * (q0 + i * step);
         const float* tb = ta + WIN_ROWS;
         b[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         if (vec) {
           a[i] = __ldg(reinterpret_cast<const float4*>(ta));
-          if (2 * np + 1 < C) b[i] = __ldg(reinterpret_cast<const float4*>(tb));
+          if (!F32 && 2 * np + 1 < C) b[i] = __ldg(reinterpret_cast<const float4*>(tb));
         } else {
           a[i] = make_float4(__ldg(ta), __ldg(ta + 1), __ldg(ta + 2), __ldg(ta + 3));
-          if (2 * np + 1 < C)
+          if (!F32 && 2 * np + 1 < C)
             b[i] = make_float4(__ldg(tb), __ldg(tb + 1), __ldg(tb + 2), __ldg(tb + 3));
         }
       }
@@ -277,11 +305,22 @@ __device__ __forceinline__ void stage_window(uint4* stage4, const float* __restr
       for (int i = 0; i < PER; ++i) {
         const int r = 4 * (q0 + i * step);
         stage4[(np * WIN_ROWS + swz(r)) / 4] =
-            make_uint4(pack_bf16(a[i].x, b[i].x), pack_bf16(a[i].y, b[i].y),
-                       pack_bf16(a[i].z, b[i].z), pack_bf16(a[i].w, b[i].w));
+            F32 ? make_uint4(__float_as_uint(a[i].x), __float_as_uint(a[i].y),
+                             __float_as_uint(a[i].z), __float_as_uint(a[i].w))
+                : make_uint4(pack_bf16(a[i].x, b[i].x), pack_bf16(a[i].y, b[i].y),
+                             pack_bf16(a[i].z, b[i].z), pack_bf16(a[i].w, b[i].w));
       }
     }
   }
+}
+
+// Channel c of staged slot s (the swizzled slot of a row): a bf16 half of a
+// packed word in the default form, an f32 word in the f32 form.
+template <bool F32>
+__device__ __forceinline__ float staged_value(const uint32_t* stage, int c, int s) {
+  if (F32) return __uint_as_float(stage[c * WIN_ROWS + s]);
+  const uint32_t v = stage[(c >> 1) * WIN_ROWS + s];
+  return __uint_as_float(c & 1 ? v & 0xffff0000u : v << 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,21 +331,21 @@ __device__ __forceinline__ void stage_window(uint4* stage4, const float* __restr
 #define STAGE_MIN_LIVE 256  // a one-block run with fewer live samples gathers from global
 
 // Per run of one window within the chunk: stage the window once into shared
-// memory as bf16 channel pairs (NP planes of 8192 words), then each sample
-// gathers its 8 corners there, one 4-byte load per corner and channel pair.
-// A one-block run with fewer than STAGE_MIN_LIVE live samples among its
-// first FWD_THREADS (a small eval width, where most of a block is padding)
-// skips the staging and gathers from global memory instead.  Every block of
-// the chunk is written once; corner order and f32 rounding as the plain
-// version.
-template <int C>
+// memory (`stage_window`), then each sample gathers its 8 corners there, in
+// the default form one 4-byte load per corner and channel pair.  A one-block
+// run with fewer than STAGE_MIN_LIVE live samples among its first
+// FWD_THREADS (a small eval width, where most of a block is padding) skips
+// the staging and gathers from global memory instead, as the f32 form does
+// throughout with C = 8.  Every block of the chunk is written once; corner
+// order and f32 rounding as the plain version.
+template <int C, bool F32>
 __global__ void __launch_bounds__(FWD_THREADS)
     window_fwd_kernel(const float4* __restrict__ xyz4, const int32_t* __restrict__ wob,
                       const float* __restrict__ table, const float* __restrict__ scales,
                       const int32_t* __restrict__ iconst, float* __restrict__ out, int M_pad,
                       int block, int L, int S, float shift, int smooth) {
-  constexpr int NP = (C + 1) / 2;
-  extern __shared__ uint4 stage4[];  // [NP][WIN_ROWS] words, swizzled rows
+  constexpr int NP = (C + 1) / 2, PLANES = stage_planes<C, F32>();
+  extern __shared__ uint4 stage4[];  // [PLANES][WIN_ROWS] words, swizzled rows
   const uint32_t* stage = reinterpret_cast<const uint32_t*>(stage4);
   const int l = blockIdx.y, NB = M_pad / block;
   const float scale = scales[l];
@@ -329,9 +368,9 @@ __global__ void __launch_bounds__(FWD_THREADS)
     float4 p = m < m1 ? xyz4[m] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     // the barrier also keeps the stage until the previous run is done with it
     const int live = __syncthreads_count(p.w != 0.0f);
-    const bool staged = p1 - p0 > 1 || live >= STAGE_MIN_LIVE;
+    const bool staged = PLANES > 0 && (p1 - p0 > 1 || live >= STAGE_MIN_LIVE);
     if (staged) {
-      stage_window<C>(stage4, tw);
+      stage_window<C, F32>(stage4, tw);
       __syncthreads();
     }
     while (m < m1) {
@@ -345,24 +384,30 @@ __global__ void __launch_bounds__(FWD_THREADS)
         if (staged) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
-            const float wb = bf16_round(w[k]);
+            const float wb = operand<F32>(w[k]);
             const int s = swz(off[k]);
+            if constexpr (F32) {
 #pragma unroll
-            for (int np = 0; np < NP; ++np) {
-              const uint32_t v = stage[np * WIN_ROWS + s];
-              acc[2 * np] = __fadd_rn(acc[2 * np], __fmul_rn(wb, __uint_as_float(v << 16)));
-              acc[2 * np + 1] =
-                  __fadd_rn(acc[2 * np + 1], __fmul_rn(wb, __uint_as_float(v & 0xffff0000u)));
+              for (int c = 0; c < C; ++c)
+                acc[c] = __fadd_rn(acc[c], __fmul_rn(wb, staged_value<true>(stage, c, s)));
+            } else {
+#pragma unroll
+              for (int np = 0; np < NP; ++np) {
+                const uint32_t v = stage[np * WIN_ROWS + s];
+                acc[2 * np] = __fadd_rn(acc[2 * np], __fmul_rn(wb, __uint_as_float(v << 16)));
+                acc[2 * np + 1] = __fadd_rn(acc[2 * np + 1],
+                                            __fmul_rn(wb, __uint_as_float(v & 0xffff0000u)));
+              }
             }
           }
         } else {
 #pragma unroll
           for (int k = 0; k < 8; ++k) {
-            const float wb = bf16_round(w[k]);
+            const float wb = operand<F32>(w[k]);
 #pragma unroll
             for (int c = 0; c < C; ++c)
-              acc[c] = __fadd_rn(acc[c],
-                                 __fmul_rn(wb, bf16_round(__ldg(tw + c * WIN_ROWS + off[k]))));
+              acc[c] = __fadd_rn(
+                  acc[c], __fmul_rn(wb, operand<F32>(__ldg(tw + c * WIN_ROWS + off[k]))));
           }
         }
       }
@@ -427,12 +472,13 @@ __device__ __forceinline__ void warp_sum_runs(float (&v)[8][CG], const int3 cell
 }
 
 // Per piece and group of CG channels: zero a CG x 8192 f32 accumulator in
-// shared memory, add every live sample's bf16(w * g) into it with shared
+// shared memory, add every live sample's bf16(w * g) (in the f32 form the
+// unrounded w * g) into it with shared
 // atomics (runs of lanes in one cell summed first, `warp_sum_runs`), then
 // flush it: a whole short run stores the window (zeros
 // included, so the window needs no fill beforehand); a piece of a long run
 // adds its nonzero 16-byte groups into the window with vector atomics.
-template <int C>
+template <int C, bool F32>
 __global__ void __launch_bounds__(BWD_THREADS, 3)
     window_bwd_kernel(const float4* __restrict__ xyz4, const int32_t* __restrict__ wob,
                       const float* __restrict__ g_sorted, const float* __restrict__ scales,
@@ -471,7 +517,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 3)
           // padding: every contribution is bf16(0 * g) = 0
           const float g = p.w != 0.0f ? gl[(size_t)m * (L * C) + c0 + j] : 0.0f;
 #pragma unroll
-          for (int k = 0; k < 8; ++k) v[k][j] = bf16_round(__fmul_rn(w[k], g));
+          for (int k = 0; k < 8; ++k) v[k][j] = operand<F32>(__fmul_rn(w[k], g));
         }
         warp_sum_runs<CG>(v, cell_of(p, scale, shift));
 #pragma unroll
@@ -534,7 +580,7 @@ __global__ void __launch_bounds__(ZERO_THREADS)
 #define DX_MAX_CHUNK_SAMPLES 4096  // S * block, at most (the accumulators' room)
 
 // The derivative weights of sample p's corners at one level, rounded to
-// bf16, as the TPU kernel's `deriv=j` pass and the plain version
+// bf16 in the default form (unrounded in the f32 form), as the TPU kernel's `deriv=j` pass and the plain version
 // (`_corner_rows(deriv=True)`) form them: dw[j][k] is the f32 product, in
 // this order, of the validity, per dimension d the factor of corner bit
 // b_d (f or 1 - f, or for d = j: +-df, +-1 when linear) and the scale.  The
@@ -544,6 +590,7 @@ __global__ void __launch_bounds__(ZERO_THREADS)
 // set, i the other two bits in order, and the kernel negates for the rest.
 // That is 35 products per sample and level, not 96.  Also the cell
 // coordinates pg, from which the corners' rows follow.
+template <bool F32>
 __device__ __forceinline__ void dx_level_weights(const float4 p, float scale, float shift,
                                                  int smooth, long long pg[3],
                                                  float dwp[3][4]) {
@@ -573,9 +620,9 @@ __device__ __forceinline__ void dx_level_weights(const float4 p, float scale, fl
     const float w0 = __fmul_rn(__fmul_rn(u0, a[1][lo]), a[2][hi]);
     const float w1 = __fmul_rn(__fmul_rn(v0[lo], df[1]), a[2][hi]);
     const float w2 = __fmul_rn(__fmul_rn(v0[lo], a[1][hi]), df[2]);
-    dwp[0][i] = bf16_round(__fmul_rn(w0, scale));
-    dwp[1][i] = bf16_round(__fmul_rn(w1, scale));
-    dwp[2][i] = bf16_round(__fmul_rn(w2, scale));
+    dwp[0][i] = operand<F32>(__fmul_rn(w0, scale));
+    dwp[1][i] = operand<F32>(__fmul_rn(w1, scale));
+    dwp[2][i] = operand<F32>(__fmul_rn(w2, scale));
   }
 }
 
@@ -593,56 +640,65 @@ __device__ __forceinline__ uint32_t row_offset(uint32_t r) {
 
 // One corner's terms: its 8192-row table values t_c (from the stage, or
 // from global memory) times its derivative weights dw[j], added to d[c][j].
-// dw and t are bf16 values, so each product is exact in f32 and one FMA
-// rounds once, as the separate multiply and add of the plain version do.
-template <int C>
+// In the default form dw and t are bf16 values, so each product is exact in
+// f32 and one FMA rounds once, as the separate multiply and add of the plain
+// version do; in the f32 form the product rounds, so it is a separate
+// multiply and add.
+template <int C, bool F32>
 __device__ __forceinline__ void dx_corner_terms(int off, const float dw[3], bool staged,
                                                 const uint32_t* stage,
                                                 const float* __restrict__ tw,
                                                 float (&d)[C][3]) {
   constexpr int NP = (C + 1) / 2;
   float t[2 * NP];
-  if (staged) {
+  if (staged) {  // off is the swizzled slot here
+    if constexpr (F32) {
 #pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      const uint32_t v = stage[np * WIN_ROWS + off];  // off is the swizzled slot here
-      t[2 * np] = __uint_as_float(v << 16);
-      t[2 * np + 1] = __uint_as_float(v & 0xffff0000u);
+      for (int c = 0; c < C; ++c) t[c] = staged_value<true>(stage, c, off);
+    } else {
+#pragma unroll
+      for (int np = 0; np < NP; ++np) {
+        const uint32_t v = stage[np * WIN_ROWS + off];
+        t[2 * np] = __uint_as_float(v << 16);
+        t[2 * np + 1] = __uint_as_float(v & 0xffff0000u);
+      }
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) t[c] = bf16_round(__ldg(tw + c * WIN_ROWS + off));
+    for (int c = 0; c < C; ++c) t[c] = operand<F32>(__ldg(tw + c * WIN_ROWS + off));
   }
 #pragma unroll
   for (int c = 0; c < C; ++c)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) d[c][j] = __fmaf_rn(dw[j], t[c], d[c][j]);
+    for (int j = 0; j < 3; ++j)
+      d[c][j] = F32 ? __fadd_rn(d[c][j], __fmul_rn(dw[j], t[c])) : __fmaf_rn(dw[j], t[c], d[c][j]);
 }
 
 // Input gradient: per tile-sorted sample, gx[j] = sum over (l, c) of
 // g[l, c] * d[l, c, j], where d[l, c, j] = sum over corners k of
-// bf16(dw[j][k]) * bf16(table value), in corner order, in f32 — the value the
-// TPU kernel's `deriv=j` forward pass gives.  One CUDA block per (chunk of S
-// tile-sorted blocks, group of LG levels): per level it walks the chunk's
-// runs of one window as the forward does, stages each run's window once as
-// bf16 channel pairs (a one-block run with few live samples gathers from
-// global memory), and adds each live sample's terms for that level, in
+// bf16(dw[j][k]) * bf16(table value) (unrounded in the f32 form), in corner
+// order, in f32 — the value the TPU kernel's `deriv=j` forward pass gives.
+// One CUDA block per (chunk of S tile-sorted blocks, group of LG levels): per
+// level it walks the chunk's runs of one window as the forward does, stages
+// each run's window once (`stage_window`; a one-block run with few live
+// samples gathers from global memory, as the f32 form does throughout with
+// C = 8), and adds each live sample's terms for that level, in
 // channel order, to the sample's three sums, which sit in shared memory
 // (one slot per sample and j, only ever touched by one thread at a time)
 // until the group's levels are done.  Then the sums go to part[group, j,
 // m]; with one group that is gx itself.  Padding slots add nothing and
 // write zeros.
-template <int C>
+template <int C, bool F32>
 __global__ void __launch_bounds__(DX_THREADS, DX_MIN_BLOCKS)
     window_dx_kernel(const float4* __restrict__ xyz4, const int32_t* __restrict__ wob,
                      const float* __restrict__ table, const float* __restrict__ g_sorted,
                      const float* __restrict__ scales, const int32_t* __restrict__ iconst,
                      float* __restrict__ part, int M_pad, int block, int L, int S, int LG,
                      float shift, int smooth) {
-  constexpr int NP = (C + 1) / 2;
-  extern __shared__ uint4 smem4[];  // [NP][WIN_ROWS] words, then [3][S * block] f32
+  constexpr int PLANES = stage_planes<C, F32>();
+  extern __shared__ uint4 smem4[];  // [PLANES][WIN_ROWS] words, then [3][S * block] f32
   const uint32_t* stage = reinterpret_cast<const uint32_t*>(smem4);
-  float* acc = reinterpret_cast<float*>(smem4 + NP * WIN_ROWS / 4);
+  float* acc = reinterpret_cast<float*>(smem4 + PLANES * WIN_ROWS / 4);
   const int cap = S * block;
   const int NB = M_pad / block, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * S, n = min(S, NB - b0);
@@ -670,16 +726,16 @@ __global__ void __launch_bounds__(DX_THREADS, DX_MIN_BLOCKS)
       // the barrier also keeps the stage and the sums until the previous run
       // is done with them
       const int live = __syncthreads_count(p.w != 0.0f);
-      const bool staged = r1 - r0 > 1 || live >= STAGE_MIN_LIVE;
+      const bool staged = PLANES > 0 && (r1 - r0 > 1 || live >= STAGE_MIN_LIVE);
       if (staged) {
-        stage_window<C, DX_THREADS>(smem4, tw);
+        stage_window<C, F32, DX_THREADS>(smem4, tw);
         __syncthreads();
       }
       while (m < pm1) {
         if (p.w != 0.0f) {  // a padding slot adds nothing
           long long pg[3];
           float dwp[3][4];
-          dx_level_weights(p, scale, shift, smooth, pg, dwp);
+          dx_level_weights<F32>(p, scale, shift, smooth, pg, dwp);
           float d[C][3];
 #pragma unroll
           for (int c = 0; c < C; ++c) d[c][0] = d[c][1] = d[c][2] = 0.0f;
@@ -696,7 +752,7 @@ __global__ void __launch_bounds__(DX_THREADS, DX_MIN_BLOCKS)
               const float dw[3] = {in ? dx_weight(dwp, 0, k) : 0.0f,
                                    in ? dx_weight(dwp, 1, k) : 0.0f,
                                    in ? dx_weight(dwp, 2, k) : 0.0f};
-              dx_corner_terms<C>(staged ? swz(off) : off, dw, staged, stage, tw, d);
+              dx_corner_terms<C, F32>(staged ? swz(off) : off, dw, staged, stage, tw, d);
             }
           } else {
             // the hash is an XOR of one part per dimension, and the offset's
@@ -715,8 +771,8 @@ __global__ void __launch_bounds__(DX_THREADS, DX_MIN_BLOCKS)
             for (int k = 0; k < 8; ++k) {
               const float dw[3] = {dx_weight(dwp, 0, k), dx_weight(dwp, 1, k),
                                    dx_weight(dwp, 2, k)};
-              dx_corner_terms<C>(xp[0][k & 1] ^ xp[1][(k >> 1) & 1] ^ xp[2][k >> 2], dw,
-                                 staged, stage, tw, d);
+              dx_corner_terms<C, F32>(xp[0][k & 1] ^ xp[1][(k >> 1) & 1] ^ xp[2][k >> 2],
+                                      dw, staged, stage, tw, d);
             }
           }
           float* am = acc + (m - m0);
@@ -772,52 +828,52 @@ static cudaError_t allow_smem(Kernel kernel, int bytes, unsigned long long& done
   return err;
 }
 
-template <int C>
+template <int C, bool F32>
 static int launch_fwd(const float4* x4, const int32_t* wob, const float* table,
                       const float* scales, const int32_t* iconst, float* out, int M_pad,
                       int block, int L, int S, float shift, int smooth, cudaStream_t stream) {
   static unsigned long long done = 0;
-  const int smem = (C + 1) / 2 * WIN_ROWS * 4;
-  const cudaError_t err = allow_smem(window_fwd_kernel<C>, smem, done);
+  const int smem = stage_planes<C, F32>() * WIN_ROWS * 4;
+  const cudaError_t err = allow_smem(window_fwd_kernel<C, F32>, smem, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M_pad / block + S - 1) / S, L);
-  window_fwd_kernel<C><<<grid, FWD_THREADS, smem, stream>>>(x4, wob, table, scales, iconst, out,
-                                                            M_pad, block, L, S, shift, smooth);
+  window_fwd_kernel<C, F32><<<grid, FWD_THREADS, smem, stream>>>(
+      x4, wob, table, scales, iconst, out, M_pad, block, L, S, shift, smooth);
   return 0;
 }
 
-template <int C>
+template <int C, bool F32>
 static int launch_bwd(const float4* x4, const int32_t* wob, const float* g_sorted,
                       const float* scales, const int32_t* iconst, float* gtab, int M_pad,
                       int block, int L, int S, float shift, int smooth, cudaStream_t stream) {
   static unsigned long long done = 0;
   const int smem = (C < 2 ? C : 2) * WIN_ROWS * 4;
-  const cudaError_t err = allow_smem(window_bwd_kernel<C>, smem, done);
+  const cudaError_t err = allow_smem(window_bwd_kernel<C, F32>, smem, done);
   if (err != cudaSuccess) return (int)err;
   const int NB = M_pad / block;
   // with no samples (M_pad = 0) every window is unvisited: the zeroing alone
   window_bwd_zero_kernel<<<dim3(MAX_LEVEL_WINDOWS, L), ZERO_THREADS, 0, stream>>>(
       wob, iconst, gtab, NB, L, S, C);
   if (NB > 0)
-    window_bwd_kernel<C><<<dim3((NB + S - 1) / S, L), BWD_THREADS, smem, stream>>>(
+    window_bwd_kernel<C, F32><<<dim3((NB + S - 1) / S, L), BWD_THREADS, smem, stream>>>(
         x4, wob, g_sorted, scales, iconst, gtab, M_pad, block, L, S, shift, smooth);
   return 0;
 }
 
-template <int C>
+template <int C, bool F32>
 static int launch_dx(const float4* x4, const int32_t* wob, const float* table,
                      const float* g_sorted, const float* scales, const int32_t* iconst,
                      float* part, float* gx, int M_pad, int block, int L, int S, int LG,
                      float shift, int smooth, cudaStream_t stream) {
   static unsigned long long done = 0;
-  const int stage_bytes = (C + 1) / 2 * WIN_ROWS * 4;
+  const int stage_bytes = stage_planes<C, F32>() * WIN_ROWS * 4;
   // the attribute is set once, for the largest chunk the launcher takes
   const cudaError_t err =
-      allow_smem(window_dx_kernel<C>, stage_bytes + 3 * DX_MAX_CHUNK_SAMPLES * 4, done);
+      allow_smem(window_dx_kernel<C, F32>, stage_bytes + 3 * DX_MAX_CHUNK_SAMPLES * 4, done);
   if (err != cudaSuccess) return (int)err;
   const int G = (L + LG - 1) / LG;
   const dim3 grid((M_pad / block + S - 1) / S, G);
-  window_dx_kernel<C><<<grid, DX_THREADS, stage_bytes + 3 * S * block * 4, stream>>>(
+  window_dx_kernel<C, F32><<<grid, DX_THREADS, stage_bytes + 3 * S * block * 4, stream>>>(
       x4, wob, table, g_sorted, scales, iconst, G > 1 ? part : gx, M_pad, block, L, S, LG, shift,
       smooth);
   if (G > 1) {
@@ -829,34 +885,82 @@ static int launch_dx(const float4* x4, const int32_t* wob, const float* table,
   return 0;
 }
 
-#define DISPATCH_LAUNCH(LAUNCH, ...)            \
-  switch (C) {                                  \
-    case 1: rc = LAUNCH<1>(__VA_ARGS__); break; \
-    case 2: rc = LAUNCH<2>(__VA_ARGS__); break; \
-    case 4: rc = LAUNCH<4>(__VA_ARGS__); break; \
-    case 8: rc = LAUNCH<8>(__VA_ARGS__); break; \
-    default: return (int)cudaErrorInvalidValue; \
+#define DISPATCH_LAUNCH(LAUNCH, F32, ...)            \
+  switch (C) {                                       \
+    case 1: rc = LAUNCH<1, F32>(__VA_ARGS__); break; \
+    case 2: rc = LAUNCH<2, F32>(__VA_ARGS__); break; \
+    case 4: rc = LAUNCH<4, F32>(__VA_ARGS__); break; \
+    case 8: rc = LAUNCH<8, F32>(__VA_ARGS__); break; \
+    default: return (int)cudaErrorInvalidValue;      \
   }
+
+template <bool F32>
+static int encode_fwd(const float* xyz4, const int32_t* wob, const float* table,
+                      const float* scales, const int32_t* iconst, float* out, int M_pad,
+                      int block, int L, int C, int S, float shift, int smooth,
+                      cudaStream_t stream) {
+  if (S < 1 || S > MAX_CHUNK || block <= 0 || M_pad % block) return (int)cudaErrorInvalidValue;
+  int rc = 0;
+  if (M_pad > 0 && L > 0) {
+    DISPATCH_LAUNCH(launch_fwd, F32, reinterpret_cast<const float4*>(xyz4), wob, table, scales,
+                    iconst, out, M_pad, block, L, S, shift, smooth, stream)
+  }
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <bool F32>
+static int encode_bwd(const float* xyz4, const int32_t* wob, const float* g_sorted,
+                      const float* scales, const int32_t* iconst, float* gtab, int M_pad,
+                      int block, int L, int C, int S, float shift, int smooth,
+                      cudaStream_t stream) {
+  if (S < 1 || S > MAX_CHUNK || block <= 0 || M_pad % block) return (int)cudaErrorInvalidValue;
+  int rc = 0;
+  if (L > 0) {
+    DISPATCH_LAUNCH(launch_bwd, F32, reinterpret_cast<const float4*>(xyz4), wob, g_sorted,
+                    scales, iconst, gtab, M_pad, block, L, S, shift, smooth, stream)
+  }
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <bool F32>
+static int encode_dx(const float* xyz4, const int32_t* wob, const float* table,
+                     const float* g_sorted, const float* scales, const int32_t* iconst,
+                     float* part, float* gx, int M_pad, int block, int L, int C, int S, int LG,
+                     float shift, int smooth, cudaStream_t stream) {
+  if (S < 1 || S > 32 || LG < 1 || block <= 0 || M_pad % block ||
+      (int64_t)S * block > DX_MAX_CHUNK_SAMPLES)
+    return (int)cudaErrorInvalidValue;
+  int rc = 0;
+  if (M_pad > 0 && L > 0) {
+    DISPATCH_LAUNCH(launch_dx, F32, reinterpret_cast<const float4*>(xyz4), wob, table, g_sorted,
+                    scales, iconst, part, gx, M_pad, block, L, S, LG, shift, smooth, stream)
+  }
+  return rc ? rc : (int)cudaGetLastError();
+}
 
 // xyz4 [M_pad, 4] f32 (x01, y01, z01, valid), tile-sorted in blocks of `block`;
 // wob [L, M_pad / block] int32 window of each block within its level, each
 // row nondecreasing; table [n_windows, C, 128, 64] f32, 16-byte aligned;
 // scales [L] f32; iconst [4, L] int32 (side, dense, window offset, windows);
 // S blocks per chunk, 1..MAX_CHUNK; out [L * C, M_pad] f32, every entry
-// written.
+// written.  Each `_f32` launcher runs the f32 form of its kernel.
 extern "C" int tngp_window_encode_fwd(const float* xyz4, const int32_t* wob,
                                       const float* table, const float* scales,
                                       const int32_t* iconst, float* out,
                                       int M_pad, int block, int L, int C, int S,
                                       float shift, int smooth,
                                       cudaStream_t stream) {
-  if (S < 1 || S > MAX_CHUNK || block <= 0 || M_pad % block) return (int)cudaErrorInvalidValue;
-  int rc = 0;
-  if (M_pad > 0 && L > 0) {
-    DISPATCH_LAUNCH(launch_fwd, reinterpret_cast<const float4*>(xyz4), wob, table, scales,
-                    iconst, out, M_pad, block, L, S, shift, smooth, stream)
-  }
-  return rc ? rc : (int)cudaGetLastError();
+  return encode_fwd<false>(xyz4, wob, table, scales, iconst, out, M_pad, block, L, C, S, shift,
+                           smooth, stream);
+}
+
+extern "C" int tngp_window_encode_fwd_f32(const float* xyz4, const int32_t* wob,
+                                          const float* table, const float* scales,
+                                          const int32_t* iconst, float* out, int M_pad,
+                                          int block, int L, int C, int S, float shift,
+                                          int smooth, cudaStream_t stream) {
+  return encode_fwd<true>(xyz4, wob, table, scales, iconst, out, M_pad, block, L, C, S, shift,
+                          smooth, stream);
 }
 
 // As above, with g_sorted [M_pad, L * C] f32 and gtab [n_windows, C, 128, 64]
@@ -868,13 +972,17 @@ extern "C" int tngp_window_encode_bwd(const float* xyz4, const int32_t* wob,
                                       int M_pad, int block, int L, int C, int S,
                                       float shift, int smooth,
                                       cudaStream_t stream) {
-  if (S < 1 || S > MAX_CHUNK || block <= 0 || M_pad % block) return (int)cudaErrorInvalidValue;
-  int rc = 0;
-  if (L > 0) {
-    DISPATCH_LAUNCH(launch_bwd, reinterpret_cast<const float4*>(xyz4), wob, g_sorted, scales,
-                    iconst, gtab, M_pad, block, L, S, shift, smooth, stream)
-  }
-  return rc ? rc : (int)cudaGetLastError();
+  return encode_bwd<false>(xyz4, wob, g_sorted, scales, iconst, gtab, M_pad, block, L, C, S,
+                           shift, smooth, stream);
+}
+
+extern "C" int tngp_window_encode_bwd_f32(const float* xyz4, const int32_t* wob,
+                                          const float* g_sorted, const float* scales,
+                                          const int32_t* iconst, float* gtab, int M_pad,
+                                          int block, int L, int C, int S, float shift,
+                                          int smooth, cudaStream_t stream) {
+  return encode_bwd<true>(xyz4, wob, g_sorted, scales, iconst, gtab, M_pad, block, L, C, S,
+                          shift, smooth, stream);
 }
 
 // As the forward, with g_sorted [M_pad, L * C] f32 (the sorted cotangent
@@ -887,13 +995,16 @@ extern "C" int tngp_window_encode_dx(const float* xyz4, const int32_t* wob,
                                      const float* scales, const int32_t* iconst, float* part,
                                      float* gx, int M_pad, int block, int L, int C, int S,
                                      int LG, float shift, int smooth, cudaStream_t stream) {
-  if (S < 1 || S > 32 || LG < 1 || block <= 0 || M_pad % block ||
-      (int64_t)S * block > DX_MAX_CHUNK_SAMPLES)
-    return (int)cudaErrorInvalidValue;
-  int rc = 0;
-  if (M_pad > 0 && L > 0) {
-    DISPATCH_LAUNCH(launch_dx, reinterpret_cast<const float4*>(xyz4), wob, table, g_sorted,
-                    scales, iconst, part, gx, M_pad, block, L, S, LG, shift, smooth, stream)
-  }
-  return rc ? rc : (int)cudaGetLastError();
+  return encode_dx<false>(xyz4, wob, table, g_sorted, scales, iconst, part, gx, M_pad, block, L,
+                          C, S, LG, shift, smooth, stream);
+}
+
+extern "C" int tngp_window_encode_dx_f32(const float* xyz4, const int32_t* wob,
+                                         const float* table, const float* g_sorted,
+                                         const float* scales, const int32_t* iconst,
+                                         float* part, float* gx, int M_pad, int block, int L,
+                                         int C, int S, int LG, float shift, int smooth,
+                                         cudaStream_t stream) {
+  return encode_dx<true>(xyz4, wob, table, g_sorted, scales, iconst, part, gx, M_pad, block, L,
+                         C, S, LG, shift, smooth, stream);
 }

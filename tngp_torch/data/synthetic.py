@@ -1,8 +1,10 @@
 """Synthetic analytic scene — the port of `tngp/data/synthetic.py`
 `make_blob_field` (gaussian blobs with per-blob albedo; the same numpy draws
 as the JAX package for one seed), `orbit_poses`, `render_gt_images`,
-`make_synthetic_dataset`, and the dynamic scene of D-NeRF
-(`make_time_blob_field`, `make_synthetic_dynamic_dataset`).  Ground truth
+`make_synthetic_dataset`, the hard benchmark scene (`make_hard_field`,
+`make_hard_dataset`: sharp superellipsoids with high-frequency textures),
+and the dynamic scene of D-NeRF (`make_time_blob_field`,
+`make_synthetic_dynamic_dataset`).  Ground truth
 comes from dense uniform quadrature through the analytic field, independent
 of the occupancy-grid march."""
 
@@ -107,6 +109,71 @@ def make_synthetic_dataset(
     """`n_frames` orbit views of the blob scene of `seed`, rendered on
     `device`; the dataset itself is host numpy, as the JAX package's."""
     field = make_blob_field(seed, device=device)
+    poses = orbit_poses(n_frames)
+    focal = 0.9 * W
+    intrinsics = np.array([focal, focal, W / 2, H / 2], np.float32)
+    images = render_gt_images(field, poses, intrinsics, H, W, bound, num_steps,
+                              device=device)
+    return NeRFDataset(
+        poses=poses, intrinsics=intrinsics, H=H, W=W, images=images.astype(np.float32)
+    )
+
+
+def make_hard_field(seed: int = 0, n_shapes: int = 10, sharpness: float = 80.0,
+                    device="cuda") -> FieldFns:
+    """The hard benchmark scene on `device`: solid sharp-surface shapes
+    (superellipsoids, exponent 2-6, from spheres to rounded boxes) with
+    high-frequency procedural textures, from the JAX package's numpy draws
+    for `seed`; sharp boundaries stress the march, fine texture the fine
+    grid levels."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*args):
+        return torch.as_tensor(rng.uniform(*args), dtype=torch.float32, device=device)
+
+    centers = draw(-0.55, 0.55, (n_shapes, 3))
+    radii = draw(0.08, 0.22, (n_shapes,))
+    base_col = draw(0.15, 0.95, (n_shapes, 3))
+    tex_freq = draw(12.0, 42.0, (n_shapes, 3))
+    tex_phase = draw(0, 2 * np.pi, (n_shapes, 3))
+    powr = draw(2.0, 6.0, (n_shapes,))
+
+    def _occupancy(x_cf):
+        """[3, B] -> per-shape soft indicator [n, B] with a sharp falloff."""
+        d = torch.abs(x_cf[:, None, :] - centers.T[:, :, None])  # [3, n, B]
+        dist = torch.sum(d ** powr[None, :, None], dim=0) ** (1.0 / powr[:, None])
+        return torch.sigmoid(sharpness * (radii[:, None] - dist) / radii[:, None])
+
+    def density(params, x_cf):
+        return 250.0 * torch.sum(_occupancy(x_cf), dim=0)
+
+    def sigma_rgb(params, x_cf, d_cf):
+        occ = _occupancy(x_cf)  # [n, B]
+        sig = 250.0 * torch.sum(occ, dim=0)
+        ph = tex_freq.T[:, :, None] * x_cf[:, None, :] + tex_phase.T[:, :, None]
+        tex = 0.62 + 0.38 * torch.prod(torch.sin(ph), dim=0)  # [n, B]
+        cols = base_col.T[:, :, None] * tex[None, :, :]  # [3, n, B]
+        wsum = torch.sum(occ, dim=0, keepdim=True) + 1e-6
+        # elementwise blend: no TF32 matmul on the colours
+        rgb_cf = (cols * occ[None]).sum(dim=1) / wsum
+        return sig, torch.clamp(rgb_cf, 0.0, 1.0)
+
+    return FieldFns(sigma_rgb=sigma_rgb, density=density)
+
+
+def make_hard_dataset(
+    n_frames: int = 100,
+    H: int = 256,
+    W: int = 256,
+    seed: int = 0,
+    bound: float = 1.0,
+    num_steps: int = 1024,
+    device="cuda",
+) -> NeRFDataset:
+    """`n_frames` orbit views of the hard scene, rendered on `device` (the
+    JAX package's 100-view 256^2 quality benchmark by default; the tracked
+    `.cache/hard_256.npz` holds that render)."""
+    field = make_hard_field(seed, device=device)
     poses = orbit_poses(n_frames)
     focal = 0.9 * W
     intrinsics = np.array([focal, focal, W / 2, H / 2], np.float32)

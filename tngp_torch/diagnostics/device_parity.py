@@ -11,7 +11,11 @@ straddle a tile boundary:
 
   int-mul    the hash-product kernel on arange(8192) as [8, 1024]: exact;
   forward    the encoder-forward kernel (through `window_encode_binned`) on
-             an N(0, 1e-2) table against `window_encode_ref(emulate_bf16)`;
+             an N(0, 1e-2) table against `window_encode_ref(emulate_bf16)`,
+             in both forms (the default bf16 one and `mxu_f32`'s f32 one,
+             against `emulate_bf16=False`), and the same on the EMA table of
+             the newest checkpoint of `tngp_torch.scripts.train_hard`'s
+             workspaces (<tmp>/hard_*/checkpoints/*.npz) where one exists;
   row map    the same on a value-coded table (channel 0 holds the lane,
              channel 1 the hi row of every window), so a wrong row shows as
              a wrong code;
@@ -27,17 +31,19 @@ the same n terms in two orders differ by at most 2 (n - 1) 2^-24 sum|term|
 table gradient; the L*C (level, channel) terms of each sample and dimension
 for the input gradient, which the kernel adds in order and the plain
 version in torch's order); against an exact sum, one order is within
-(n - 1) 2^-24 sum|term|, which asks a unique scatter to be exact.  A probe that fails makes `main` return 1; an
-error raises.  The JAX script also checks a trained hard-scene table from
-its msgpack checkpoints; that branch waits for the checkpoint port (ROADMAP
-item 8).
+(n - 1) 2^-24 sum|term|, which asks a unique scatter to be exact.  A probe
+that fails makes `main` return 1; an error raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import os
 import sys
+import tempfile
 
+import numpy as np
 import torch
 
 from ..kernels import _lib
@@ -65,15 +71,44 @@ def int_mul_probe(device) -> bool:
     return bad == 0
 
 
-def forward_probe(spec, table_win, x01, tag="forward") -> bool:
-    """Kernel forward vs the canonical plain encoder: each output is a sum of
-    8 bf16-exact corner products, so two orders are within 14 2^-24 of the
-    sum of their magnitudes (the encode of |table|: weights are >= 0)."""
+def forward_probe(spec, table_win, x01, tag="forward", mxu_f32: bool = False) -> bool:
+    """Kernel forward vs the canonical plain encoder of the same form: each
+    output is a sum of the same 8 corner products (bf16-exact in the
+    default form, rounded alike in the f32 form), so two orders are within
+    14 2^-24 of the sum of their magnitudes (the encode of |table|: weights
+    are >= 0)."""
     canon = wt.window_unview(table_win, spec)
-    got = kw.window_encode_binned(x01, table_win, spec)
-    want = wt.window_encode_ref(x01, canon, spec, emulate_bf16=True)
-    sabs = wt.window_encode_ref(x01, canon.abs(), spec, emulate_bf16=True)
-    return _report(tag, (got - want).abs(), 14 * U * sabs)
+    got = kw.window_encode_binned(x01, table_win, spec, mxu_f32=mxu_f32)
+    want = wt.window_encode_ref(x01, canon, spec, emulate_bf16=not mxu_f32)
+    sabs = wt.window_encode_ref(x01, canon.abs(), spec, emulate_bf16=not mxu_f32)
+    return _report(f"{tag} mxu_f32={mxu_f32}", (got - want).abs(), 14 * U * sabs)
+
+
+def trained_table(spec, device, pattern=None):
+    """The EMA window table of the newest `train_hard` checkpoint
+    (`<tmp>/hard_*/checkpoints/*.npz` unless `pattern` says otherwise), or
+    None (said on stdout) when there is none or it is not this spec's
+    window layout (a golden-grid run's)."""
+    from ..utils import msgpack_codec
+
+    pattern = pattern or os.path.join(tempfile.gettempdir(), "hard_*", "checkpoints", "*.npz")
+    cands = sorted(glob.glob(pattern), key=os.path.getmtime)
+    if not cands:
+        print(f"# trained table: no checkpoint matches {pattern}", flush=True)
+        return None
+    print(f"# trained table: {cands[-1]}", flush=True)
+    with open(cands[-1], "rb") as f:
+        raw = msgpack_codec.unpackb(f.read())
+    try:
+        tab = np.asarray(raw["ema"]["params"]["encoder"]["embeddings"], np.float32)
+    except (KeyError, TypeError) as e:
+        print(f"# trained table unavailable ({type(e).__name__}: {e})", flush=True)
+        return None
+    want = (spec.n_windows, spec.level_dim, 128, 64)
+    if tab.shape != want:
+        print(f"# trained table skipped: shape {tab.shape} != window layout {want}", flush=True)
+        return None
+    return torch.from_numpy(tab.copy()).to(device)
 
 
 def row_mapping_probe(spec, x01) -> bool:
@@ -176,14 +211,23 @@ def probe_inputs(spec, n: int, seed: int, device):
 
 # the kernels `run_probes` launches (a caller checks that each ran)
 KERNELS = ("int_mul_probe", "bin_dest", "scatter_add_unique", "scatter_add_sorted",
-           "scatter_add_any", "window_encode_fwd", "window_encode_bwd", "window_encode_dx")
+           "scatter_add_any", "window_encode_fwd", "window_encode_bwd", "window_encode_dx",
+           "window_encode_fwd_f32")
 
 
-def run_probes(spec, n: int = 65536, seed: int = 0, device="cuda") -> bool:
+def run_probes(spec, n: int = 65536, seed: int = 0, device="cuda", trained=None) -> bool:
+    """Every probe; `trained` is a glob of checkpoints for the trained
+    table (`trained_table`'s default when None)."""
     table, x01 = probe_inputs(spec, n, seed, device)
-    ok = [int_mul_probe(device), forward_probe(spec, table, x01),
-          row_mapping_probe(spec, x01), bwd_probe(spec, table, x01),
-          input_grad_probe(spec, table, x01), scatter_probe(n, seed, device)]
+    tabs = {"forward": table}
+    tab = trained_table(spec, device, trained)
+    if tab is not None:
+        tabs["forward trained"] = tab
+    ok = [int_mul_probe(device)]
+    ok += [forward_probe(spec, t, x01, tag, f32) for tag, t in tabs.items()
+           for f32 in (False, True)]
+    ok += [row_mapping_probe(spec, x01), bwd_probe(spec, table, x01),
+           input_grad_probe(spec, table, x01), scatter_probe(n, seed, device)]
     return all(ok)
 
 

@@ -9,6 +9,7 @@ package.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -54,14 +55,18 @@ class WindowGridEncoder(nn.Module):
     128, 64]; `cf` runs the binned path (kernels on the card, plain versions
     on CPU), whose backward gives the table gradient and, with
     `input_grads=True` (an encoder whose input is itself a network output,
-    as D-NeRF's canonical encode at x + dx), the positions' gradient."""
+    as D-NeRF's canonical encode at x + dx), the positions' gradient.
+    `mxu_f32=True` computes in true f32 (the f32 form of the kernels) where
+    the default rounds corner operands to bf16, as the JAX module's option."""
 
     def __init__(self, spec: WindowSpec, block: int = DEFAULT_BLOCK, device="cuda",
-                 generator: torch.Generator | None = None, input_grads: bool = False):
+                 generator: torch.Generator | None = None, input_grads: bool = False,
+                 mxu_f32: bool = False):
         super().__init__()
         self.spec = spec
         self.block = block
         self.input_grads = input_grads
+        self.mxu_f32 = mxu_f32
         self.embeddings = nn.Parameter(spec.init_table_win(generator, device))
 
     @property
@@ -72,7 +77,7 @@ class WindowGridEncoder(nn.Module):
         """[3, B] in [-bound, bound] -> [L*C, B]."""
         x01 = (x_cf + bound) / (2.0 * bound)
         return window_encode_binned(x01, self.embeddings, self.spec, self.block,
-                                    self.input_grads)
+                                    self.input_grads, self.mxu_f32)
 
 
 class SHEncoder(nn.Module):
@@ -137,10 +142,16 @@ def get_encoder(
     device="cuda",
     generator: torch.Generator | None = None,
     input_grads: bool = False,
+    mxu_f32: bool = False,
 ) -> Tuple[nn.Module, int]:
     """Name -> (module, output_dim), as the JAX factory.  `input_grad`
     (default on) gives the golden grid's backward its position gradient;
-    `input_grads` (default off) asks the window encoder for one."""
+    `input_grads` (default off) asks the window encoder for one.  The window
+    encoder computes in true f32 with `mxu_f32=True` or with the environment
+    variable `TNGP_MXU_F32=1` (`tngp/encoders/modules.py:200-206`; the
+    models reach it through the variable).  `TNGP_WIN_SWAP` has no
+    counterpart: it picks one of two TPU matmul orientations that give the
+    same bits."""
     if encoding in (None, "None", "none"):
         return IdentityEncoder(input_dim=input_dim), input_dim
     if encoding == "frequency":
@@ -161,8 +172,9 @@ def get_encoder(
             align_corners=align_corners,
             interpolation=interpolation,
         )
-        enc = WindowGridEncoder(spec, device=device, generator=generator,
-                                input_grads=input_grads)
+        enc = WindowGridEncoder(
+            spec, device=device, generator=generator, input_grads=input_grads,
+            mxu_f32=bool(mxu_f32) or os.environ.get("TNGP_MXU_F32", "0") == "1")
         return enc, spec.output_dim
     if encoding in ("hashgrid", "tiledgrid"):
         spec = HashGridSpec.create(

@@ -56,14 +56,15 @@ _SIGNATURES = {
           *[_c.c_void_p] * 6, _c.c_void_p]),
     ],
     "window_encoder.cu": [
-        *[(f"tngp_window_encode_{d}", _c.c_int,
+        *[(f"tngp_window_encode_{d}{form}", _c.c_int,
            [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
             _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
             _c.c_float, _c.c_int, _c.c_void_p])
-          for d in ("fwd", "bwd")],
-        ("tngp_window_encode_dx", _c.c_int,
-         [*[_c.c_void_p] * 8, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-          _c.c_int, _c.c_float, _c.c_int, _c.c_void_p]),
+          for d in ("fwd", "bwd") for form in ("", "_f32")],
+        *[(f"tngp_window_encode_dx{form}", _c.c_int,
+           [*[_c.c_void_p] * 8, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_int, _c.c_float, _c.c_int, _c.c_void_p])
+          for form in ("", "_f32")],
     ],
     "int_mul_probe.cu": [
         ("tngp_int_mul_probe", _c.c_int,

@@ -26,6 +26,13 @@ A dense level's corner row outside the window (a sample outside the unit
 cube) contributes nothing in all three passes, as in the TPU kernels
 (`ops/window_table.py` `_corner_rows`).
 
+Numerics: by default the TPU's bf16 MXU pass (corner values and weights, or
+the backward's products, rounded to bf16; f32 sums).  `mxu_f32=True` is the
+JAX package's true-f32 form (`Precision.HIGHEST`, the plain
+`window_encode_ref(emulate_bf16=False)`): nothing rounds to bf16, and the
+three kernels run their f32 form (`window_encode_{fwd,bwd,dx}_f32`, the same
+CUDA kernels with the template flag F32).
+
 Kernels (CUDA sources in `tngp_torch/csrc/`; each header says what bounds it):
   `bin_dest`           -> bin_rank.cu        (replaces `_make_bin_rank_kernel`
                           and the scans around it)
@@ -72,6 +79,20 @@ WINDOW_BWD = _lib.register(
 WINDOW_DX = _lib.register(
     "window_encode_dx", "window_encoder.cu", "tngp/kernels/window_encoder.py:633",
     "tngp_window_encode_dx",
+)
+# the f32 forms (`mxu_f32=True`: `_mxu_precision` HIGHEST, :318-329, chosen
+# at :582 and :613)
+WINDOW_FWD_F32 = _lib.register(
+    "window_encode_fwd_f32", "window_encoder.cu", "tngp/kernels/window_encoder.py:336",
+    "tngp_window_encode_fwd_f32",
+)
+WINDOW_BWD_F32 = _lib.register(
+    "window_encode_bwd_f32", "window_encoder.cu", "tngp/kernels/window_encoder.py:396",
+    "tngp_window_encode_bwd_f32",
+)
+WINDOW_DX_F32 = _lib.register(
+    "window_encode_dx_f32", "window_encoder.cu", "tngp/kernels/window_encoder.py:633",
+    "tngp_window_encode_dx_f32",
 )
 
 
@@ -270,40 +291,50 @@ def sorted_corner_addresses(xyz4, wob, spec: WindowSpec, block: int, level: int,
     return (addr, *(w * valid for w in geo[1:]))
 
 
-def window_encode_fwd_plain(xyz4, wob, table_win, spec: WindowSpec, block: int):
+def _operand(x: torch.Tensor, mxu_f32: bool) -> torch.Tensor:
+    """A corner operand as the numerics use it: bf16-rounded by default,
+    unrounded in the f32 form."""
+    return x if mxu_f32 else _bf16_round(x)
+
+
+def window_encode_fwd_plain(xyz4, wob, table_win, spec: WindowSpec, block: int,
+                            mxu_f32: bool = False):
     """Plain version of the encoder-forward kernel.
 
     xyz4 [M_pad, 4] f32 (x01, y01, z01, valid) in tile-pure blocks; wob
     [L, NB] int32; table_win [NW, C, 128, 64] f32.  Returns [L*C, M_pad] f32
-    with bf16-rounded corner values and weights, f32 sums."""
+    with bf16-rounded corner values and weights (unrounded with `mxu_f32`),
+    f32 products and sums."""
     flat = table_win.float().reshape(-1)
     outs = []
     for l in range(spec.num_levels):
         addr, ws = sorted_corner_addresses(xyz4, wob, spec, block, l)
-        ws = _bf16_round(ws)
+        ws = _operand(ws, mxu_f32)
         for c in range(spec.level_dim):
-            vals = _bf16_round(flat[addr + c * WIN_ROWS])
+            vals = _operand(flat[addr + c * WIN_ROWS], mxu_f32)
             outs.append(torch.sum(ws * vals, dim=0))
     return torch.stack(outs)
 
 
-def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
+def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int,
+                      mxu_f32: bool = False):
     """Encoder forward over tile-sorted samples (see
     `window_encode_fwd_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel: one CUDA block per (chunk, level), each run
-    of one window within the chunk staged once in shared memory as bf16 (a
-    one-block run of mostly padding gathers from global memory instead);
-    the same values, corners summed in the same order.  Raises on what the
-    kernel does not take (`_check_encoder_call`)."""
+    tensors launch the kernel (its f32 form with `mxu_f32`): one CUDA block
+    per (chunk, level), each run of one window within the chunk staged once
+    in shared memory, as bf16 or f32 (a one-block run of mostly padding
+    gathers from global memory instead); the same values, corners summed in
+    the same order.  Raises on what the kernel does not take
+    (`_check_encoder_call`)."""
     if _lib.use_plain(xyz4):
-        return window_encode_fwd_plain(xyz4, wob, table_win, spec, block)
+        return window_encode_fwd_plain(xyz4, wob, table_win, spec, block, mxu_f32)
     L, C = spec.num_levels, spec.level_dim
     M_pad = _check_encoder_call(xyz4, wob, spec, block, table_win=table_win)
     _check_aligned(table_win, "table_win")  # staged with 16-byte loads
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     out = torch.empty((L * C, M_pad), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
-        WINDOW_FWD, xyz4.device,
+        WINDOW_FWD_F32 if mxu_f32 else WINDOW_FWD, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), out.data_ptr(),
         M_pad, block, L, C, chunk_blocks(M_pad // block), spec.shift,
@@ -312,14 +343,15 @@ def window_encode_fwd(xyz4, wob, table_win, spec: WindowSpec, block: int):
     return out
 
 
-def window_encode_bwd_plain(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
+def window_encode_bwd_plain(xyz4, wob, g_sorted, spec: WindowSpec, block: int,
+                            mxu_f32: bool = False):
     """Plain version of the encoder-backward kernel.
 
     xyz4 [M_pad, 4] f32 and wob [L, NB] int32 as the forward; g_sorted
     [M_pad, L*C] f32 cotangent rows in the sorted order.  Returns the table
     gradient [NW, C, 128, 64] f32: each corner adds `bf16(w * valid * g)`,
-    one rounding of the product, summed in f32; windows no block visits and
-    rows no sample touches are zero."""
+    one rounding of the product (with `mxu_f32` the f32 product), summed in
+    f32; windows no block visits and rows no sample touches are zero."""
     M_pad = xyz4.shape[0]
     L, C = spec.num_levels, spec.level_dim
     out = torch.zeros((spec.n_windows * C * WIN_ROWS,), dtype=torch.float32,
@@ -328,15 +360,17 @@ def window_encode_bwd_plain(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     for l in range(L):
         addr, ws = sorted_corner_addresses(xyz4, wob, spec, block, l)
         for c in range(C):
-            contrib = _bf16_round(ws * g[:, l, c])  # [8, M_pad]
+            contrib = _operand(ws * g[:, l, c], mxu_f32)  # [8, M_pad]
             out.index_add_(0, (addr + c * WIN_ROWS).reshape(-1), contrib.reshape(-1))
     return out.reshape(spec.n_windows, C, WIN_LANES, WIN_HI)
 
 
-def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
+def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int,
+                      mxu_f32: bool = False):
     """Table gradient over tile-sorted samples (see
     `window_encode_bwd_plain`).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which writes every entry: each chunk's piece
+    tensors launch the kernel (its f32 form with `mxu_f32`), which writes
+    every entry: each chunk's piece
     (a whole run of one window of at most 2 S blocks, or a longer run's part
     within the chunk: `encoder_pieces` in tests/test_torch_window_schedule.py)
     accumulates its window in shared memory and stores it (a whole run) or
@@ -344,13 +378,13 @@ def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     small kernel in the same call).  Each entry matches the ordered sum to
     f32 reordering error."""
     if _lib.use_plain(xyz4):
-        return window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block)
+        return window_encode_bwd_plain(xyz4, wob, g_sorted, spec, block, mxu_f32)
     L, C = spec.num_levels, spec.level_dim
     M_pad = _check_encoder_call(xyz4, wob, spec, block, g_sorted=g_sorted)
     scales, iconst, _ = _level_consts(spec, str(xyz4.device))
     gtab = torch.empty(_table_shape(spec), dtype=torch.float32, device=xyz4.device)
     _lib.launch(
-        WINDOW_BWD, xyz4.device,
+        WINDOW_BWD_F32 if mxu_f32 else WINDOW_BWD, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), g_sorted.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), gtab.data_ptr(),
         M_pad, block, L, C, chunk_blocks(M_pad // block), spec.shift,
@@ -359,19 +393,21 @@ def window_encode_bwd(xyz4, wob, g_sorted, spec: WindowSpec, block: int):
     return gtab
 
 
-def dx_features(xyz4, wob, table_win, spec: WindowSpec, block: int) -> torch.Tensor:
+def dx_features(xyz4, wob, table_win, spec: WindowSpec, block: int,
+                mxu_f32: bool = False) -> torch.Tensor:
     """The derivative-weight encode of tile-sorted samples: d [3, L*C, M_pad]
     f32, d[j] = d features / d x01_j with each corner's table value and
-    derivative weight rounded to bf16 and the 8 products summed in corner
-    order in f32 (the TPU kernel's `deriv=j` value)."""
+    derivative weight rounded to bf16 (unrounded with `mxu_f32`) and the 8
+    products summed in corner order in f32 (the TPU kernel's `deriv=j`
+    value)."""
     flat = table_win.float().reshape(-1)
     L, C = spec.num_levels, spec.level_dim
     d = [[], [], []]
     for l in range(L):
         addr, _, dws = sorted_corner_addresses(xyz4, wob, spec, block, l, deriv=True)
-        dws = _bf16_round(dws)  # [3, 8, M_pad]
+        dws = _operand(dws, mxu_f32)  # [3, 8, M_pad]
         for c in range(C):
-            vals = _bf16_round(flat[addr + c * WIN_ROWS])  # [8, M_pad]
+            vals = _operand(flat[addr + c * WIN_ROWS], mxu_f32)  # [8, M_pad]
             for j in range(3):
                 acc = dws[j, 0] * vals[0]
                 for k in range(1, 8):
@@ -380,13 +416,14 @@ def dx_features(xyz4, wob, table_win, spec: WindowSpec, block: int) -> torch.Ten
     return torch.stack([torch.stack(dj) for dj in d])
 
 
-def window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int):
+def window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int,
+                           mxu_f32: bool = False):
     """Plain version of the input-gradient kernel.
 
     xyz4, wob and table_win as the forward; g_sorted [M_pad, L*C] f32 as the
     backward.  Returns gx [3, M_pad] f32: gx_j = `(g_sorted.T * d[j]).sum(0)`
     with d = `dx_features(...)`, the JAX package's contraction."""
-    d = dx_features(xyz4, wob, table_win, spec, block)
+    d = dx_features(xyz4, wob, table_win, spec, block, mxu_f32)
     return (g_sorted.float().T[None] * d).sum(1)
 
 
@@ -404,17 +441,18 @@ def dx_schedule(n_blocks: int, n_levels: int, block: int) -> tuple[int, int]:
             min(DX_GROUP_LEVELS, n_levels))
 
 
-def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int):
+def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: int,
+                     mxu_f32: bool = False):
     """Input gradient over tile-sorted samples (see `window_encode_dx_plain`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel: one
-    CUDA block per (chunk, group of levels) that stages each run's window
-    once in shared memory as bf16, then, with more than one group, a second
+    CPU tensors take the plain version; CUDA tensors launch the kernel (its
+    f32 form with `mxu_f32`): one CUDA block per (chunk, group of levels)
+    that stages each run's window once in shared memory, then, with more than one group, a second
     kernel adds the groups' partial sums in group order.  Each sample's L*C
     terms are added in (level, channel) order within a group and the groups
     in order, so two calls give the same bits.  Raises on what the kernel does not
     take (`_check_encoder_call`; blocks of more than DX_MAX_CHUNK_SAMPLES)."""
     if _lib.use_plain(xyz4):
-        return window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block)
+        return window_encode_dx_plain(xyz4, wob, table_win, g_sorted, spec, block, mxu_f32)
     L, C = spec.num_levels, spec.level_dim
     M_pad = _check_encoder_call(xyz4, wob, spec, block, table_win=table_win,
                                 g_sorted=g_sorted)
@@ -429,7 +467,7 @@ def window_encode_dx(xyz4, wob, table_win, g_sorted, spec: WindowSpec, block: in
                       device=xyz4.device)
     gx = buf[:3 * M_pad].view(3, M_pad)
     _lib.launch(
-        WINDOW_DX, xyz4.device,
+        WINDOW_DX_F32 if mxu_f32 else WINDOW_DX, xyz4.device,
         xyz4.data_ptr(), wob.data_ptr(), table_win.data_ptr(), g_sorted.data_ptr(),
         scales.data_ptr(), iconst.data_ptr(), buf[3 * M_pad:].data_ptr(), gx.data_ptr(),
         M_pad, block, L, C, S, LG, spec.shift, int(spec.interpolation == "smoothstep"),
@@ -442,7 +480,7 @@ class _WindowEncodeBinned(torch.autograd.Function):
     with `input_grads`, the positions' gradient."""
 
     @staticmethod
-    def forward(ctx, x01_cf, table_win, spec, block, input_grads):
+    def forward(ctx, x01_cf, table_win, spec, block, input_grads, mxu_f32):
         M = x01_cf.shape[1]
         dest, tob = bin_dest(x01_cf, block=block)
         M_pad = padded_size(M, block)
@@ -452,17 +490,17 @@ class _WindowEncodeBinned(torch.autograd.Function):
         xyz4 = scatter_add(dest, payload, M_pad, indices="unique")  # [M_pad, 4]
         wob = _wob_local(spec, tob)  # [L, NB]
         table = table_win.float().contiguous()
-        feats_sorted = window_encode_fwd(xyz4, wob, table, spec, block)  # [LC, M_pad]
+        feats_sorted = window_encode_fwd(xyz4, wob, table, spec, block, mxu_f32)  # [LC, M_pad]
         # the table is kept only for the input gradient
         ctx.save_for_backward(xyz4, dest, wob, table if input_grads else None)
-        ctx.spec, ctx.block, ctx.input_grads = spec, block, input_grads
+        ctx.spec, ctx.block, ctx.input_grads, ctx.mxu_f32 = spec, block, input_grads, mxu_f32
         return feats_sorted.index_select(1, dest)  # [LC, M] unsort
 
     @staticmethod
     def backward(ctx, g):
         want_x = ctx.input_grads and ctx.needs_input_grad[0]
         if not (want_x or ctx.needs_input_grad[1]):
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         xyz4, dest, wob, table = ctx.saved_tensors
         # sort the cotangents the way the inputs were sorted: rows [M, LC]
         # (g may arrive non-contiguous) -> [M_pad, LC], unique indices
@@ -470,11 +508,12 @@ class _WindowEncodeBinned(torch.autograd.Function):
                                indices="unique")
         gtab = gx = None
         if ctx.needs_input_grad[1]:
-            gtab = window_encode_bwd(xyz4, wob, g_sorted, ctx.spec, ctx.block)
+            gtab = window_encode_bwd(xyz4, wob, g_sorted, ctx.spec, ctx.block, ctx.mxu_f32)
         if want_x:
-            gx_sorted = window_encode_dx(xyz4, wob, table, g_sorted, ctx.spec, ctx.block)
+            gx_sorted = window_encode_dx(xyz4, wob, table, g_sorted, ctx.spec, ctx.block,
+                                         ctx.mxu_f32)
             gx = gx_sorted.index_select(1, dest)  # [3, M] unsort
-        return gx, gtab, None, None, None
+        return gx, gtab, None, None, None, None
 
 
 def window_encode_binned(
@@ -483,12 +522,15 @@ def window_encode_binned(
     spec: WindowSpec,
     block: int = DEFAULT_BLOCK,
     input_grads: bool = False,
+    mxu_f32: bool = False,
 ) -> torch.Tensor:
     """Windowed grid encode through the binned path.
 
     x01_cf: [3, M], in [0,1] for NGP (samples outside contribute nothing at
     the dense levels' out-of-range corners); table_win: [NW, C, 128, 64].
     Returns [L*C, M] f32, level-major, with the bf16 corner numerics of the
-    TPU default.  Table gradients flow (in the window layout); positions get
-    theirs only with `input_grads=True`, as the JAX package's option."""
-    return _WindowEncodeBinned.apply(x01_cf, table_win, spec, block, input_grads)
+    TPU default, or with `mxu_f32=True` the true-f32 numerics of the JAX
+    package's option of that name (the f32 form of all three kernels).
+    Table gradients flow (in the window layout); positions get theirs only
+    with `input_grads=True`, as the JAX package's option."""
+    return _WindowEncodeBinned.apply(x01_cf, table_win, spec, block, input_grads, mxu_f32)

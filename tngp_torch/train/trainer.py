@@ -40,8 +40,30 @@ of a new shape with a fresh optimizer, EMA and frame renderers.  They set
 and without error-map updates (`error_map_step = False`), as the JAX
 package gives tiers and the map's update to the base step only.
 
-Not ported yet: `mesh=` (data parallelism) and the CLIP step
-(`TrainConfig` raises on its options).
+Data parallelism (`mesh=`, a `parallel.make_mesh()` over the process
+group; the base trainer only, as the JAX package's subclasses pass none):
+every rank draws the same global ray batch from the same seeded generators
+and takes its 'data' slice (`ray_sharding`); the sample budgets are per
+rank (M_local = tier fraction x N_local x K, `mesh.py`'s multi-chip
+semantics); the masked mean divides by the all-reduced count of kept rays,
+so that the loss is the global mean, and the gradients are summed over the
+ranks in one flat all-reduce before Adam, so that the parameters stay
+equal on every rank.  The tier read all-reduces demand and kept rays (every
+rank picks the same tier), rank 0's grid is broadcast after each occupancy
+update (a repeated set-scatter index has an unspecified winner), the error
+map's update gathers every rank's errors and takes rank 0's row, and only
+rank 0 writes checkpoints, logs and TensorBoard.  The table stays
+replicated, `shard_table` or not (`parallel/mesh.py`).  Under NCCL a step
+makes no host sync.  Without a mesh the trainer runs the same code on
+`parallel.mesh.SINGLE`, one rank without collectives, and the step is the
+one it was before data parallelism.
+
+CLIP guidance (`clip_embedder=`, with `TrainConfig.rand_pose` > 0 and
+`clip_text`): every `rand_pose`-th step (after that step's grid update)
+is a CLIP step instead of a photometric one: a square render of a random
+orbit pose, its image embedded, -cos(image, text) minimised with one Adam
+step (no EMA, no grid update) and `train/clip_loss` logged
+(`run_clip_step`).
 """
 
 from __future__ import annotations
@@ -63,8 +85,9 @@ from ..convert import (
     occupancy_grid_state_dict,
     optax_adam_state_dict,
 )
-from ..data.provider import NeRFDataset
+from ..data.provider import NeRFDataset, rand_poses
 from ..data.rays import full_image_rays, sample_rays
+from ..parallel.mesh import SINGLE, all_reduce_flat, ray_sharding, shard_params
 from ..render.frame_eval import FrameRenderer
 from ..render.occupancy import create as create_grid
 from ..render.occupancy import mark_untrained_grid, update_density_grid
@@ -104,11 +127,15 @@ def masked_mse(image: torch.Tensor, gt_rgb: torch.Tensor, ray_mask: torch.Tensor
     return masked_mean(((image - gt_rgb) ** 2).mean(dim=-1), ray_mask)
 
 
-def masked_mean(per_ray: torch.Tensor, ray_mask: torch.Tensor):
-    """(mean of `per_ray` over the kept rays, number of kept rays)."""
+def masked_mean(per_ray: torch.Tensor, ray_mask: torch.Tensor, mesh=SINGLE):
+    """(mean of `per_ray` over the kept rays of every rank of `mesh`, this
+    rank's number of kept rays).  Under a mesh each rank's term is its own
+    rays' sum over the all-reduced count, so that the terms sum to the
+    global mean."""
     rm = ray_mask.float()
     kept = rm.sum()
-    return (per_ray * rm).sum() / torch.clamp(kept, min=1.0), kept
+    kept_all = mesh.all_reduce(kept.detach().reshape(1).clone())[0] / mesh.n_model
+    return (per_ray * rm).sum() / torch.clamp(kept_all, min=1.0), kept
 
 
 @torch.no_grad()
@@ -153,11 +180,18 @@ class Trainer:
         constant_lr: bool = False,  # fixed lr, as a benchmark loop wants
         full_grid_updates: int = 16,  # the first updates query every cell
         use_grid: bool = True,  # False: the grid-free uniform path
+        mesh=None,  # parallel.Mesh: data parallelism over the process group
+        shard_table: bool = False,  # accepted; the table stays replicated
+        clip_embedder=None,  # image / text embedder of the CLIP step
     ):
         # ray and pose arithmetic stays true f32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.use_grid = use_grid
+        self.mesh = mesh = mesh if mesh is not None else SINGLE
+        if tc.num_rays % mesh.n_data:
+            raise ValueError(f"num_rays {tc.num_rays} does not split over {mesh.n_data} data "
+                             "ranks")
         self.device = torch.device(device)
         self.cfg = cfg
         self.tc = tc
@@ -212,16 +246,39 @@ class Trainer:
             if tc.adaptive_overdrive and f_over > f:
                 fracs.append(f_over)
         self._tier_cfgs = [dataclasses.replace(cfg, compact_fraction=tf) for tf in fracs]
-        self._tier_M = [train_sample_budget(tc.num_rays, c) for c in self._tier_cfgs]
+        self._tier_M = [train_sample_budget(self.n_rays_local, c) for c in self._tier_cfgs]
         self._tier = fracs.index(f)  # start at the configured fraction
+
+        # the CLIP step's text embedding (tngp/train/trainer.py:192-201)
+        self.clip_embedder = clip_embedder
+        self._clip_text_feat = None
+        if tc.rand_pose > 0 and clip_embedder is not None:
+            if not tc.clip_text:
+                raise ValueError("--rand_pose > 0 needs --clip_text")
+            self._clip_text_feat = torch.as_tensor(
+                np.asarray(clip_embedder.embed_text(tc.clip_text), np.float32),
+                device=self.device)
 
         if tc.use_checkpoint == "latest":
             path = ckpt_io.latest_checkpoint(tc.workspace, tc.name)
             if path:
                 self.load_checkpoint(path)
 
+    @property
+    def n_rays_local(self) -> int:
+        """Rays of this rank's slice of a step's batch (all of them without
+        a mesh)."""
+        return self.tc.num_rays // self.mesh.n_data
+
+    @property
+    def primary(self) -> bool:
+        """Whether this process writes logs, checkpoints and TensorBoard."""
+        return self.mesh.rank == 0
+
     # ------------------------------------------------------------------ logging
     def log(self, msg: str):
+        if not self.primary:
+            return
         print(msg, flush=True)
         if os.path.isdir(self.tc.workspace):
             with open(self.log_path, "a") as f:
@@ -230,7 +287,9 @@ class Trainer:
     def log_scalars(self, **scalars):
         """TensorBoard scalars `train/<name>` at the current step, once the
         workspace exists (the writer is made at the first call there, and
-        is False where neither library imports)."""
+        is False where neither library imports); rank 0's only."""
+        if not self.primary:
+            return
         if self.writer is None and os.path.isdir(self.tc.workspace):
             self.writer = _summary_writer(
                 os.path.join(self.tc.workspace, "run", self.tc.name)) or False
@@ -248,10 +307,12 @@ class Trainer:
         """Install `model` (at construction, and after a change of shape):
         its field (`FieldFns.from_model` unless given), the parameter list,
         a fresh optimizer and schedule, an EMA of copies of its weights, and
-        no cached frame renderer (they hold the old field)."""
+        no cached frame renderer (they hold the old field).  Under a mesh
+        every rank takes rank 0's weights first."""
         self.model = model.to(self.device)
         self.field = field if field is not None else FieldFns.from_model(self.model)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
+        shard_params(self.params, self.mesh)
         self.optimizer, self.scheduler = self.make_optimizer()
         self.ema_params = ema_init(self.params)
         self._frame_renderers: dict = {}  # (chunk, cfg) -> FrameRenderer
@@ -264,7 +325,7 @@ class Trainer:
         fracs = [c.compact_fraction for c in self._tier_cfgs]
         self.cfg = cfg
         self._tier_cfgs = [dataclasses.replace(cfg, compact_fraction=f) for f in fracs]
-        self._tier_M = [train_sample_budget(self.tc.num_rays, c) for c in self._tier_cfgs]
+        self._tier_M = [train_sample_budget(self.n_rays_local, c) for c in self._tier_cfgs]
         self.set_grid(self.grid)
 
     @property
@@ -305,8 +366,16 @@ class Trainer:
         else:
             bg = None  # -> 1.0 inside the render
             gt_rgb = gt[:, :3]
-        return {"frame": idx, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
-                "gt_rgb": gt_rgb, "bg": bg, **extra}
+        return self._shard_batch({"frame": idx, "rays_o": r["rays_o"], "rays_d": r["rays_d"],
+                                  "gt_rgb": gt_rgb, "bg": bg, **extra})
+
+    def _shard_batch(self, batch: dict) -> dict:
+        """This rank's slice of every per-ray entry of a global batch (all
+        of it on one data rank); the error map's coarse pixels stay global."""
+        shard, N = ray_sharding(self.mesh), self.tc.num_rays
+        return {k: shard.local(v) if (torch.is_tensor(v) and v.dim() and v.shape[0] == N
+                                      and k != "inds_coarse") else v
+                for k, v in batch.items()}
 
     def random_bg(self) -> bool:
         """Whether RGBA targets go over a random background drawn each step
@@ -338,7 +407,7 @@ class Trainer:
             npts = torch.full((), N * (cfg.num_steps + cfg.upsample_steps),
                               dtype=torch.int32, device=self.device)
         per_ray = ((out["image"] - batch["gt_rgb"]) ** 2).mean(dim=-1)
-        loss, kept = masked_mean(per_ray, ray_mask)
+        loss, kept = masked_mean(per_ray, ray_mask, self.mesh)
         if self.uses_error_map:
             batch["per_ray"], batch["ray_mask"] = per_ray.detach(), ray_mask
         return loss, npts, kept
@@ -350,16 +419,79 @@ class Trainer:
         batch = self.sample_batch() if batch is None else batch
         loss, npts, kept = self.loss_on_batch(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        loss = self.backward(loss)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         ema_update(self.ema_params, self.params, self.tc.ema_decay)
         if self.uses_error_map:
-            update_error_map(self.error_map, batch["frame"], batch["inds_coarse"],
-                             batch["per_ray"], batch["ray_mask"])
+            self._update_error_map(batch)
         self.global_step += 1
-        return loss.detach(), npts, kept
+        return loss, npts, kept
+
+    def backward(self, loss: torch.Tensor, mean: bool = False) -> torch.Tensor:
+        """`loss.backward()`; under a mesh each gradient and the loss are then
+        summed over the ranks in one flat all-reduce (over the model axis's
+        copies of a data slice once; `mean` averages over every rank, for a
+        loss that each rank computes whole).  Returns the loss, detached."""
+        loss.backward()
+        if not self.mesh.group:
+            return loss.detach()
+        for p in self.params:  # every rank's bucket has every parameter
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        value = loss.detach().reshape(1).clone()
+        scale = 1.0 / (self.mesh.world if mean else self.mesh.n_model)
+        all_reduce_flat([value, *(p.grad for p in self.params)], self.mesh, scale)
+        return value.reshape(())
+
+    def _update_error_map(self, batch) -> None:
+        """The error map's update from the step's rays; over several data
+        ranks from every rank's rays (gathered with one all-reduce), then
+        rank 0's row on every rank (a pixel named twice has an unspecified
+        winner)."""
+        per_ray, ray_mask = batch["per_ray"], batch["ray_mask"]
+        if self.mesh.n_data > 1:
+            N = self.tc.num_rays
+            a, b = ray_sharding(self.mesh).bounds(N)
+            buf = torch.zeros((N, 2), dtype=torch.float32, device=self.device)
+            buf[a:b, 0] = per_ray
+            buf[a:b, 1] = ray_mask.float()
+            self.mesh.all_reduce(buf).div_(self.mesh.n_model)
+            per_ray, ray_mask = buf[:, 0], buf[:, 1]
+        update_error_map(self.error_map, batch["frame"], batch["inds_coarse"], per_ray, ray_mask)
+        if self.mesh.world > 1:
+            torch.distributed.broadcast(self.error_map[batch["frame"]], src=0)
+
+    def clip_loss(self) -> torch.Tensor:
+        """The CLIP step's loss with its graph (`tngp/train/trainer.py:309-350`):
+        a square side x side render (side = max(16, int(sqrt(num_rays)) // 8
+        * 8), focal 0.7 side) of the pose `rand_poses(default_rng(global_step),
+        1, radius=1.5 bound)` through `render_rays_train` under `cfg`, no
+        noise and the default background, its image embedded, and
+        -mean(feats @ text_feat)."""
+        pose = rand_poses(np.random.default_rng(self.global_step), 1,
+                          radius=float(self.cfg.bound) * 1.5)[0]
+        side = max(16, int(np.sqrt(self.tc.num_rays)) // 8 * 8)
+        intr = torch.tensor([side * 0.7, side * 0.7, side / 2.0, side / 2.0],
+                            dtype=torch.float32, device=self.device)
+        o, d = full_image_rays(pose, intr, side, side, device=self.device)
+        out = render_rays_train(self.field, None, o, d, self.grid.bitfield, self.cfg)
+        feats = self.clip_embedder.embed_images(out["image"].reshape(1, side, side, 3))
+        return -torch.mean(feats @ self._clip_text_feat)
+
+    def run_clip_step(self) -> float:
+        """One CLIP-guided step: `clip_loss`, then one Adam step (and the
+        schedule's); the EMA and the grid are left alone.  Returns the loss
+        (one host read)."""
+        loss = self.clip_loss()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.backward(loss, mean=True)
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+        self.host_reads += 1
+        return float(loss)
 
     def _adapt_tier(self, demand: float, kept_frac: float):
         """Move the budget tier: up as soon as rays get dropped, down when
@@ -392,35 +524,53 @@ class Trainer:
 
     def update_grid(self):
         """One density-grid update from the live field (`run_steps` calls it
-        every `update_extra_interval` steps)."""
+        every `update_extra_interval` steps); under a mesh every rank then
+        takes rank 0's grid."""
         cfg = self.cfg
-        self.set_grid(update_density_grid(
+        grid = update_density_grid(
             self.grid, None, self.gen, density_fn=self.field.density, bound=cfg.bound,
             grid_size=cfg.grid_size, density_thresh=cfg.density_thresh,
             full=self._grid_updates < self.full_grid_updates,
             density_scale=cfg.density_scale,
-        ))
+        )
+        if self.mesh.world > 1:
+            for t in (grid.density_grid, grid.bitfield, grid.mean_density, grid.iter_density):
+                torch.distributed.broadcast(t, src=0)
+        self.set_grid(grid)
         self._grid_updates += 1
 
     def run_steps(self, steps: int):
         """`steps` train steps with the grid update and the tier read at
-        every `update_interval`-th step (none on the grid-free path).
-        Returns (losses, num_points, kept) as device tensors [steps]; the
-        only host reads are the tier reads, one per interval."""
+        every `update_interval`-th step (none on the grid-free path); with
+        CLIP guidance every `rand_pose`-th step is a CLIP step instead.
+        Returns (losses, num_points, kept) of the photometric steps as device
+        tensors; the only host reads are the tier reads, one per interval
+        (all-reduced to the ranks' mean under a mesh), and the CLIP steps'
+        losses."""
         losses, pts, kepts = [], [], []
         for _ in range(steps):
             self.before_step()
             if self.use_grid and self.global_step % self.update_interval == 0:
                 if len(self._tier_M) > 1 and pts:
                     # one host read per grid-update interval
-                    demand, kept = torch.stack([pts[-1].float(), kepts[-1]]).tolist()
+                    vals = torch.stack([pts[-1].float(), kepts[-1]])
+                    self.mesh.all_reduce(vals, mean_over="data")
+                    demand, kept = vals.tolist()
                     self.host_reads += 1
-                    self._adapt_tier(demand, kept / self.tc.num_rays)
+                    self._adapt_tier(demand, kept / self.n_rays_local)
                 self.update_grid()
+            if self._clip_text_feat is not None and self.global_step % self.tc.rand_pose == 0:
+                closs = self.run_clip_step()
+                self.global_step += 1
+                self.log_scalars(clip_loss=closs)
+                continue
             loss, npts, kept = self.train_step()
             losses.append(loss)
             pts.append(npts)
             kepts.append(kept)
+        if not losses:  # every step was a CLIP step
+            empty = torch.zeros((0,), device=self.device)
+            return empty, empty.long(), empty
         return torch.stack(losses), torch.stack(pts), torch.stack(kepts)
 
     def before_step(self):
@@ -693,6 +843,8 @@ class Trainer:
         }
 
     def save_checkpoint(self, best: bool = False):
+        if not self.primary:
+            return None
         payload = self._payload()
         if best:
             # the best checkpoint drops the density grid: cheap to rebuild,

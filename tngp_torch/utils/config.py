@@ -1,19 +1,10 @@
 """Typed experiment configuration — `tngp/utils/config.py` `TrainConfig`,
-with the same names and defaults.  Options the port does not honour yet
-raise when they are set to other than their defaults; none is ignored."""
+with the same names and defaults."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
-
-# option -> (its default, the ROADMAP queue 1 item that ports it)
-_NOT_PORTED = {
-    "rand_pose": (-1, "item 13 (CLIP guidance)"),
-    "clip_text": (None, "item 13 (CLIP guidance)"),
-    "clip_model_path": ("openai/clip-vit-base-patch16", "item 13 (CLIP guidance)"),
-}
-
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -47,10 +38,5 @@ class TrainConfig:
     adaptive_overdrive: bool = True
 
     def __post_init__(self):
-        for name, (default, item) in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(self, name)!r}: not ported yet "
-                    f"(ROADMAP.md queue 1, {item})")
         if self.color_space not in ("srgb", "linear"):
             raise ValueError(f"color_space must be 'srgb' or 'linear', not {self.color_space!r}")
