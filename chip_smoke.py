@@ -26,12 +26,22 @@ Phases (any failure exits non-zero and prints no result line):
      of 524,288 samples into 65,536 rays), and the set-scatter exactly on
      the occupancy update's resample-shaped input (rand_idx ++ occ_idx on a
      ~10% occupied 128^3 grid), an all-skip input, a ragged M and M = 0;
-     and the general (atomic) scatter-add at the golden hash grid's
-     table-gradient shapes (`hash_any_inputs`: level 0 of the default tiled
-     grid, 1,048,576 entries into 4,920 rows; its level 15, into 2^19 rows;
-     a level of the hyper variant's 5-D grid, 4,194,304 entries; level 0 of
-     the background grid, 16,384 entries into 296 rows), each row within
-     (n-1) 2^-24 sum|v| of the exact sum;
+     and the general scatter-add at the golden hash grid's table-gradient
+     shapes (`hash_any_inputs`: level 0 of the default tiled grid,
+     1,048,576 entries into 4,920 rows; its level 15, into 2^19 rows; a
+     level of the hyper variant's 5-D grid, 4,194,304 entries; level 0 of
+     the background grid, 16,384 entries into 296 rows), each entry within
+     (n-1) 2^-24 sum|v| of the exact sum (n its nonzero terms), through the
+     design `any_form` picks and through every other design that can take
+     the shape (`check_any_forms`; the deterministic "owner" design bitwise
+     the same on a second call, no -0.0 anywhere), and on the designs' edge
+     cases (`any_edge_checks`: outputs just under and just over a block's
+     shared memory, a row of 219,096 adds among zero rows, indices out of
+     range, n = 0, C = 1 and 3, unaligned vals; and, bitwise equal to the
+     plain version, integer values on a hot row, where any order of the
+     adds is exact); every phase below that captures the form's inputs (6d,
+     6f, 6g, 6h) holds the design each call dispatches to on it, and each
+     other design on one call that can take it (`check_any_calls`);
   2b. the device-parity entry, `tngp_torch.diagnostics.device_parity.main()`
      (the int-mul probe exact, the encoder kernels against independent plain
      versions, each scatter-add form against the exact sum);
@@ -384,19 +394,28 @@ def profile_device(fn, label: str, wall_off: float) -> None:
 
 
 @torch.no_grad()
-def check_scatter_add(idx, vals, rows, indices, what):
+def check_scatter_add(idx, vals, rows, indices, what, form=None):
     """A scatter-add form against its plain version on indices that hold its
-    statement.  "unique": exact.  "sorted" and "any": each row within
-    (n - 1) 2^-24 sum|v| of the exact (f64) sum, n = the row's entry count
-    (any order of n f32 terms is), and so within twice that of the plain
+    statement.  "unique": exact.  "sorted" and "any": each entry within
+    (n - 1) 2^-24 sum|v| of the exact (f64) sum, n = its nonzero terms (any
+    order of n f32 terms is; adding a zero rounds nothing, and counting the
+    zeros would loosen the bound on CCNeRF's rows of masked-slot zeros),
+    and so within twice that of the plain
     version, `index_add_` in the atomics' order (the two errors can take
     opposite signs, so from n = 3 on two orders can differ by more than the
-    n 2^-24 sum|v| that earlier checks stated); "sorted" also bitwise the
-    same on a second call.
+    n 2^-24 sum|v| that earlier checks stated); "sorted" and the any form's
+    deterministic design ("owner") also bitwise the same on a second call.
+    `form` forces a design of the any form (`scatter_add_any_as`); None
+    takes the one `any_form` picks.
     Returns (max |err| vs plain, worst err / bound vs exact)."""
     from tngp_torch.kernels import scatter as ks
 
-    got = ks.scatter_add(idx, vals, rows, indices=indices)
+    def call():
+        if form is not None:
+            return ks.scatter_add_any_as(idx, vals, rows, form)
+        return ks.scatter_add(idx, vals, rows, indices=indices)
+
+    got = call()
     plain = ks.scatter_add_plain(idx, vals, rows)
     err = max_abs(got, plain)
     if indices == "unique":
@@ -411,7 +430,7 @@ def check_scatter_add(idx, vals, rows, indices, what):
         return z.index_add_(0, slot, v.double())[:rows]
 
     exact, sabs = f64_sum(vals), f64_sum(vals.abs())
-    n = torch.bincount(slot, minlength=rows + 1)[:rows].double()[:, None]
+    n = f64_sum((vals != 0).double())
     dev_exact = (got.double() - exact).abs()
     tol = (n - 1).clamp(min=0) * 2.0**-24 * sabs
     if not bool((dev_exact <= tol).all()):
@@ -420,10 +439,108 @@ def check_scatter_add(idx, vals, rows, indices, what):
     if not bool(((got.double() - plain.double()).abs() <= 2.0 * tol + 1e-30).all()):
         raise SystemExit(f"scatter_add_{indices} ({what}) beyond 2 (n-1) 2^-24 sum|v| of "
                          f"plain: {err}")
-    if indices == "sorted" and not torch.equal(got, ks.scatter_add(idx, vals, rows,
-                                                                   indices=indices)):
-        raise SystemExit(f"scatter_add_sorted ({what}) differs between two calls")
+    design = form or (ks.any_form(*vals.shape, rows).form if indices == "any" else None)
+    if (indices == "sorted" or design == "owner") and not torch.equal(got, call()):
+        raise SystemExit(f"scatter_add_{indices} ({what}, {design or indices}) differs between "
+                         f"two calls")
+    if indices == "any" and bool(((got == 0) & torch.signbit(got)).any()):
+        raise SystemExit(f"scatter_add_{indices} ({what}, {design or indices}) holds a -0.0, "
+                         f"which an add into +0.0 never gives")
     return err, float((dev_exact / tol.clamp(min=1e-300)).max())
+
+
+ANY_DESIGNS_RUN: dict = {}  # path -> the any form's launches by design in its timed run
+
+
+def note_any_designs(path: str) -> None:
+    """Keep the any form's launches by design since the last reset under
+    `path` (phase 7's rows list them)."""
+    from tngp_torch import kernels
+
+    ANY_DESIGNS_RUN[path] = dict(kernels.KERNELS["scatter_add_any"].forms)
+
+
+def calls_summary(per: dict, took: dict) -> str:
+    """`check_any_calls`' designs: the calls each took, and the worst
+    err/bound of the designs held on one call beside them."""
+    return ("dispatched " + ", ".join(f"{f} {n}" for f, n in took.items())
+            + "; on one call each: "
+            + (", ".join(f"{f} worst {w:.3f}" for f, (_, w) in per.items()) or "none"))
+
+
+def designs_summary(checks_all) -> str:
+    """Each design's worst err/bound over `check_any_forms` results and the
+    calls it took."""
+    worst: dict = {}
+    for _, per in checks_all:
+        for f, (_, w) in per.items():
+            n, w0 = worst.get(f, (0, 0.0))
+            worst[f] = (n + 1, max(w0, w))
+    return ", ".join(f"{f} on {n} worst {w:.3f}" for f, (n, w) in worst.items())
+
+
+@torch.no_grad()
+def check_any_forms(idx, vals, rows, what) -> tuple:
+    """`check_scatter_add` of the any form as dispatched and of every design
+    that can take the shape.  Returns the dispatch's (max |err| vs plain,
+    worst err / bound) and {design: the same}."""
+    from tngp_torch.kernels import scatter as ks
+
+    per = {f: check_scatter_add(idx, vals, rows, "any", f"{what}, {f}", form=f)
+           for f in ks.any_designs(*vals.shape, rows)}
+    return check_scatter_add(idx, vals, rows, "any", what), per
+
+
+@torch.no_grad()
+def check_any_calls(calls, what) -> tuple:
+    """`check_scatter_add` of the any form as dispatched on each of a step's
+    captured calls [(idx, vals, rows)], and of each design that no call
+    dispatched to on the first call that can take it (every design is held
+    at every shape in the kernel phase).  Returns the calls' (max |err| vs
+    plain, worst err / bound), {design: the same} of those extra checks,
+    and {design: calls dispatched to it}."""
+    from tngp_torch.kernels import scatter as ks
+
+    checks = [check_scatter_add(i, v, r, "any", f"{what} {k}")
+              for k, (i, v, r) in enumerate(calls)]
+    took: dict = {}
+    for _, v, r in calls:
+        f = ks.any_form(*v.shape, r).form
+        took[f] = took.get(f, 0) + 1
+    per = {}
+    for f in ks.ANY_FORMS:
+        if f in took:
+            continue
+        k = next((k for k, (_, v, r) in enumerate(calls) if f in ks.any_designs(*v.shape, r)),
+                 None)
+        if k is not None:
+            i, v, r = calls[k]
+            per[f] = check_scatter_add(i, v, r, "any", f"{what} {k}, {f}", form=f)
+    return checks, per, took
+
+
+@torch.no_grad()
+def check_any_exact(idx, vals, rows, what) -> list:
+    """Every design of the any form, and the dispatch, bitwise equal to the
+    plain version on integer-valued vals whose every partial sum stays
+    below 2^24, so that any order of the adds is exact: a design that drops
+    or repeats an add on a contended row fails here whatever the reordering
+    bound allows.  No -0.0 in the output.  Returns the designs held."""
+    from tngp_torch.kernels import scatter as ks
+
+    plain = ks.scatter_add_plain(idx, vals, rows)
+    designs = ks.any_designs(*vals.shape, rows)
+    for f in [*designs, None]:
+        got = (ks.scatter_add(idx, vals, rows, indices="any") if f is None
+               else ks.scatter_add_any_as(idx, vals, rows, f))
+        name = f or f"dispatch ({ks.any_form(*vals.shape, rows).form})"
+        if not torch.equal(got, plain):
+            bad = got != plain
+            raise SystemExit(f"scatter_add_any ({what}, {name}) not exact on integer values: "
+                             f"{int(bad.sum())} entries differ, max |err| {max_abs(got, plain)}")
+        if bool(((got == 0) & torch.signbit(got)).any()):
+            raise SystemExit(f"scatter_add_any ({what}, {name}) holds a -0.0")
+    return designs
 
 
 @torch.no_grad()
@@ -688,8 +805,8 @@ def hash_any_inputs(dev, gen) -> dict:
     training step's 131,072 samples through level 0 of the default tiled
     spec (dense: 8 corners into 4,920 rows, ~213 adds a row) and through
     level 15 (wrapped into 2^19 rows); the hyper variant's 5-D grid at
-    level 8 (32 corners into 2^19 rows); level 0 of the background grid (4
-    corners x 4,096 rays into 296 rows)."""
+    level 8 (32 corners into 2^19 rows); levels 0-3 of the background grid
+    (4 corners x 4,096 rays into 296, 6,728, 166,464 and 2^19 rows)."""
     from tngp_torch.ops import hashgrid as hg
 
     d3 = hg.HashGridSpec.create(desired_resolution=2048, gridtype="tiled")
@@ -699,13 +816,74 @@ def hash_any_inputs(dev, gen) -> dict:
     for label, spec, level, m in (("level0_dense", d3, 0, 131_072),
                                   ("level15_wrapped", d3, 15, 131_072),
                                   ("hyper5d_level8", d5, 8, 131_072),
-                                  ("bg_level0", bg, 0, N_RAYS)):
+                                  *((f"bg_level{lv}", bg, lv, N_RAYS) for lv in range(4))):
         x = torch.rand((spec.input_dim, m), generator=gen).to(dev)
         idx, w, _, _ = hg._level_geometry(spec, level, x)
         g = torch.randn((m, spec.level_dim), generator=gen).to(dev)
         vals = (w[:, :, None] * g[None]).reshape(-1, spec.level_dim).contiguous()
         out[label] = (idx.reshape(-1), vals, spec.offsets[level + 1] - spec.offsets[level])
     return out
+
+
+@torch.no_grad()
+def any_edge_checks(dev, gen) -> tuple:
+    """Every design of the any form (`check_any_forms`) on the cases its
+    kernels must get right beside the paths' shapes: outputs just under
+    and just over one block's shared memory (C = 2, 1,048,576 adds), a
+    [1,048,576, 64] -> [128, 64] line with a row of 219,096 adds (CCNeRF's
+    centre row, here nonzero) and a fifth of its vals rows all zero (half
+    of those -0.0), negative and out-of-range indices (to +-2^40), n = 0,
+    C = 1 and 3, and vals that are not 16-byte aligned.  Then every design
+    bitwise equal to the plain version (`check_any_exact`) on the hot row
+    and zero rows with integer values in [-4, 4]: the line's [128, 64] and
+    level 0's [4,920, 2] with runs of consecutive entries on one row, as a
+    ray's samples share a cell.  Returns label -> (the dispatch's (max
+    |err|, worst err/bound), the designs' results), and label -> the
+    designs held exactly."""
+    from tngp_torch.kernels import scatter as ks
+
+    def rand(n, C, rows):
+        return torch.randint(0, rows, (n,), generator=gen), torch.randn((n, C), generator=gen)
+
+    cases = {}
+    fit = ks.SMEM_BUDGET // 8  # rows of C = 2 that just fit
+    for label, rows in (("budget_under", fit), ("budget_over", fit + 1)):
+        cases[label] = (*rand(1_048_576, 2, rows), rows)
+    n = 1_048_576
+    idx, vals = rand(n, 64, 128)
+    idx[torch.randperm(n, generator=gen)[:219_096]] = 63
+    zero = torch.randperm(n, generator=gen)[:n // 5]
+    vals[zero] = 0.0
+    vals[zero[::2]] = -0.0
+    cases["hot_row_and_zero_rows"] = (idx, vals, 128)
+    idx, vals = rand(300_000, 16, 500)
+    idx[::7], idx[3::11], idx[5::13], idx[6::17] = -1, -(2**40), 500, 2**40
+    cases["out_of_range"] = (idx, vals, 500)
+    cases["n0"] = (torch.zeros(0, dtype=torch.int64), torch.zeros((0, 8)), 300)
+    for C in (1, 3):
+        cases[f"C{C}"] = (*rand(400_000, C, 2000), 2000)
+    out = {}
+    for label, (i, v, r) in cases.items():
+        out[label] = check_any_forms(i.to(dev), v.to(dev), r, f"edge case {label}")
+    flat = torch.randn(300_001 * 4 + 1, generator=gen).to(dev)
+    unaligned = flat[1:].view(300_001, 4)  # 4 bytes past a 16-byte boundary
+    out["unaligned_C4"] = check_any_forms(
+        torch.randint(0, 1000, (300_001,), generator=gen).to(dev), unaligned, 1000,
+        "edge case unaligned_C4")
+    exact = {}
+    for label, C, rows in (("exact_hot_row_C64", 64, 128), ("exact_hot_row_runs_C2", 2, 4920)):
+        if C == 2:  # runs of 1-29 entries on one row
+            idx = torch.repeat_interleave(torch.randint(0, rows, (n // 4,), generator=gen),
+                                          torch.randint(1, 30, (n // 4,), generator=gen))[:n]
+        else:
+            idx = torch.randint(0, rows, (n,), generator=gen)
+        idx[torch.randperm(n, generator=gen)[:219_096]] = 63
+        vals = torch.randint(-4, 5, (n, C), generator=gen).float()
+        zero = torch.randperm(n, generator=gen)[:n // 5]
+        vals[zero] = 0.0
+        vals[zero[::2]] = -0.0
+        exact[label] = check_any_exact(idx.to(dev), vals.to(dev), rows, f"edge case {label}")
+    return out, exact
 
 
 def hash_step_check(tr, model, what: str) -> dict:
@@ -723,15 +901,16 @@ def hash_step_check(tr, model, what: str) -> dict:
     if len(calls) != levels:
         raise SystemExit(f"golden-grid step ({what}): {len(calls)} table-gradient scatters, "
                          f"not one per level ({levels})")
-    checks = [check_scatter_add(i.detach(), v.detach(), r, "any", f"{what}, level {lv}")
-              for lv, (i, v, r) in enumerate(calls)]
+    checks, per, took = check_any_calls([(i.detach(), v.detach(), r) for i, v, r, *_ in calls],
+                                        f"{what}, level")
     worst = max(w for _, w in checks)
     log(f"[dnerf-default] one step on the {what} net, kernels vs plain path: loss "
         f"{st['loss_k']:.8f} vs {st['loss_p']:.8f}; gradient norm-relative errors "
         + ", ".join(f"{n} {v:.2e}" for n, v in st["rels"].items())
         + f" (<= 3e-2); deform-net max |grad| {st['deform_max']}; the {levels} levels' "
         f"scatter_add_any on this step's inputs ({calls[0][0].numel():,} entries a level): "
-        f"max|err| vs plain {max(e for e, _ in checks):.3g}, worst err/bound {worst:.3f}")
+        f"max|err| vs plain {max(e for e, _ in checks):.3g}, worst err/bound {worst:.3f}; "
+        f"designs {calls_summary(per, took)}")
     return dict(deform_max=st["deform_max"], rels=st["rels"], worst_any=worst)
 
 
@@ -801,6 +980,8 @@ def dnerf_default_phase(dev, dn: dict, seed: int, profile: bool) -> dict:
         torch.cuda.synchronize()
         dt = time.time() - t1
         counts = {name: k.launches for name, k in kernels.KERNELS.items()}
+        note_any_designs({"DNeRFNetwork": "dnerf tiledgrid", "DNeRFBasisNetwork": "dnerf basis",
+                          "DNeRFHyperNetwork": "dnerf hyper"}[type(tr.model).__name__])
         levels = tr.model.encoder.spec.num_levels
         log(f"[dnerf-default] {label}: {warm} untimed steps {t1 - t0:.2f} s, {timed} timed "
             f"steps {dt:.3f} s, {1e3 * dt / timed:.2f} ms/step, {timed * N_RAYS / dt:,.1f} train "
@@ -1051,6 +1232,7 @@ def cli_tiledgrid_run(root: str, seed: int) -> dict:
     torch.cuda.synchronize()
     dt4 = time.time() - t0
     launches_t = {name: k.launches for name, k in kernels.KERNELS.items()}
+    note_any_designs("ngp tiledgrid + bg cli")
     losses_t = tr4.stats["loss"]
     psnr_t = tr4.evaluate(tr4.valid_dataset)
     log(f"[cli] run 4 (--encoding tiledgrid --bg_radius 2): {tr4.global_step} steps over "
@@ -1368,8 +1550,8 @@ def sdf_phase(dev, seed: int) -> dict:
                 torch.equal(a, b) for n, a, b in zip(names, g_k, g_p) if n != "encoder.embeddings"):
             raise SystemExit("[sdf] the loss or an MLP gradient differs between the kernels and "
                              "the plain path")
-        checks = [check_scatter_add(i.detach(), v.detach(), r, "any", f"SDF step, level {lv}")
-                  for lv, (i, v, r) in enumerate(calls)]
+        checks, per, took = check_any_calls(
+            [(i.detach(), v.detach(), r) for i, v, r, *_ in calls], "SDF step, level")
         worst = max(w for _, w in checks)
         rel_tab = rel_err(g_k[0], g_p[0])
         log(f"[sdf] one step, kernels vs plain path: loss {float(loss_k):.8f} bitwise equal, MLP "
@@ -1377,7 +1559,7 @@ def sdf_phase(dev, seed: int) -> dict:
             f"{spec.num_levels} levels' scatter_add_any on this step's inputs "
             f"({calls[0][0].numel():,} entries a level; level 0 into {calls[0][2]:,} rows, level "
             f"15 into {calls[15][2]:,}): max|err| vs plain {max(e for e, _ in checks):.3g}, "
-            f"worst err/bound {worst:.3f}")
+            f"worst err/bound {worst:.3f}; designs {calls_summary(per, took)}")
         captured = {"level0": tuple(a.detach() if torch.is_tensor(a) else a for a in calls[0][:3]),
                     "level15": tuple(a.detach() if torch.is_tensor(a) else a
                                      for a in calls[15][:3])}
@@ -1420,6 +1602,7 @@ def sdf_phase(dev, seed: int) -> dict:
         ds.sample = real_sample
         steps = SDF_EPOCHS * SDF_STEPS
         launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        note_any_designs("sdf")
         losses = tr.stats["loss"]
         ms_step = dt / steps * 1e3
         host_share = sum(label_s) / dt
@@ -1536,20 +1719,21 @@ def grid_sample_check(tr, model, label: str) -> dict:
     calls = []
     st = step_kernels_vs_plain(tr, model, label, capturing(gs, "scatter_add", calls))
     caps = [tuple(a.detach() if torch.is_tensor(a) else a for a in c[:3]) for c in calls]
-    checks = [check_scatter_add(i, v, r, "any", f"{label}, factor gradient {k}")
-              for k, (i, v, r) in enumerate(caps)]
+    checks, per, took = check_any_calls(caps, f"{label}, factor gradient")
     worst = max(w for _, w in checks)
     log(f"{label}, kernels vs plain path: loss {st['loss_k']:.8f} vs {st['loss_p']:.8f}; "
         f"gradient norm-relative errors max {max(st['rels'].values()):.2e} (<= 3e-2); "
         f"{len(caps)} factor gradients through scatter_add_any on this step's inputs "
         f"(shapes {sorted({(tuple(v.shape), r) for _, v, r in caps})}): max|err| vs plain "
-        f"{max(e for e, _ in checks):.3g}, worst err/bound {worst:.3f}")
+        f"{max(e for e, _ in checks):.3g}, worst err/bound {worst:.3f}; designs "
+        f"{calls_summary(per, took)}")
     return dict(caps=caps, errs=checks, worst=worst, rels=st["rels"])
 
 
-def timed_steps(tr, steps: int) -> tuple:
+def timed_steps(tr, steps: int, path: str) -> tuple:
     """`steps` steps of `tr` between two synchronizes, the launch counts
-    reset first.  Returns (seconds, losses, launches)."""
+    reset first; the any form's designs noted under `path`.  Returns
+    (seconds, losses, launches)."""
     from tngp_torch import kernels
 
     kernels.reset_launch_counts()
@@ -1557,7 +1741,9 @@ def timed_steps(tr, steps: int) -> tuple:
     t0 = time.time()
     losses, _, _ = tr.run_steps(steps)
     torch.cuda.synchronize()
-    return time.time() - t0, losses, {n: k.launches for n, k in kernels.KERNELS.items()}
+    dt = time.time() - t0
+    note_any_designs(path)
+    return dt, losses, {n: k.launches for n, k in kernels.KERNELS.items()}
 
 
 def step_device_times(cfg, seed: int) -> dict:
@@ -1645,7 +1831,7 @@ def tensorf_phase(dev, ds, cfg, seed: int) -> dict:
     if len(first["caps"]) != 12:
         raise SystemExit(f"[tensorf] {len(first['caps'])} factor gradients in a VM step, not 12")
     del first
-    dt1, loss1, la1 = timed_steps(tr, TF_TIMED)
+    dt1, loss1, la1 = timed_steps(tr, TF_TIMED, "tensorf vm 128")
     ms1 = dt1 / TF_TIMED * 1e3
     if la1["scatter_add_any"] != 12 * TF_TIMED:
         raise SystemExit(f"[tensorf] scatter_add_any {la1['scatter_add_any']} times in "
@@ -1663,7 +1849,7 @@ def tensorf_phase(dev, ds, cfg, seed: int) -> dict:
     if not abs(np.prod(res) / 300**3 - 1) < 0.05:
         raise SystemExit(f"[tensorf] the last resolution {res} is not the 300^3 budget")
     last = grid_sample_check(tr, tr.model, f"[tensorf] a VM step at {res}")
-    dt2, loss2, la2 = timed_steps(tr, TF_TIMED)
+    dt2, loss2, la2 = timed_steps(tr, TF_TIMED, "tensorf vm")
     ms2 = dt2 / TF_TIMED * 1e3
     if la2["scatter_add_any"] != 12 * TF_TIMED:
         raise SystemExit(f"[tensorf] scatter_add_any {la2['scatter_add_any']} times at the "
@@ -1694,7 +1880,7 @@ def tensorf_phase(dev, ds, cfg, seed: int) -> dict:
     chk = grid_sample_check(tr, cp, "[tensorf] a CP step at 128")
     if len(chk["caps"]) != 6:
         raise SystemExit(f"[tensorf] {len(chk['caps'])} factor gradients in a CP step, not 6")
-    dt3, loss3, la3 = timed_steps(tr, TF_CP_STEPS)
+    dt3, loss3, la3 = timed_steps(tr, TF_CP_STEPS, "tensorf cp")
     ms3 = dt3 / TF_CP_STEPS * 1e3
     loss3 = loss3.tolist()
     log(f"[tensorf] CP (ranks 96 / 288): {TF_CP_STEPS} steps, {ms3:.2f} ms/step, loss "
@@ -1828,7 +2014,7 @@ def ccnerf_phase(dev, ds, cfg, seed: int) -> dict:
     centre = torch.bincount(line[0], minlength=line[2])
     del chk
     loss_w, _, _ = tr.run_steps(CC_WARM)
-    dt, loss_t, la = timed_steps(tr, CC_TIMED)
+    dt, loss_t, la = timed_steps(tr, CC_TIMED, "ccnerf")
     ms = dt / CC_TIMED * 1e3
     pl1 = cc_prefix_losses(tr, probe)
     log(f"[ccnerf] {CC_TIMED} timed steps: {ms:.2f} ms/step, {N_RAYS * 1e3 / ms:,.0f} rays/s "
@@ -2708,17 +2894,30 @@ def main() -> int:
     rid = torch.sort(torch.randint(0, N_RAYS, (M,), generator=gen)).values.to(dev)
     vals5 = torch.rand((M, 5), generator=gen).to(dev)
     err_comp, worst_comp = check_scatter_add(rid, vals5, N_RAYS, "sorted", "per-ray reduction")
-    err_any, worst_any = check_scatter_add(rid, vals5, N_RAYS, "any", "per-ray inputs")
+    (err_any, worst_any), any_perray = check_any_forms(rid, vals5, N_RAYS, "per-ray inputs")
     # the golden grid's table gradient: scatter_add_any at the shapes its
-    # backward gives it, each row within the reordering bound
+    # backward gives it, each row within the reordering bound, through the
+    # design the dispatch picks and through every other that can take it
     hash_any = hash_any_inputs(dev, gen)
-    hash_any_err = {label: check_scatter_add(i_h, v_h, r_h, "any", f"hash grid {label}")
+    hash_any_all = {label: check_any_forms(i_h, v_h, r_h, f"hash grid {label}")
                     for label, (i_h, v_h, r_h) in hash_any.items()}
+    hash_any_err = {label: c for label, (c, _) in hash_any_all.items()}
     log("[check] the golden grid's table-gradient scatters through scatter_add_any (C = 2): "
         + "; ".join(f"{label} [{hash_any[label][1].shape[0]:,}] -> [{hash_any[label][2]:,}] "
+                    f"({ks.any_form(*hash_any[label][1].shape, hash_any[label][2]).form}) "
                     f"max|err| vs plain {e:.3g}, worst err/bound {w:.3f}"
                     for label, (e, w) in hash_any_err.items())
-        + " (bound (n-1) 2^-24 sum|v| per row)")
+        + f" (bound (n-1) 2^-24 sum|v| per row); every design on them and on the per-ray "
+        f"inputs: {designs_summary([*hash_any_all.values(), ((err_any, worst_any), any_perray)])}")
+    any_edge, any_exact = any_edge_checks(dev, gen)
+    log("[check] the any form's designs on its edge cases (each entry within (n-1) 2^-24 "
+        "sum|v|, n its nonzero terms, the owner design bitwise the same on a second call, no "
+        "-0.0): "
+        + "; ".join(f"{label} worst {w:.3f} [{', '.join(f'{f} {x[1]:.3f}' for f, x in per.items())}]"
+                    for label, ((_, w), per) in any_edge.items())
+        + "; bitwise equal to the plain version on integer values (a row of 219,096 adds, a "
+        "fifth of the rows zero): "
+        + "; ".join(f"{label} {', '.join(d)} and the dispatch" for label, d in any_exact.items()))
     # the eval round update: Na = 1024 alive-ray slots, ascending, fill N - 1
     Na = N_RAYS // 4
     live = torch.nonzero(torch.rand(N_RAYS, generator=gen) < 0.2)[:Na, 0]
@@ -3451,12 +3650,22 @@ def main() -> int:
 
     def add_row(name, indices, launches_n, err, idx, vals, rows_out, others=None, **extra):
         """A scatter-add form; one add per element.  `others` maps a label
-        to (idx, vals, rows) of the same form at another shape, timed too."""
+        to (idx, vals, rows) of the same form at another shape, timed too.
+        The any form's rows name the design their shape takes (`design`)
+        and the launches by design in their path's timed run
+        (`designs_in_run`, from the counters of `scatter_add_any`)."""
         m, c = vals.shape
+        if indices == "any":
+            extra["design"] = ks.any_form(m, c, rows_out).form
+            extra["designs_in_run"] = ANY_DESIGNS_RUN.get(extra.get("path"))
         lib_idx = torch.where(idx < rows_out, idx, rows_out)  # rows past the end: one overflow row
         shapes = {label: ((lambda i=i, v=v, r=r: ks.scatter_add(i, v, r, indices=indices)),
                           bound(add_bytes(*v.shape, r), v.numel(), F32_OPS_PER_S)[0])
                   for label, (i, v, r) in (others or {}).items()}
+        if indices == "any":  # each design of the form on the same inputs
+            for f in ks.any_designs(m, c, rows_out):
+                shapes[f"design {f}"] = ((lambda f=f: ks.scatter_add_any_as(idx, vals, rows_out, f)),
+                                         bound(add_bytes(m, c, rows_out), m * c, F32_OPS_PER_S)[0])
         row(name, f"scatter_add_{indices}", launches_n, err,
             lambda: ks.scatter_add(idx, vals, rows_out, indices=indices),
             lambda: ks.scatter_add_plain(idx, vals, rows_out),

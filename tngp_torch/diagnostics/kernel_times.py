@@ -2,7 +2,7 @@
 timed with them at the main path's shapes.
 
     python3 tngp_torch/diagnostics/kernel_times.py [--root DIR] [--seed 0]
-        [--train-inputs FILE] [--dnerf-inputs FILE]
+        [--train-inputs FILE] [--dnerf-inputs FILE] [--any-inputs FILE]
 
 - `events_ms`: CUDA events around 20 back-to-back calls after 3 warm-ups,
   per call: the wall a caller sees per call, max(host, device);
@@ -35,8 +35,12 @@ bench.py's training loop; `DNERF_STEPS` steps of `chip_smoke.py`'s D-NeRF
 phase) and saved there with how they were made (a file made with another
 seed or step count is refused), so the runs of one call time the same
 inputs; keep the files in a git-ignored directory of the checkout, such as
-`_archive/`.  It prints the card's name and power limit and one JSON line
-(rows carry their bound, `bound_ms`).  It needs a CUDA card.
+`_archive/`.  With `--any-inputs FILE` it times only the general
+scatter-add (`any_input_calls`), on the inputs of every path's calls that
+`any_calls.py --save FILE` recorded: the dispatch and each of its designs,
+so `--root` A/Bs the form on the paths' own tensors.  It prints the card's
+name and power limit and one JSON line (rows carry their bound,
+`bound_ms`).  It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -177,6 +181,34 @@ def scatter_calls(seed: int = 0) -> dict:
                         lambda: torch.full((H3,), -1.0, device=dev).index_put_((idx_s,), vals_s)),
         "int_mul_probe": (lambda: int_mul.int_mul_hash(xi), None),
     }
+
+
+def any_input_calls(path: str) -> dict:
+    """name -> (kernel call, `index_add_` call, bound ms) of the general
+    scatter-add on each call's inputs that `any_calls --save` wrote to
+    `path`: the dispatch under the call's label, and each design of the form
+    under "<label> <design>" where the imported package has them
+    (`any_designs`).  The bound is bytes: idx (8 B) and vals (4C B) read
+    once, the output (4C B a row) written once."""
+    from tngp_torch.kernels import scatter as ks
+
+    dev = torch.device("cuda")
+    designs = getattr(ks, "any_designs", lambda n, C, rows: [])
+    out = {}
+    for label, (idx, vals, rows) in torch.load(path).items():
+        idx, vals = idx.to(dev), vals.to(dev)
+        n, C = vals.shape
+        lib_idx = torch.where((idx >= 0) & (idx < rows), idx, rows)  # one overflow row
+        b_ms = (n * (8 + 4 * C) + rows * C * 4) / HBM_BYTES_PER_S * 1e3
+        out[label] = (
+            lambda i=idx, v=vals, r=rows: ks.scatter_add(i, v, r, indices="any"),
+            lambda i=lib_idx, v=vals, r=rows: torch.zeros((r + 1, v.shape[1]), device=dev)
+            .index_add_(0, i, v),
+            b_ms)
+        for f in designs(n, C, rows):
+            out[f"{label} {f}"] = (
+                lambda i=idx, v=vals, r=rows, f=f: ks.scatter_add_any_as(i, v, r, f), None, b_ms)
+    return out
 
 
 def bin_dest_bytes(M: int, block: int) -> int:
@@ -429,16 +461,20 @@ def encoder_calls(seed: int = 0, train=None, table=None, inputs=None, dnerf=None
     return calls
 
 
-def main(seed: int = 0, train_path: str | None = None, dnerf_path: str | None = None) -> int:
+def main(seed: int = 0, train_path: str | None = None, dnerf_path: str | None = None,
+         any_path: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA card visible; this run needs one", file=sys.stderr)
         return 2
     import tngp_torch
 
-    calls = {name: (k, lib, None) for name, (k, lib) in scatter_calls(seed).items()}
-    calls.update(bin_dest_calls(seed))
-    calls.update(encoder_calls(seed, train_inputs(train_path, seed),
-                               dnerf=dnerf_inputs(dnerf_path, seed)))
+    if any_path:
+        calls = any_input_calls(any_path)
+    else:
+        calls = {name: (k, lib, None) for name, (k, lib) in scatter_calls(seed).items()}
+        calls.update(bin_dest_calls(seed))
+        calls.update(encoder_calls(seed, train_inputs(train_path, seed),
+                                   dnerf=dnerf_inputs(dnerf_path, seed)))
     rows = {name: dict(ms=events_ms(k), host_us=host_us(k), bound_ms=b_ms,
                        library_ms=None if lib is None else events_ms(lib),
                        library_host_us=None if lib is None else host_us(lib))
@@ -464,7 +500,10 @@ if __name__ == "__main__":
     ap.add_argument("--dnerf-inputs", default=None,
                     help="load one D-NeRF step's input-gradient inputs from this file, "
                          "or capture and save them there where it does not exist")
+    ap.add_argument("--any-inputs", default=None,
+                    help="time only the general scatter-add, on the calls' inputs that "
+                         "`any_calls --save` wrote to this file")
     args = ap.parse_args()
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.root) if args.root else here)
-    sys.exit(main(args.seed, args.train_inputs, args.dnerf_inputs))
+    sys.exit(main(args.seed, args.train_inputs, args.dnerf_inputs, args.any_inputs))

@@ -45,7 +45,10 @@ _SIGNATURES = {
         *[(f"tngp_scatter_add_{form}_f32", _c.c_int,
            [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
             _c.c_int64, _c.c_void_p])
-          for form in ("unique", "sorted", "any")],
+          for form in ("unique", "sorted")],
+        ("tngp_scatter_add_any_f32", _c.c_int,
+         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
+          _c.c_int64, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p]),
         ("tngp_scatter_set_f32", _c.c_int,
          [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
           _c.c_int64, _c.c_float, _c.c_void_p]),
@@ -78,13 +81,16 @@ SOURCES = tuple(_SIGNATURES)
 class KernelInfo:
     """One hand-written kernel: where it lives, what it replaces, its
     exported launcher, and how many times its wrapper launched it (a plain
-    integer, reset by callers that want to show a path went through it)."""
+    integer, reset by callers that want to show a path went through it);
+    a kernel of several designs also counts its launches by design under
+    `forms`."""
 
     name: str
     source: str  # repo-relative path of the CUDA source
     replaces: str  # file:line of the TPU kernel it replaces
     symbol: str  # the exported C launcher
     launches: int = 0
+    forms: dict = field(default_factory=dict)
     fn: object = field(default=None, repr=False)  # the ctypes function, bound at load
 
 
@@ -100,6 +106,7 @@ def register(name: str, source: str, replaces: str, symbol: str) -> KernelInfo:
 def reset_launch_counts() -> None:
     for info in KERNELS.values():
         info.launches = 0
+        info.forms.clear()
 
 
 # ---------------------------------------------------------------------------

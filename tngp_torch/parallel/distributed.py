@@ -7,8 +7,10 @@ group and `mesh.make_mesh` (or `global_mesh`) lays the ranks out as
   TNGP_COORDINATOR   host:port of process 0 (e.g. "localhost:29500")
   TNGP_NUM_PROCESSES total process count
   TNGP_PROCESS_ID    this process's rank
-The backend is NCCL for the card and gloo for the CPU (`TNGP_PLATFORM=cpu`,
-or no card); `backend=` overrides it (gloo ranks that share one card).  The
+The backend is NCCL for the card and gloo for the CPU (`TNGP_PLATFORM=cpu`);
+with no card and no such setting `default_backend` raises, as
+`cli.common.select_device` does; `backend=` overrides it (gloo ranks that
+share one card).  The
 JAX package's `TNGP_MULTIHOST=1` cluster auto-detection has no torch
 counterpart and raises.
 """
@@ -23,9 +25,15 @@ import torch.distributed as dist
 
 
 def default_backend() -> str:
-    """NCCL where the port runs on the card, gloo on the CPU."""
-    on_cpu = os.environ.get("TNGP_PLATFORM", "") == "cpu" or not torch.cuda.is_available()
-    return "gloo" if on_cpu else "nccl"
+    """gloo under `TNGP_PLATFORM=cpu`, else NCCL on the card, which must be
+    there: no card and no setting raises rather than quietly running the
+    ranks on the CPU."""
+    if os.environ.get("TNGP_PLATFORM", "") == "cpu":
+        return "gloo"
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card visible for NCCL; set TNGP_PLATFORM=cpu to run the "
+                           "ranks on the CPU over gloo")
+    return "nccl"
 
 
 def init_distributed(
