@@ -249,7 +249,7 @@ Phases (any failure exits non-zero and prints no result line):
 profiled eval frame, ten profiled training steps, a profiled golden-grid
 frame (3b) and a profiled full D-NeRF time-grid update on the golden grid
 (6d), with device time by kernel, the idle share and the golden grid's
-share (its profiler ranges `hash_grid.forward` / `hash_grid.backward`).
+share (its spans `tngp.encoder.hash_grid` / `tngp.encoder.hash_grid.backward`).
 
 It needs a CUDA card and the rest of the repository next to it.
 """
@@ -350,9 +350,9 @@ def profile_device(fn, label: str, wall_off: float) -> None:
     idle share of `wall_off`, the same work's wall time with the profiler
     off (the profiler's host cost inflates the profiled wall), the
     cumsums' device time by input shape, and the device time inside the
-    golden grid's profiler ranges (`hash_grid.forward` and
-    `hash_grid.backward`, opened in `tngp_torch.ops.hashgrid`) with its
-    share."""
+    golden grid's spans (`tngp.encoder.hash_grid` and
+    `tngp.encoder.hash_grid.backward`, opened in `tngp_torch.ops.hashgrid`)
+    with its share."""
     from torch.profiler import ProfilerActivity, profile
 
     from tngp_torch.diagnostics.step_times import ops_by_shape
@@ -367,12 +367,12 @@ def profile_device(fn, label: str, wall_off: float) -> None:
     # device-side events only (kernels, memsets, copies): the aten ops above
     # them report the same time again
     cuda_t = torch.autograd.DeviceType.CUDA
-    # and not the annotation spans (the optimizer's, the golden grid's),
-    # whose device-side rows cover the device timeline from their first
-    # kernel to their last, gaps included
+    # and not the annotation spans (the optimizer's, the program's), whose
+    # device-side rows cover the device timeline from their first kernel to
+    # their last, gaps included
     dev_us = [(e.key, e.device_time_total, e.count) for e in prof.key_averages()
               if e.device_type == cuda_t and e.device_time_total > 0
-              and not e.key.startswith(("Optimizer.", "hash_grid."))]
+              and not e.key.startswith(("Optimizer.", "tngp."))]
     dev_us.sort(key=lambda kv: -kv[1])
     busy = sum(t for _, t, _ in dev_us) / 1e6
     n_ev = sum(c for _, _, c in dev_us)
@@ -386,7 +386,7 @@ def profile_device(fn, label: str, wall_off: float) -> None:
     # a span's host-side row sums the device time of the kernels launched
     # inside it
     for e in prof.key_averages():
-        if (e.key.startswith("hash_grid.") and e.device_type != cuda_t
+        if (e.key.startswith("tngp.encoder.hash_grid") and e.device_type != cuda_t
                 and e.device_time_total > 0):
             log(f"[profile]   span {e.key}: {e.device_time_total / 1e3:.3f} ms device time over "
                 f"{e.count} calls, {100 * e.device_time_total / 1e6 / busy:.1f}% of the device "

@@ -118,9 +118,11 @@ def device_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> tuple[float, int | 
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    # device-side events only: the aten ops above them report the same time again
+    # device-side events only: the aten ops above them report the same time
+    # again, and the program's spans' device-side rows cover their kernels
     cuda_t = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.key_averages() if e.device_type == cuda_t and e.device_time_total > 0]
+    evs = [e for e in prof.key_averages() if e.device_type == cuda_t and e.device_time_total > 0
+           and not e.key.startswith("tngp.")]
     if not evs:
         return graph_replay_ms(fn, reps), None, "graph replay"
     per_call = [max(1, round(e.count / reps)) for e in evs]

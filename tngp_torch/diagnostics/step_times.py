@@ -58,7 +58,8 @@ def profiled(fn) -> dict:
         torch.cuda.synchronize()
     cuda_t = torch.autograd.DeviceType.CUDA
     busy = sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == cuda_t and e.device_time_total > 0) / 1e3
+               if e.device_type == cuda_t and e.device_time_total > 0
+               and not e.key.startswith(("Optimizer.", "tngp."))) / 1e3
     return {"device_ms": busy, "scans": ops_by_shape(prof)}
 
 

@@ -85,9 +85,9 @@ def ccnerf_trainer(ds, cfg, seed: int, dev):
     return CCTrainer(CCConfig(bound=1.0), ds, cfg, tc, lr1=2e-2, lr2=1e-3, device=dev)
 
 
-# ranges the profiler also lays on the device's timeline (the optimizer's own
-# and the spans here): annotations, not device work
-_ANNOTATIONS = ("Optimizer.", "steps.")
+# ranges the profiler also lays on the device's timeline (the optimizer's own,
+# the spans here and the program's): annotations, not device work
+_ANNOTATIONS = ("Optimizer.", "steps.", "tngp.")
 
 
 def raw_events(prof) -> list:

@@ -56,6 +56,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.profiling import span
 from . import _lib
 
 INDICES = ("unique", "sorted", "any")
@@ -107,7 +108,8 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, *,
         return scatter_add_plain(idx, vals, num_rows, indices)
     _check_add_call(idx, vals)
     if indices == "any":
-        return _launch_any(idx, vals, num_rows, None)
+        with span("tngp.kernel.scatter_add_any"):
+            return _launch_any(idx, vals, num_rows, None)
     M, C = vals.shape
     out = torch.empty((num_rows, C), dtype=torch.float32, device=vals.device)
     _lib.launch(KERNELS_ADD[indices], vals.device, idx.data_ptr(), vals.data_ptr(), out.data_ptr(), M, C,

@@ -37,9 +37,10 @@ reproducible); on the CPU its plain version.  The input gradient (the CUDA
 reference's dy_dx path) is computed only when `spec.input_grad` and the
 caller's x needs one.
 
-The forward and the backward run inside profiler ranges named
-`hash_grid.forward` and `hash_grid.backward`, so that a `torch.profiler`
-trace gives the grid's share of device time.
+The forward and the backward run inside the program's spans
+`tngp.encoder.hash_grid` and `tngp.encoder.hash_grid.backward`
+(`utils/profiling.py`), so that a `torch.profiler` trace gives the grid's
+share of device time; with no profiler running they cost nothing.
 """
 
 from __future__ import annotations
@@ -50,9 +51,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..kernels.scatter import scatter_add
+from ..utils.profiling import span
 
 # Spatial hash primes, gridencoder.cu:54 (standard instant-ngp constants).
 _PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
@@ -274,7 +275,7 @@ def hash_encode_cf(x_cf: torch.Tensor, table: torch.Tensor, spec: HashGridSpec) 
     in the table's dtype, level-major (row l*C + c).  Plain torch ops: its
     gradients, where autograd takes them, are torch's own gather backward."""
     _check_input(x_cf, spec)
-    with record_function("hash_grid.forward"):
+    with span("tngp.encoder.hash_grid"):
         B = x_cf.shape[1]
         L = spec.num_levels
         x = x_cf.float()
@@ -309,7 +310,7 @@ class _HashEncodeVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with record_function("hash_grid.backward"):
+        with span("tngp.encoder.hash_grid.backward"):
             return _HashEncodeVJP._backward(ctx, g)
 
     @staticmethod

@@ -51,6 +51,7 @@ import torch
 from ..kernels.scatter import scatter_add
 from ..ops.march import build_dilated_cell_grid, chunk_dilate, march_rays_chunked, nonzero_static
 from ..ops.rays import near_far_from_aabb
+from ..utils.profiling import span
 from .renderer import (
     FieldFns,
     RenderConfig,
@@ -142,24 +143,25 @@ class FrameRenderer:
         """Compaction and march of one residual round at tier width `na`.
         Returns the round's gathered inputs and its march; nothing of the
         frame state changes."""
-        cfg = self.cfg
-        idx, ok = self._compact_alive(na, rays_t, ws, fars_f)
-        o_a, d_a = o_f[idx], d_f[idx]
-        f_a = fars_f[idx]
-        t_a = torch.where(ok, rays_t[idx], f_a)  # unused slots march nothing
-        ws_a = ws[idx]
-        # per-ray samples of a round: K_eval, fewer at wide tiers
-        k_tier = max(8, min(cfg.K_eval, int(cfg.eval_round_budget) // na))
-        m_res = max(128, -(-na * k_tier // 128) * 128)
-        cm = march_rays_chunked(
-            o_a, d_a, t_a, f_a, bitfield,
-            bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
-            dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
-            M_budget=m_res, G=self.G_eval, dilated_grid=dgrid,
-            ladder_steps=self.round_ladder,
-            ray_chunk_cap=cfg.eval_ray_chunk_cap or None,
-        )
-        return (idx, ok, o_a, d_a, t_a, ws_a), cm
+        with span("tngp.render.march"):
+            cfg = self.cfg
+            idx, ok = self._compact_alive(na, rays_t, ws, fars_f)
+            o_a, d_a = o_f[idx], d_f[idx]
+            f_a = fars_f[idx]
+            t_a = torch.where(ok, rays_t[idx], f_a)  # unused slots march nothing
+            ws_a = ws[idx]
+            # per-ray samples of a round: K_eval, fewer at wide tiers
+            k_tier = max(8, min(cfg.K_eval, int(cfg.eval_round_budget) // na))
+            m_res = max(128, -(-na * k_tier // 128) * 128)
+            cm = march_rays_chunked(
+                o_a, d_a, t_a, f_a, bitfield,
+                bound=cfg.bound, cascades=cfg.cascades, grid_size=cfg.grid_size,
+                dt_gamma=cfg.dt_gamma, max_steps=cfg.max_steps,
+                M_budget=m_res, G=self.G_eval, dilated_grid=dgrid,
+                ladder_steps=self.round_ladder,
+                ray_chunk_cap=cfg.eval_ray_chunk_cap or None,
+            )
+            return (idx, ok, o_a, d_a, t_a, ws_a), cm
 
     def _round_update(self, na: int, params, state, gathered, cm, m_eff: int, stats):
         """Query the round's march and add its zero-masked deltas into the
@@ -195,7 +197,8 @@ class FrameRenderer:
     def _read(self, *scalars) -> list:
         """One device-to-host copy of device scalars, counted."""
         self.host_reads += 1
-        return torch.stack([s.reshape(()).long() for s in scalars]).tolist()
+        with span("tngp.frame.read"):
+            return torch.stack([s.reshape(()).long() for s in scalars]).tolist()
 
     # ------------------------------------------------------------------ drive
     def _quantum(self, n: int) -> int:
@@ -239,51 +242,57 @@ class FrameRenderer:
         dev = rays_o.device
         self.host_reads = 0
         stats = {"samples": 0, "valid_samples": 0, "host_reads": 0}
-        if self.G_eval != cfg.march_chunk or dgrid is None:
-            dgrid = self._dg(bitfield)
-        n = rays_o.shape[0]
-        chunk = self.chunk
-        pad = (-n) % self._quantum(n)
-        # padding rays miss the box (origin outside, pointing away), so the
-        # first pass retires them; zero rays would get far = +inf and stay
-        # alive to max_rounds
-        b = float(cfg.bound)
-        o = torch.cat([rays_o.float(), torch.tensor([0.0, 0.0, 3.0 * b], device=dev).expand(pad, 3)])
-        d = torch.cat([rays_d.float(), torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
-        nf_f, ff_f = near_far_from_aabb(o, d, cfg.aabb, cfg.min_near)
-        nchunks = (n + pad) // chunk
-        # sky-chunk skip: a chunk none of whose rays enters the occupied
-        # cells' box selects no sample; one read of the per-chunk bitmap
-        nb, fb = near_far_from_aabb(o, d, self._occ_bbox(bitfield), cfg.min_near)
-        self.host_reads += 1
-        hits = (nb < fb).reshape(nchunks, chunk).any(dim=1).tolist()
+        with span("tngp.frame.first_pass"):
+            if self.G_eval != cfg.march_chunk or dgrid is None:
+                dgrid = self._dg(bitfield)
+            n = rays_o.shape[0]
+            chunk = self.chunk
+            pad = (-n) % self._quantum(n)
+            # padding rays miss the box (origin outside, pointing away), so the
+            # first pass retires them; zero rays would get far = +inf and stay
+            # alive to max_rounds
+            b = float(cfg.bound)
+            o = torch.cat([rays_o.float(),
+                           torch.tensor([0.0, 0.0, 3.0 * b], device=dev).expand(pad, 3)])
+            d = torch.cat([rays_d.float(),
+                           torch.tensor([0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+            nf_f, ff_f = near_far_from_aabb(o, d, cfg.aabb, cfg.min_near)
+            nchunks = (n + pad) // chunk
+            # sky-chunk skip: a chunk none of whose rays enters the occupied
+            # cells' box selects no sample; one read of the per-chunk bitmap
+            nb, fb = near_far_from_aabb(o, d, self._occ_bbox(bitfield), cfg.min_near)
+            self.host_reads += 1
+            hit_dev = (nb < fb).reshape(nchunks, chunk).any(dim=1)
+            with span("tngp.frame.read"):
+                hits = hit_dev.tolist()
 
-        # first pass: every marched chunk's march queued, their sample
-        # counts read in one copy, then every chunk's query
-        marched = {}
-        for ci in range(nchunks):
-            if hits[ci]:
+            # first pass: every marched chunk's march queued, their sample
+            # counts read in one copy, then every chunk's query
+            marched = {}
+            for ci in range(nchunks):
+                if hits[ci]:
+                    s = slice(ci * chunk, (ci + 1) * chunk)
+                    marched[ci] = _eval_stream_march(o[s], d[s], nf_f[s], ff_f[s], bitfield,
+                                                     cfg, dgrid, self.G_eval)
+            m_effs = self._read(*[cm.m_eff for cm in marched.values()]) if marched else []
+            parts = []
+            for ci in range(nchunks):
                 s = slice(ci * chunk, (ci + 1) * chunk)
-                marched[ci] = _eval_stream_march(o[s], d[s], nf_f[s], ff_f[s], bitfield, cfg,
-                                                 dgrid, self.G_eval)
-        m_effs = self._read(*[cm.m_eff for cm in marched.values()]) if marched else []
-        parts = []
-        for ci in range(nchunks):
-            s = slice(ci * chunk, (ci + 1) * chunk)
-            if ci in marched:
-                parts.append(_eval_stream_query(self.field, params, marched.pop(ci), o[s], d[s],
-                                                nf_f[s], cfg, stats, m_eff=m_effs.pop(0)))
-            else:
-                z = torch.zeros((chunk,), dtype=torch.float32, device=dev)
-                parts.append((ff_f[s], z, z, torch.zeros((chunk, 3), dtype=torch.float32,
-                                                         device=dev)))
-        rays_t, ws, depth, image = (torch.cat([p[i] for p in parts]) for i in range(4))
+                if ci in marched:
+                    parts.append(_eval_stream_query(self.field, params, marched.pop(ci), o[s],
+                                                    d[s], nf_f[s], cfg, stats,
+                                                    m_eff=m_effs.pop(0)))
+                else:
+                    z = torch.zeros((chunk,), dtype=torch.float32, device=dev)
+                    parts.append((ff_f[s], z, z, torch.zeros((chunk, 3), dtype=torch.float32,
+                                                             device=dev)))
+            rays_t, ws, depth, image = (torch.cat([p[i] for p in parts]) for i in range(4))
+            n_alive = self._read(self._alive(rays_t, ws, ff_f).sum())[0] if any(hits) else 0
 
         # residual rounds: the tier loops of the JAX package, on the host
         self.last_rounds = 0
         self.last_tiers = []
         state = (rays_t, ws, depth, image)
-        n_alive = self._read(self._alive(rays_t, ws, ff_f).sum())[0] if any(hits) else 0
         while n_alive > 0 and self.last_rounds < max_rounds:
             ti = next((i for i, t in enumerate(self.tiers) if t >= n_alive), len(self.tiers) - 1)
             na = self.tiers[ti]
@@ -292,22 +301,24 @@ class FrameRenderer:
             self.last_tiers.append(na)
             it, alive_dev = 0, None
             while it < cap:
-                gathered, cm = self._round_march(na, bitfield, dgrid, o, d, state[0], state[1],
-                                                 ff_f)
-                if alive_dev is None:  # the tier's first round: the count is known
-                    (m_eff,) = self._read(cm.m_eff)
-                else:
-                    n_alive, m_eff = self._read(alive_dev, cm.m_eff)
-                    if n_alive <= stop:
-                        break  # the tier's loop ends: this march is dropped
-                state = self._round_update(na, params, state, gathered, cm, m_eff, stats)
-                it += 1
-                self.last_rounds += 1
-                alive_dev = self._alive(state[0], state[1], ff_f).sum()
+                with span("tngp.frame.round"):
+                    gathered, cm = self._round_march(na, bitfield, dgrid, o, d, state[0],
+                                                     state[1], ff_f)
+                    if alive_dev is None:  # the tier's first round: the count is known
+                        (m_eff,) = self._read(cm.m_eff)
+                    else:
+                        n_alive, m_eff = self._read(alive_dev, cm.m_eff)
+                        if n_alive <= stop:
+                            break  # the tier's loop ends: this march is dropped
+                    state = self._round_update(na, params, state, gathered, cm, m_eff, stats)
+                    it += 1
+                    self.last_rounds += 1
+                    alive_dev = self._alive(state[0], state[1], ff_f).sum()
 
-        self.last_cut = self._alive(state[0], state[1], ff_f)[:n]
-        image, depth = self._finalize(params, o, d, state[1], state[2], state[3], nf_f, ff_f,
-                                      bg_color)
+        with span("tngp.frame.finalize"):
+            self.last_cut = self._alive(state[0], state[1], ff_f)[:n]
+            image, depth = self._finalize(params, o, d, state[1], state[2], state[3], nf_f,
+                                          ff_f, bg_color)
         self.last_stats = dict(
             samples=stats["samples"], valid_samples=stats["valid_samples"],
             rounds=self.last_rounds, tiers=list(self.last_tiers), host_reads=self.host_reads,

@@ -32,6 +32,7 @@ from ..models.tensorf import (
 )
 from ..render.renderer import RenderConfig
 from ..utils.config import TrainConfig
+from ..utils.profiling import span
 from .trainer import Trainer
 
 
@@ -70,12 +71,19 @@ class TensoRFTrainer(Trainer):
     def loss_on_batch(self, batch):
         """The base step's ray-masked MSE plus the L1 density term."""
         loss, npts, kept = super().loss_on_batch(batch)
-        return loss + self.l1_reg_weight * l1_density_loss(self.model), npts, kept
+        with span("tngp.train.loss"):
+            loss = loss + self.l1_reg_weight * l1_density_loss(self.model)
+        return loss, npts, kept
 
     def before_step(self):
         """Shrink then upsample at the milestones (module docstring)."""
         if self.global_step not in self.upsample_model_steps:
             return
+        with span("tngp.train.upsample"):
+            self._upsample()
+
+    def _upsample(self):
+        """The shrink and upsample of the milestone at this step."""
         i = self.upsample_model_steps.index(self.global_step)
         old_res = tuple(self.model.resolution)
         thresh = min(self.cfg.density_thresh, float(self.grid.mean_density))

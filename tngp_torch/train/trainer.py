@@ -103,7 +103,7 @@ from ..render.renderer import (
 from ..utils.colors import srgb_to_linear
 from ..utils.config import TrainConfig
 from ..utils.image_io import write_png
-from ..utils.profiling import profile_trace
+from ..utils.profiling import profile_trace, span
 from . import checkpoint as ckpt_io
 from .ema import ema_init, ema_update
 from .metrics import PSNRMeter
@@ -406,8 +406,9 @@ class Trainer:
             ray_mask = torch.ones((N,), dtype=torch.bool, device=self.device)
             npts = torch.full((), N * (cfg.num_steps + cfg.upsample_steps),
                               dtype=torch.int32, device=self.device)
-        per_ray = ((out["image"] - batch["gt_rgb"]) ** 2).mean(dim=-1)
-        loss, kept = masked_mean(per_ray, ray_mask, self.mesh)
+        with span("tngp.train.loss"):
+            per_ray = ((out["image"] - batch["gt_rgb"]) ** 2).mean(dim=-1)
+            loss, kept = masked_mean(per_ray, ray_mask, self.mesh)
         if self.uses_error_map:
             batch["per_ray"], batch["ray_mask"] = per_ray.detach(), ray_mask
         return loss, npts, kept
@@ -416,34 +417,41 @@ class Trainer:
         """One optimiser step with the per-step EMA (and the error map's
         update) on `batch`, sampled here when None.  Returns (loss,
         num_points, kept rays) as device scalars; makes no host sync."""
-        batch = self.sample_batch() if batch is None else batch
-        loss, npts, kept = self.loss_on_batch(batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.backward(loss)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        ema_update(self.ema_params, self.params, self.tc.ema_decay)
-        if self.uses_error_map:
-            self._update_error_map(batch)
-        self.global_step += 1
-        return loss, npts, kept
+        with span("tngp.train.step"):
+            if batch is None:
+                with span("tngp.train.sample"):
+                    batch = self.sample_batch()
+            loss, npts, kept = self.loss_on_batch(batch)
+            with span("tngp.train.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            loss = self.backward(loss)
+            with span("tngp.train.optimizer"):
+                self.optimizer.step()
+                if self.scheduler is not None:
+                    self.scheduler.step()
+            with span("tngp.train.ema"):
+                ema_update(self.ema_params, self.params, self.tc.ema_decay)
+                if self.uses_error_map:
+                    self._update_error_map(batch)
+            self.global_step += 1
+            return loss, npts, kept
 
     def backward(self, loss: torch.Tensor, mean: bool = False) -> torch.Tensor:
         """`loss.backward()`; under a mesh each gradient and the loss are then
         summed over the ranks in one flat all-reduce (over the model axis's
         copies of a data slice once; `mean` averages over every rank, for a
         loss that each rank computes whole).  Returns the loss, detached."""
-        loss.backward()
-        if not self.mesh.group:
-            return loss.detach()
-        for p in self.params:  # every rank's bucket has every parameter
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        value = loss.detach().reshape(1).clone()
-        scale = 1.0 / (self.mesh.world if mean else self.mesh.n_model)
-        all_reduce_flat([value, *(p.grad for p in self.params)], self.mesh, scale)
-        return value.reshape(())
+        with span("tngp.train.backward"):
+            loss.backward()
+            if not self.mesh.group:
+                return loss.detach()
+            for p in self.params:  # every rank's bucket has every parameter
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            value = loss.detach().reshape(1).clone()
+            scale = 1.0 / (self.mesh.world if mean else self.mesh.n_model)
+            all_reduce_flat([value, *(p.grad for p in self.params)], self.mesh, scale)
+            return value.reshape(())
 
     def _update_error_map(self, batch) -> None:
         """The error map's update from the step's rays; over several data
@@ -553,12 +561,14 @@ class Trainer:
             if self.use_grid and self.global_step % self.update_interval == 0:
                 if len(self._tier_M) > 1 and pts:
                     # one host read per grid-update interval
-                    vals = torch.stack([pts[-1].float(), kepts[-1]])
-                    self.mesh.all_reduce(vals, mean_over="data")
-                    demand, kept = vals.tolist()
+                    with span("tngp.train.tier_read"):
+                        vals = torch.stack([pts[-1].float(), kepts[-1]])
+                        self.mesh.all_reduce(vals, mean_over="data")
+                        demand, kept = vals.tolist()
                     self.host_reads += 1
                     self._adapt_tier(demand, kept / self.n_rays_local)
-                self.update_grid()
+                with span("tngp.train.grid_update"):
+                    self.update_grid()
             if self._clip_text_feat is not None and self.global_step % self.tc.rand_pose == 0:
                 closs = self.run_clip_step()
                 self.global_step += 1
@@ -661,13 +671,15 @@ class Trainer:
         if not (self.use_grid and cfg.eval_stream and cfg.march_chunk > 0
                 and cfg.max_steps % cfg.march_chunk == 0):
             return self.render_image_chunked(pose, intrinsics, use_ema, chunk, bg_color, W, H)
-        fr = self.frame_renderer(chunk)
-        o, d, W, H = self._frame_rays(pose, intrinsics, W, H)
-        with self.ema_weights() if use_ema else contextlib.nullcontext():
-            img, dep = fr.render(None, o, d, self.grid.bitfield, self._dgrid, bg_color)
-        self.last_render_stats = fr.last_stats
-        self.last_render_cut = fr.last_cut.reshape(H, W)
-        return img.reshape(H, W, 3).cpu().numpy(), dep.reshape(H, W).cpu().numpy()
+        with span("tngp.frame"):
+            fr = self.frame_renderer(chunk)
+            o, d, W, H = self._frame_rays(pose, intrinsics, W, H)
+            with self.ema_weights() if use_ema else contextlib.nullcontext():
+                img, dep = fr.render(None, o, d, self.grid.bitfield, self._dgrid, bg_color)
+            self.last_render_stats = fr.last_stats
+            self.last_render_cut = fr.last_cut.reshape(H, W)
+            with span("tngp.frame.to_host"):
+                return img.reshape(H, W, 3).cpu().numpy(), dep.reshape(H, W).cpu().numpy()
 
     def frame_renderer(self, chunk: int = 4096) -> FrameRenderer:
         """The frame renderer `render_image` uses for `chunk`-ray first-pass
