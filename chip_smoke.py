@@ -50,6 +50,12 @@ Phases (any failure exits non-zero and prints no result line):
      network): its stage times, the set-scatter kernel exactly equal to its
      plain version (a failed check fails the run), and every kernel of its
      path launched;
+  2d. the march kernels (`march_phase`): `march_rays_chunked` on CUDA
+     tensors against its plain version at an 800x800 frame's first-pass
+     shape and a TensoRF training step's (`kernel_times.march_inputs`),
+     every output bit for bit; the kernels' ms, the plain version's ms,
+     the host us of a call and the bound in bytes (the device ms comes in
+     phase 7's row);
   3. eval path, random weights from --seed: warm-up frames and
      `FrameRenderer.warmup`, then one timed 800x800 frame of the
      flagship-width instant-NGP network through `Trainer.render_image` (the
@@ -222,7 +228,9 @@ Phases (any failure exits non-zero and prints no result line):
      replays where the profiler records none, as after --profile's
      profiles), beside the least time the card could take
      (`tngp_torch.diagnostics.kernel_times`); the bin sort's row is the
-     whole `bin_dest` call, its device operations counted; the encoder rows
+     whole `bin_dest` call, its device operations counted, and so is the
+     march's (`march_chunked`, phase 2d's first pass; the step's under
+     `shapes`); the encoder rows
      also time the small width, one tile and (forward) a training step's
      inputs under `shapes` (`kernel_times.encoder_calls` on
      `encoder_inputs`, the inputs `kernel_times.py` times); the golden
@@ -2774,6 +2782,54 @@ def hard_dp_clip_phase(dev, dn: dict, seed: int) -> dict:
     return out
 
 
+def march_phase(dev, seed: int) -> dict:
+    """Phase 2d: the march kernels against `march_rays_chunked_plain` on the
+    card at a frame's first pass and a TensoRF step's shapes, every output
+    bit for bit (a float by its bits); per shape the kernels' ms (CUDA
+    events), the plain version's, the host us of a call and the bound."""
+    from tngp_torch.diagnostics.kernel_times import (
+        events_ms,
+        host_us,
+        march_bytes,
+        march_inputs,
+    )
+    from tngp_torch.kernels import plain_versions
+    from tngp_torch.ops.march import march_rays_chunked
+
+    out = {}
+    for case in ("eval_first", "train"):
+        args, kw = march_inputs(case, dev, seed)
+        with plain_versions():
+            want = march_rays_chunked(*args, **kw)
+        got = march_rays_chunked(*args, **kw)
+        torch.cuda.synchronize()
+        bad = []
+        for name in want._fields:
+            a, b = getattr(got, name), getattr(want, name)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b.to(a.dtype)):
+                bad.append(name)
+        if bad:
+            raise SystemExit(f"march kernels ({case}) differ from the plain version in {bad}")
+
+        def call(a=args, k=kw):
+            return march_rays_chunked(*a, **k)
+
+        with plain_versions():
+            plain_ms = events_ms(call, reps=3, warmup=1)
+        N, M = args[0].shape[0], kw["M_budget"]
+        nbytes = march_bytes(N, M, kw.get("noise") is not None)
+        out[case] = dict(ms=events_ms(call), host_us=host_us(call), plain_ms=plain_ms,
+                         bound_bytes=nbytes, bound_ms=bound(nbytes, 0, 1.0)[0],
+                         m_eff=int(got.m_eff), num_points=int(got.num_points), call=call)
+        log(f"[march] {case} (N {N:,}, M_budget {M:,}, G {kw['G']}): kernels = plain bit for "
+            f"bit, m_eff {out[case]['m_eff']:,} of {out[case]['num_points']:,}; "
+            f"{out[case]['ms']:.4f} ms, host {out[case]['host_us']:.1f} us, plain "
+            f"{plain_ms:.3f} ms, bound {out[case]['bound_ms']:.4f} ms ({nbytes:,} B)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3142,6 +3198,9 @@ def main() -> int:
         profile_device(grid_update, f"one partial (resample) grid update, H = {Hg}",
                        time.time() - t0)
 
+    # ---- 2d. the march kernels at the first pass's and a step's shapes ------
+    marches = march_phase(dev, args.seed)
+
     # ---- 3. eval path, random weights: 800x800 frames ----------------------
     model = NGPNetwork(encoding="hashgrid_window",
                        bound=1.0, compute_dtype=torch.bfloat16, device=dev, seed=args.seed)
@@ -3173,7 +3232,7 @@ def main() -> int:
 
     def check_launched(counts, label):
         for name in ("scatter_add_unique", "scatter_add_sorted", "bin_dest",
-                     "window_encode_fwd"):
+                     "window_encode_fwd", "march_chunked"):
             if counts[name] <= 0:
                 raise SystemExit(f"{label}: a kernel of the eval path never launched: {counts}")
 
@@ -3381,7 +3440,8 @@ def main() -> int:
         f"{first16:.6f}, last 16 {last16:.6f}; occupancy at the end {occ_end:.4f}; "
         f"launches {launches_train}")
     if min(launches_train[n] for n in ("scatter_add_unique", "scatter_add_sorted", "bin_dest",
-                                       "window_encode_fwd", "window_encode_bwd")) <= 0:
+                                       "window_encode_fwd", "window_encode_bwd",
+                                       "march_chunked")) <= 0:
         raise SystemExit(f"a kernel of the training path never launched: {launches_train}")
 
     # host syncs, counted over two further grid-update intervals (outside the
@@ -3966,6 +4026,21 @@ def main() -> int:
         library_call="torch.mul of the int32 operands by P1 (wraps as the uint32 product; "
                      "one of the two products, without the XOR: the nearest call, not the "
                      "same function)")
+    # the chunked march: a frame's first pass, a training step's shape under
+    # `shapes`; launches one a first-pass chunk and a round, one a step
+    m_first, m_train = marches["eval_first"], marches["train"]
+
+    def march_plain():
+        with kernels.plain_versions():
+            return m_first["call"]()
+
+    row("march_chunked", "march_chunked", launches_eval["march_chunked"], 0.0,
+        m_first["call"], march_plain, None, m_first["bound_bytes"], 0, INT32_OPS_PER_S,
+        path="eval", launches_train=launches_train["march_chunked"],
+        plain_ms_train=m_train["plain_ms"],
+        shapes={"train": (m_train["call"], m_train["bound_ms"])},
+        shape="65,536 rays of an orbit view, G 16, cap 8, M_budget 6,291,456 -> sel, "
+              "sel_valid [6,291,456]; train: 16,384 rays, G 8, M_budget 524,288")
     missing = set(info) - {r["kernel"] for r in rows}
     if missing:
         raise SystemExit(f"registered kernels without a timing row: {sorted(missing)}")

@@ -21,8 +21,10 @@ scatter-adds (payload sort [393,216, 4] -> [425,984, 4], per-ray reduction
 round update [1024, 6] -> [4096, 6]), the set-scatter (1,048,576 writes into
 128^3 cells), the int-mul probe, the whole bin sort `bin_dest` at the
 eval's top width (393,216 samples; a stable `argsort` of their tile keys
-beside it), and the encoder forward, table gradient and input gradient of
-the flagship spec at four inputs (`encoder_calls` on `encoder_inputs`: the
+beside it), the chunked march at a frame's first pass, a residual round
+and a training step (`march_calls` on `march_inputs`), and the encoder
+forward, table gradient and input gradient of the flagship spec at four
+inputs (`encoder_calls` on `encoder_inputs`: the
 eval's top width, a small eval bucket, samples all in one tile, and one
 training step's inputs; the input gradient also on one D-NeRF step's)
 through whichever `tngp_torch` it imports: `--root DIR` takes the package
@@ -234,6 +236,91 @@ def bin_dest_calls(seed: int = 0) -> dict:
     keys = sample_tiles(x01)
     return {"bin_dest_top": (lambda: kw.bin_dest(x01), lambda: torch.argsort(keys, stable=True),
                              bin_dest_bytes(M, kw.DEFAULT_BLOCK) / HBM_BYTES_PER_S * 1e3)}
+
+
+MARCH_CASES = ("eval_first", "eval_round", "train")
+
+
+def march_inputs(case: str, device="cuda", seed: int = 0) -> tuple[tuple, dict]:
+    """(args, kwargs) of `march_rays_chunked` at a main path's shape, on a
+    128^3 grid (bound 1, max_steps 1024) whose occupancy is a ball of radius
+    0.55 and 2% scattered cells: "eval_first", an 800x800 frame's first pass
+    (a 256x256 orbit view: 65,536 rays, G 16, the cap of 8 live chunks a
+    ray, 96 samples a ray, `eval_cb_mult` 6); "eval_round", a residual round
+    at the 16,384-ray tier (every fourth ray of that view from 0.4 of its box
+    segment, a 256-rung ladder window, 32 samples a ray); "train", a TensoRF
+    training step (16,384 rays from the orbit sphere to random points of the
+    box, noise, G 8, a budget of 524,288 samples)."""
+    import torch.nn.functional as F
+
+    from tngp_torch.data.rays import full_image_rays
+    from tngp_torch.data.synthetic import orbit_poses
+    from tngp_torch.ops.grid_utils import packbits
+    from tngp_torch.ops.march import build_dilated_cell_grid, chunk_dilate
+    from tngp_torch.ops.rays import near_far_from_aabb
+
+    if case not in MARCH_CASES:
+        raise ValueError(f"unknown march case {case!r}: one of {MARCH_CASES}")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    H, bound, S = 128, 1.0, 1024
+    ax = (torch.arange(H) + 0.5) / H * 2.0 - 1.0
+    gx, gy, gz = torch.meshgrid(ax, ax, ax, indexing="ij")
+    occ = (gx**2 + gy**2 + gz**2 < 0.55**2) | (torch.rand((H, H, H), generator=gen) < 0.02)
+    bitfield = packbits(occ.reshape(-1).float(), 0.5).to(device)
+    noise = None
+    if case == "train":
+        N, G = 16_384, 8
+        o = 2.35 * F.normalize(torch.randn((N, 3), generator=gen), dim=1)
+        d = F.normalize(torch.rand((N, 3), generator=gen) * 1.6 - 0.8 - o, dim=1)
+        noise = torch.rand((N,), generator=gen).to(device)
+    else:
+        G = 16
+        pose = orbit_poses(16, radius=2.35, elevation=0.3)[seed % 16]
+        o, d = full_image_rays(pose, [230.0, 230.0, 128.0, 128.0], 256, 256, device="cpu")
+        if case == "eval_round":
+            o, d = o[::4].contiguous(), d[::4].contiguous()
+    o, d = o.to(device), d.to(device)
+    nears, fars = near_far_from_aabb(o, d, (-bound,) * 3 + (bound,) * 3, 0.05)
+    N = o.shape[0]
+    kw = dict(bound=bound, cascades=1, grid_size=H, dt_gamma=0.0, max_steps=S, G=G,
+              dilated_grid=build_dilated_cell_grid(bitfield, bound=bound, cascades=1,
+                                                   grid_size=H,
+                                                   dilate=chunk_dilate(G, S, H, bound)))
+    if case == "eval_first":
+        M = N * 96
+        kw.update(M_budget=M, chunk_budget=-(-int(6.0 * M) // G), ray_chunk_cap=8)
+        t_start = nears
+    elif case == "eval_round":
+        kw.update(M_budget=N * 32, ladder_steps=256, ray_chunk_cap=8)
+        t_start = nears + 0.4 * (fars - nears)
+    else:
+        kw.update(M_budget=524_288, noise=noise)
+        t_start = nears
+    return (o, d, t_start, fars, bitfield), kw
+
+
+def march_bytes(N: int, M: int, noise: bool = False) -> int:
+    """Bytes the chunked march must move: sel (8 B) and sel_valid (1 B)
+    over the budget M and the two counts written; a ray's origin and
+    direction (24 B), t_start and far (8 B) and noise (4 B) read, its t0,
+    resume_t (8 B) and ray_mask (1 B) written.  The grids it probes are
+    L2-resident and not counted."""
+    return M * 9 + 16 + N * (24 + 8 + (4 if noise else 0) + 9)
+
+
+def march_calls(seed: int = 0) -> dict:
+    """name -> (call, None, bound ms): the chunked march through the
+    imported package's `march_rays_chunked` at `march_inputs`'s cases."""
+    from tngp_torch.ops.march import march_rays_chunked
+
+    out = {}
+    for case in MARCH_CASES:
+        args, kw = march_inputs(case, seed=seed)
+        nbytes = march_bytes(args[0].shape[0], kw["M_budget"], kw.get("noise") is not None)
+        out[f"march_chunked_{case}"] = (
+            lambda a=args, k=kw: march_rays_chunked(*a, **k), None,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+    return out
 
 
 def _load_made(path: str, seed: int, steps_key: str, steps: int):
@@ -475,6 +562,7 @@ def main(seed: int = 0, train_path: str | None = None, dnerf_path: str | None = 
     else:
         calls = {name: (k, lib, None) for name, (k, lib) in scatter_calls(seed).items()}
         calls.update(bin_dest_calls(seed))
+        calls.update(march_calls(seed))
         calls.update(encoder_calls(seed, train_inputs(train_path, seed),
                                    dnerf=dnerf_inputs(dnerf_path, seed)))
     rows = {name: dict(ms=events_ms(k), host_us=host_us(k), bound_ms=b_ms,

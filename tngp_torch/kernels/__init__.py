@@ -4,6 +4,7 @@ the TPU kernel it replaces and its launch count."""
 
 from ._lib import KERNELS, load_all, plain_versions, reset_launch_counts
 from .int_mul import int_mul_hash
+from .march import march_rays_chunked_cuda, march_rays_chunked_plain
 from .scatter import scatter_add, scatter_set_flat
 from .window_encoder import (
     bin_dest,
@@ -15,6 +16,7 @@ from .window_encoder import (
 
 __all__ = [
     "KERNELS", "load_all", "plain_versions", "reset_launch_counts", "int_mul_hash",
+    "march_rays_chunked_cuda", "march_rays_chunked_plain",
     "scatter_add", "scatter_set_flat",
     "bin_dest", "window_encode_binned", "window_encode_bwd",
     "window_encode_dx", "window_encode_fwd",

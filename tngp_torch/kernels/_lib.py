@@ -69,6 +69,9 @@ _SIGNATURES = {
             _c.c_int, _c.c_float, _c.c_int, _c.c_void_p])
           for form in ("", "_f32")],
     ],
+    "march.cu": [
+        ("tngp_march_chunked", _c.c_int, [_c.c_void_p] * 17),  # 16 pointers, the stream
+    ],
     "int_mul_probe.cu": [
         ("tngp_int_mul_probe", _c.c_int,
          [_c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_void_p]),

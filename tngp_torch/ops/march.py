@@ -287,139 +287,19 @@ def march_rays_chunked(
 ) -> ChunkedMarch:
     """Two-level march + compaction in one pass (see the JAX docstring at
     tngp/ops/march.py:526-546 for the exact-prefix contract, the ladder
-    window `ladder_steps` and the per-ray live-chunk cap `ray_chunk_cap`)."""
-    dev = rays_o.device
-    N = rays_o.shape[0]
-    S = max_steps
-    S_lad = S if ladder_steps is None else min(ladder_steps, S)
-    if S % G or S_lad % G:
-        raise ValueError(f"max_steps {S} / ladder_steps {S_lad} must be "
-                         f"multiples of chunk size {G}")
-    NCr = S_lad // G
-    dt_min, dt_max = _ladder_consts(max_steps, cascades, grid_size)
-    cell = 2.0 * bound / grid_size
-    dilate = chunk_dilate(G, max_steps, grid_size, bound)
+    window `ladder_steps` and the per-ray live-chunk cap `ray_chunk_cap`).
+    A CPU tensor, or a call inside `plain_versions()`, takes the plain
+    version `march_rays_chunked_plain`; a CUDA tensor launches the march
+    kernels (`tngp_torch/kernels/march.py`), which give the same outputs."""
+    from ..kernels import _lib, march  # the kernels' module imports this one
 
-    o = rays_o.float()
-    d = rays_d.float()
-    t0 = _noisy_start(t_start, noise, dt_gamma, dt_min, dt_max)
-    fars = fars.float()
-
-    if dilated_grid is None:
-        grid = build_dilated_cell_grid(
-            bitfield, bound=bound, cascades=cascades, grid_size=grid_size,
-            dilate=dilate,
-        )
-    else:
-        grid = dilated_grid
-
-    # ---- coarse stage: one dilated-grid probe per chunk midpoint ----------
-    jg = torch.arange(NCr, device=dev) * G
-    t_lo = _t_ladder(t0, jg, dt_gamma, dt_min, dt_max)  # [N, NCr]
-    t_hi = _t_ladder(t0, jg + (G - 1), dt_gamma, dt_min, dt_max)
-    tc = 0.5 * (t_lo + t_hi)
-    halfext = 0.5 * (t_hi - t_lo)
-    H = grid_size
-    cix = []
-    for c in range(3):
-        p = torch.clamp(o[:, c:c + 1] + tc * d[:, c:c + 1], -bound, bound)
-        cix.append(_to_index(torch.floor((p + bound) / (2.0 * bound) * H), H))
-    ccell = (cix[0] * H + cix[1]) * H + cix[2]
-    live = grid[ccell.reshape(-1)].reshape(N, NCr)
-    live = live | (halfext > dilate * cell + 1e-6)
-    live = live & (t_lo < fars[:, None])
-
-    if ray_chunk_cap is not None:
-        lrank = torch.cumsum(live.long(), dim=1)  # [N, NCr]
-        cap_cut = lrank[:, -1] > ray_chunk_cap
-        cut1 = live & (lrank == ray_chunk_cap + 1)
-        j_cut = torch.argmax(cut1.to(torch.uint8), dim=1)  # first cut chunk
-        t_cut = torch.gather(t_lo, 1, j_cut[:, None])[:, 0]
-        live = live & (lrank <= ray_chunk_cap)
-    else:
-        cap_cut = torch.zeros((N,), dtype=torch.bool, device=dev)
-
-    # ---- chunk selection ---------------------------------------------------
-    if chunk_budget is None:
-        chunk_budget = -(-3 * M_budget // G)
-    CB = min(N * NCr, -(-chunk_budget // 128) * 128)
-    flat_live = live.reshape(-1)
-    csel = nonzero_static(flat_live, CB, N * NCr - 1)
-    n_live = flat_live.sum()
-    slot_ok = torch.arange(CB, device=dev) < n_live  # [CB]
-
-    # ---- fine stage: exact ladder + bitfield probe on candidates only -----
-    cray = csel // NCr  # [CB] nondecreasing
-    jc = (csel - cray * NCr)[:, None] * G + torch.arange(G, device=dev)  # [CB, G]
-    ts = _t_ladder(t0[cray], jc, dt_gamma, dt_min, dt_max)  # [CB, G]
-    occ = _probe(o[cray], d[cray], ts, bitfield, bound=bound, cascades=cascades,
-                 grid_size=grid_size, dt_gamma=dt_gamma, dt_min=dt_min, dt_max=dt_max)[4]
-    cand = occ & (ts < fars[cray][:, None]) & slot_ok[:, None]
-
-    # ---- sample selection --------------------------------------------------
-    cand_flat = cand.reshape(-1)
-    ccum = torch.cumsum(cand_flat.long(), 0)  # [CB*G] inclusive
-    total = ccum[-1]
-    m_eff = torch.clamp(total, max=M_budget)
-    s2 = nonzero_static(cand_flat, M_budget, 0)
-    csel_s = csel[s2 // G]
-    ray_s = csel_s // NCr
-    sel = ray_s * S + (csel_s - ray_s * NCr) * G + (s2 % G)
-    sel = torch.clamp(sel, max=N * S - 1)
-    want = torch.arange(1, M_budget + 1, device=dev)
-
-    # ---- per-ray totals: binary search over the nondecreasing cray --------
-    nq = torch.arange(N, device=dev)
-
-    def ray_go_right(mid):
-        m = torch.clamp(mid, max=CB - 1)
-        return (cray[m] <= nq) & slot_ok[m] & (mid < CB)
-
-    lo = _binary_search(N, CB, ray_go_right, dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    cum_counts = torch.where(lo > 0, ccum[torch.clamp(lo * G - 1, 0, CB * G - 1)], zero)
-    g_trunc = (lo >= CB) & (n_live > CB)
-    truncated = g_trunc | cap_cut
-    ray_mask = (cum_counts <= m_eff) & ~truncated
-
-    # ---- eval resume: t just past each ray's last selected sample ---------
-    counts = cum_counts - torch.cat([cum_counts.new_zeros(1), cum_counts[:-1]])
-    base = cum_counts - counts
-    taken = torch.minimum(torch.clamp(m_eff - base, min=0), counts)
-    has_drop = (taken < counts) | truncated
-    cend = ccum.reshape(CB, G)[:, -1]  # [CB] inclusive valid count per chunk
-    want_rank = torch.clamp(base + taken, min=1)
-
-    def chunk_go_right(mid):
-        return (cend[torch.clamp(mid, max=CB - 1)] < want_rank) & (mid < CB)
-
-    cidx = torch.clamp(_binary_search(N, CB, chunk_go_right, dev), max=CB - 1)
-    cflags = cand[cidx]  # [N, G]
-    prev = cend[cidx] - cflags.sum(dim=1)
-    in_rank = torch.cumsum(cflags.long(), dim=1) + prev[:, None]
-    hit = cflags & (in_rank == want_rank[:, None])
-    g_off = torch.argmax(hit.to(torch.uint8), dim=1)
-    rung = (csel[cidx] - cray[cidx] * NCr) * G + g_off
-    t_sel_last = _t_ladder(t0, rung[:, None], dt_gamma, dt_min, dt_max)[:, 0]
-    dt_sel = _dts(t_sel_last, dt_gamma, dt_min, dt_max)
-    t_after = torch.where(taken > 0, t_sel_last + dt_sel, t0)
-    last = torch.full((N, 1), S_lad - 1, device=dev)
-    t_last = _t_ladder(t0, last, dt_gamma, dt_min, dt_max)[:, 0]
-    ladder_end = t_last + _dts(t_last, dt_gamma, dt_min, dt_max)
-    resume_t = torch.minimum(torch.where(has_drop, t_after, ladder_end), fars)
-    if ray_chunk_cap is not None:
-        no_take = cap_cut & (counts == 0) & ~g_trunc
-        resume_t = torch.where(no_take, torch.minimum(t_cut, fars), resume_t)
-
-    return ChunkedMarch(
-        sel=sel,
-        sel_valid=want <= m_eff,
-        m_eff=m_eff,
-        ray_mask=ray_mask,
-        num_points=total,
-        t0=t0,
-        resume_t=resume_t,
-    )
+    run = march.march_rays_chunked_plain if _lib.use_plain(rays_o) else (
+        march.march_rays_chunked_cuda)
+    return run(rays_o, rays_d, t_start, fars, bitfield, bound=bound, cascades=cascades,
+               grid_size=grid_size, dt_gamma=dt_gamma, max_steps=max_steps,
+               M_budget=M_budget, G=G, chunk_budget=chunk_budget, noise=noise,
+               dilated_grid=dilated_grid, ladder_steps=ladder_steps,
+               ray_chunk_cap=ray_chunk_cap)
 
 
 def ladder_samples(
