@@ -24,9 +24,9 @@ def exact_offs(watched: dict, got: dict, cfg: dict, views, intr) -> dict:
     """The integer numbers, each 0 where the program is right: rays that are
     not their pixel's camera ray and colour (`feed_rays_off`), occupancy
     bits that are not the density grid's (`grid_bits_off`), and samples,
-    sample counts and kept rays of each march that are not the reference's
-    (`march_off`)."""
-    march_off = 0
+    sample counts and kept rays of each march that are not the reference's,
+    and steps at a budget the reference does not allow there (`march_off`)."""
+    march_off = got["budget_off"]
     for pm, rm in zip(watched["marches"], got["marches"]):
         m = int(pm["m_eff"])
         march_off += abs(m - rm["m_eff"])

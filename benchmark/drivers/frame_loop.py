@@ -10,7 +10,8 @@ poses until `--seconds` have passed: a ring of `ring` azimuths at `radius`
 and `elevation`, turned by an angle drawn from the field seed and visited
 in an order drawn from `--seed`, so that every seed renders the same views
 in another order.  A traced run profiles `profile_frames` frames once a
-third of the window has passed.  A frame with rays that the round cap left
+third of the window has passed, from the next frame that starts the
+ring's order again: with `profile_frames` = `ring`, every pose once.  A frame with rays that the round cap left
 alive counts as failed.
 
 Once the window has closed, the reference renders `checked_frames` of the
@@ -21,7 +22,12 @@ first `checked_steps` steps against the reference's from the benchmark's
 weights, the EMA's update on the last set-up step, the occupancy bits
 against the density grid, and a held-out view, drawn from the seed and
 rendered by the reference from that state, against its image
-(`val_mse`)."""
+(`val_mse`).
+
+A traced run also turns the program's spans on over the window
+(`util.HostSpans`) and reduces the profiled span's events by program span
+(`spans.by_name`, `record["spans"]`); an untraced run leaves them off and
+hooks nothing."""
 
 from __future__ import annotations
 
@@ -32,11 +38,35 @@ import time
 import numpy as np
 import torch
 
-from .. import checks, trace, util
+from .. import checks, spans, trace, util
 from ..harness import Outcome
 from ..models import hooks
 from ..reference import volume
 from ..roofline import bound_share, encoder_bytes
+
+# the faults a frame cell can have, planted by `_break_training` (the set-up's
+# training) and `_break` (the frames), for the harness's tests
+FAULTS = ["frozen_state", "half_batch", "altered_answer"]
+
+
+# encoder forward calls whose inputs a traced run keeps for the roofline
+# (`util.encoder_calls`): about two frames' worth
+ENCODER_CALLS = 16
+
+
+def faults(program) -> list:
+    """The faults a cell of this driver can have (its configuration's program
+    module adds none here)."""
+    return FAULTS
+
+
+def tiny(tf: dict, limits: dict) -> None:
+    """Cut the mix to a size the CPU runs in seconds, for the harness's tests."""
+    tf.update(setup_num_rays=256, setup_steps=200, width=20, height=16, chunk=128,
+              warmup_frames=1, profile_frames=1)
+    # 200 steps of a narrow field on six 24x24 views read ~17 dB on a
+    # held-out view, where the cell's field reads ~37 dB
+    limits["val_mse"] = 0.05
 
 
 def orbit_pose(phi: float, radius: float, elevation: float) -> np.ndarray:
@@ -110,33 +140,38 @@ def run(ctx) -> Outcome:
     for k in range(tf["warmup_frames"]):
         tr.render_image(poses[k % len(poses)], W=W, H=H, chunk=chunk)
     _break(tr, ctx.faults)
-    util.sync(dev)
-    setup_s = time.time() - ctx.t_start
-
     frames, times, cuts, stats = [], [], [], []
     record = {"kind": "eval", "flops_fwd": ref.forward_flops(cfg)}
     todo_profile = ctx.trace
     profiled, prof_s = [], 0.0  # the frames rendered under the profiler, its seconds
-    t0 = util.clock(dev)
-    while True:
-        if todo_profile and time.perf_counter() - t0 >= ctx.seconds / 3:
-            todo_profile = False
-            a = util.clock(dev)
-            with util.profiled(dev) as span, util.encoder_calls() as enc:
-                for _ in range(tf["profile_frames"]):
-                    profiled.append(len(frames))
-                    _frame(tr, poses[len(frames) % len(poses)], W, H, chunk, frames, times,
-                           cuts, stats)
-            prof_s = time.perf_counter() - a  # with the profiler's own processing
-            record["span_events"], record["encoder_inputs"] = span["events"], enc
-            record["span_frames"] = len(profiled)
-        else:
-            _frame(tr, poses[len(frames) % len(poses)], W, H, chunk, frames, times, cuts,
-                   stats)
-        if (time.perf_counter() - t0 >= ctx.seconds and len(frames) >= tf["checked_frames"]
-                and not todo_profile):
-            break
-    t1 = util.clock(dev)
+    with util.HostSpans(ctx.trace) as host_spans:  # the window starts
+        util.sync(dev)
+        setup_s = time.time() - ctx.t_start
+        t0 = util.clock(dev)
+        while True:
+            # the profiled frames start a third into the window, at the ring's
+            # first pose in this run's order, so that the same poses are profiled
+            if (todo_profile and time.perf_counter() - t0 >= ctx.seconds / 3
+                    and len(frames) % len(poses) == 0):
+                todo_profile = False
+                a = util.clock(dev)
+                with host_spans.left_out(), util.profiled(dev) as span, \
+                        util.encoder_calls(ENCODER_CALLS) as enc:
+                    for _ in range(tf["profile_frames"]):
+                        profiled.append(len(frames))
+                        _frame(tr, poses[len(frames) % len(poses)], W, H, chunk, frames,
+                               times, cuts, stats)
+                prof_s = time.perf_counter() - a  # with the profiler's own processing
+                record["span_events"], record["encoder_inputs"] = span["events"], enc
+                record["span_frames"] = len(profiled)
+            else:
+                _frame(tr, poses[len(frames) % len(poses)], W, H, chunk, frames, times, cuts,
+                       stats)
+            if (time.perf_counter() - t0 >= ctx.seconds
+                    and len(frames) >= tf["checked_frames"] and not todo_profile):
+                break
+        t1 = util.clock(dev)
+    host = host_spans.totals
     window_s = t1 - t0
     n_frames = len(frames)
     failed = int((torch.stack(cuts) > 0).sum())
@@ -153,7 +188,7 @@ def run(ctx) -> Outcome:
     util.note(f"set-up {setup_s:.3f} s, window {window_s:.3f} s, {n_frames} frames (p90 over "
               f"{n_frames}: {1e3 * p90:.2f} ms, median {1e3 * statistics.median(times):.2f} ms), "
               f"rounds {[s['rounds'] for s in stats[:8]]}, cut frames {failed}")
-    span_rec = _reduce_trace(record, cfg)
+    span_rec = _reduce_trace(record, cfg, host)
     if span_rec:
         busy = span_rec["busy_s"] / len(profiled)
         free = record["window_s"] / (n_frames - len(profiled))
@@ -252,9 +287,11 @@ def _frame(tr, pose, W, H, chunk, frames, times, cuts, stats) -> None:
     stats.append(tr.last_render_stats)
 
 
-def _reduce_trace(record: dict, cfg: dict) -> dict:
+def _reduce_trace(record: dict, cfg: dict, host: dict) -> dict:
     """The traced span's numbers into `record` (and the busy / window /
-    breakdown of the result line); the raw events and inputs are dropped."""
+    breakdown of the result line), with the program's spans a frame
+    (`record["spans"]`, from the events and the window's host totals
+    `host`); the raw events and inputs are dropped."""
     events = record.pop("span_events", None)
     enc = record.pop("encoder_inputs", None)
     if not events:
@@ -262,10 +299,15 @@ def _reduce_trace(record: dict, cfg: dict) -> dict:
     red = trace.reduce_span(events)
     record["span"] = {k: red[k] for k in ("window_s", "busy_s", "device_ops")}
     record["encoder"] = {
-        "fwd_s": trace.kernel_seconds(red["kernel_s"], "window_fwd_kernel"),
+        "fwd_s": sum(e.dur for e in trace.launched_in(events, trace.host_spans(
+            events, "bench.encoder_fwd")) if "window_fwd_kernel" in e.name) / 1e9,
         "fwd_bytes": sum(encoder_bytes(x, w, cfg, enc["block"]) for x, w in enc["fwd"]),
     }
+    by_span = spans.reduce(events)
+    record["spans"] = spans.by_name(by_span, record["span_frames"], host, "tngp.frame")
     e = record["encoder"]
     util.note(f"encoder roofline: fwd {bound_share(e['fwd_bytes'], e['fwd_s'])} % over "
               f"{len(enc['fwd'])} calls; span {record['span']}")
+    util.note(f"spans a frame: {record['spans']}; idle by span {spans.idle_by_span(by_span)}; "
+              f"inside spans: device {by_span.get('covered')}, idle {by_span.get('idle_covered')}")
     return red

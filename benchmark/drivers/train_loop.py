@@ -14,19 +14,43 @@ watched, from the state the window left.  The reference follows both runs
 of watched steps, the first from the benchmark's own weights and the last
 from the snapshot of the trainer's state (weights, Adam's moments, grid)
 that they started from, and works out the watched stage again; the numbers
-compared are returned with their limits (benchmark/limits/<cell>.json)."""
+compared are returned with their limits (benchmark/limits/<cell>.json).
+The faults of the harness's tests are planted by `_break` before set-up,
+and a program module's own (`faults`) by its `plant` once the window has
+closed.
+
+A traced run also turns the program's spans on over the window
+(`util.HostSpans`) and reduces the profiled span's events by program span
+(`spans.by_name`, `record["spans"]`); an untraced run leaves them off and
+hooks nothing."""
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 
 import torch
 
-from .. import checks, trace, util
+from .. import checks, spans, trace, util
 from ..harness import Outcome
 from ..models import hooks
-from ..roofline import add_bytes, bound_share
+from ..roofline import add_bytes, bound_share, encoder_bwd_bytes
+
+# the faults a training cell can have, planted by `_break` (the harness's tests)
+FAULTS = ["frozen_state", "half_batch", "altered_answer"]
+
+
+def faults(program) -> list:
+    """The faults a cell of this driver can have: `FAULTS`, and those its
+    configuration's program module (`benchmark/models/<arch>.py`) gives as
+    its own `FAULTS`, which its `plant` breaks once the window has closed."""
+    return FAULTS + list(getattr(program, "FAULTS", ()))
+
+
+def tiny(tf: dict, limits: dict) -> None:
+    """Cut the mix to a size the CPU runs in seconds, for the harness's tests."""
+    tf.update(num_rays=128, warmup_steps=8, chunk_steps=16, profile_steps=16)
 
 
 def _break(tr, faults) -> None:
@@ -89,39 +113,44 @@ def _run(ctx) -> Outcome:
         tr.run_steps(tf["warmup_steps"] - n_chk)
     first["start"] = {"weights": inputs0}  # the benchmark's weights, not the program's copy
     hooks.reseed(tr, ctx.seed)
-    util.sync(dev)
-    setup_s = time.time() - ctx.t_start
-
     chunk = tf["chunk_steps"]
-    losses, pts, budgets = [], [], []
+    losses, pts, budgets, ends = [], [], [], []
     record = {"kind": "train", "rays_per_step": tf["num_rays"],
               "flops_fwd": ref.forward_flops(cfg)}
     todo_profile = ctx.trace
     profiled, prof_s = [], 0.0  # the chunks run under the profiler, its seconds
-    t0 = util.clock(dev)
     steps = 0
-    while True:
-        if todo_profile and time.perf_counter() - t0 >= ctx.seconds / 3:
-            todo_profile = False
-            a = util.clock(dev)
-            with util.profiled(dev) as span, util.scatter_any_calls() as sca, \
-                    util.spans_around(tr, "update_grid", "bench.update_grid"), \
-                    util.spans_around(tr.optimizer, "step", "bench.optimizer_step"):
-                for _ in range(max(1, tf["profile_steps"] // chunk)):
-                    profiled.append(len(pts))
-                    l, p, _ = tr.run_steps(chunk)
-                    losses.append(l), pts.append(p), budgets.append(tr.tier_M)
-                    steps += chunk
-            prof_s = time.perf_counter() - a  # with the profiler's own processing
-            record["span_steps"] = len(profiled) * chunk
-            record["span_events"], record["scatter_calls"] = span["events"], sca
-        else:
-            l, p, _ = tr.run_steps(chunk)
-            losses.append(l), pts.append(p), budgets.append(tr.tier_M)
-            steps += chunk
-        if time.perf_counter() - t0 >= ctx.seconds and not todo_profile:
-            break
-    t1 = util.clock(dev)
+    with util.HostSpans(ctx.trace) as host_spans:  # the window starts
+        util.sync(dev)
+        setup_s = time.time() - ctx.t_start
+        t0 = util.clock(dev)
+        while True:
+            if todo_profile and time.perf_counter() - t0 >= ctx.seconds / 3:
+                todo_profile = False
+                a = util.clock(dev)
+                with host_spans.left_out(), util.profiled(dev) as span, \
+                        util.scatter_any_calls() as sca, util.any_kernel_calls() as anyk, \
+                        util.encoder_bwd_calls() as encb, \
+                        util.spans_around(tr, "update_grid", "bench.update_grid"), \
+                        util.spans_around(tr.optimizer, "step", "bench.optimizer_step"):
+                    for _ in range(max(1, tf["profile_steps"] // chunk)):
+                        profiled.append(len(pts))
+                        l, p, _ = tr.run_steps(chunk)
+                        losses.append(l), pts.append(p), budgets.append(tr.tier_M)
+                        steps += chunk
+                prof_s = time.perf_counter() - a  # with the profiler's own processing
+                record["span_steps"] = len(profiled) * chunk
+                record["span_events"], record["scatter_calls"] = span["events"], sca
+                record["scatter_any_shapes"], record["encoder_bwd_calls"] = anyk, encb
+            else:
+                l, p, _ = tr.run_steps(chunk)
+                losses.append(l), pts.append(p), budgets.append(tr.tier_M)
+                steps += chunk
+            ends.append(time.perf_counter())
+            if time.perf_counter() - t0 >= ctx.seconds and not todo_profile:
+                break
+        t1 = util.clock(dev)
+    host = host_spans.totals
     window_s = t1 - t0
     all_losses = torch.cat(losses)
     failed = int((~torch.isfinite(all_losses)).sum())
@@ -137,8 +166,9 @@ def _run(ctx) -> Outcome:
               f"mean num_points {record['num_points_mean']:.1f} (first chunk "
               f"{float(pts_all[0].mean()):.1f}, last {float(pts_all[-1].mean()):.1f}), "
               f"last losses {float(all_losses[-chunk:].mean()):.6f}, resolution "
-              f"{getattr(tr.model, 'resolution', None)}")
-    span_rec = _reduce_trace(record)
+              f"{getattr(tr.model, 'resolution', None)}, budgets {sorted(set(budgets))}; "
+              f"ms a step by chunk (quartiles, unprofiled): {_chunk_ms(ends, t0, chunk, profiled)}")
+    span_rec = _reduce_trace(record, host, cfg)
     if span_rec:
         busy = span_rec["busy_s"] / record["span_steps"]
         free = record["window_s"] / (steps - record["span_steps"])
@@ -146,6 +176,8 @@ def _run(ctx) -> Outcome:
                   f"{1e3 * free:.3f} ms a step outside it: idle {100 * (1 - busy / free):.1f} %")
 
     # the steps after the window, watched; then the program's state goes
+    if hasattr(prog, "plant"):
+        prog.plant(tr, ctx.faults)
     after = hooks.watched_steps(tr, n_chk)
     views = hooks.train_views(cfg, data, dev)
     intr = data[1]
@@ -190,9 +222,19 @@ def _run(ctx) -> Outcome:
                    memory_peak_bytes=peak, trace=span_rec)
 
 
-def _reduce_trace(record: dict) -> dict:
+def _chunk_ms(ends: list, t0: float, chunk: int, profiled: list) -> list:
+    """Quartiles of the host's ms a step over the window's unprofiled chunks
+    (from each chunk's return to the next's; the host paces these cells)."""
+    ms = [1e3 * (b - a) / chunk for i, (a, b) in enumerate(zip([t0] + ends, ends))
+          if i not in profiled]
+    return [round(q, 3) for q in statistics.quantiles(ms, n=4)] if len(ms) >= 2 else ms
+
+
+def _reduce_trace(record: dict, host: dict, cfg: dict) -> dict:
     """The traced span's numbers into `record` (and the busy / window /
-    breakdown of the result line); the raw events are dropped."""
+    breakdown of the result line), with the program's spans a step
+    (`record["spans"]`, from the events and the window's host totals
+    `host`); the raw events are dropped."""
     events = record.pop("span_events", None)
     if not events:
         return {}
@@ -203,8 +245,17 @@ def _reduce_trace(record: dict) -> dict:
     calls = record.pop("scatter_calls")
     record["scatter_any"] = {"s": trace.span_device_s(events, "bench.scatter_any")[0],
                              "bytes": sum(add_bytes(*c) for c in calls)}
+    enc = record.pop("encoder_bwd_calls")
+    if enc:
+        record["encoder_bwd"] = {"s": trace.kernel_seconds(red["kernel_s"], "window_bwd"),
+                                 "bytes": sum(encoder_bwd_bytes(m, w, cfg) for m, w in enc)}
+    by_span = spans.reduce(events)
+    record["spans"] = spans.by_name(by_span, record["span_steps"], host, "tngp.train.step")
     sa = record["scatter_any"]
     util.note(f"scatter_add_any {bound_share(sa['bytes'], sa['s'])} % over {len(calls)} calls; "
               f"span {record['span']}, grid update {record['grid_update_s']}, optimizer "
-              f"{record['optimizer_s']}")
+              f"{record['optimizer_s']}, encoder table gradient {record.get('encoder_bwd')}, "
+              f"{len(record['scatter_any_shapes'])} any-form launches")
+    util.note(f"spans a step: {record['spans']}; idle by span {spans.idle_by_span(by_span)}; "
+              f"inside spans: device {by_span.get('covered')}, idle {by_span.get('idle_covered')}")
     return red

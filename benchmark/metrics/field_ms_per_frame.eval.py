@@ -1,0 +1,9 @@
+"""Device milliseconds a frame of the field's queries (`tngp.render.field`):
+the device operations launched inside the span's ranges in the profiled
+span, over its frames (`spans.by_name`)."""
+
+from benchmark.spans import value
+
+
+def read(rec):
+    return value(rec, "eval", "tngp.render.field", "device_ms")

@@ -61,11 +61,12 @@ def reseed(trainer, seed: int) -> None:
 
 def snapshot(trainer) -> dict:
     """The trainer's state that its next steps start from, copied: the
-    weights, Adam's moments and their step count, and the field's box
-    (TensoRF's `aabb`, None for the cube)."""
+    weights, Adam's moments and their step count, the field's box
+    (TensoRF's `aabb`, None for the cube) and the samples its steps query
+    (`tier_M`, its budget tier's), which the reference judges."""
     out = {"weights": {k: p.detach().clone() for k, p in leaves(trainer).items()},
            "adam": {}, "adam_step": 0, "aabb": list(getattr(trainer.model, "aabb", ()) or ())
-           or None}
+           or None, "budget": int(trainer.tier_M)}
     for k, p in leaves(trainer).items():
         st = trainer.optimizer.state.get(p, {})
         if "exp_avg" in st:

@@ -29,3 +29,22 @@ def build_trainer(cfg: dict, data, num_rays: int, weights: dict, seed: int, devi
     copy_weights(model, weights)
     return Trainer(model, train_dataset(cfg, data), render_config(cfg, **render_over),
                    train_config(cfg, num_rays, seed), device=device)
+
+
+def tiny(cfg: dict) -> None:
+    """Cut the configuration to a size the CPU runs in seconds, for the
+    harness's tests: fewer levels, a smaller table, narrow MLPs."""
+    cfg.update(num_levels=4, log2_hashmap_size=14, hidden_dim=16, hidden_dim_color=16)
+
+
+# the faults of this arch's trainer that a training driver plants (`plant`)
+FAULTS = ["lowest_tier"]
+
+
+def plant(trainer, faults) -> None:
+    """Break the trainer underneath, for the harness's own tests:
+    `lowest_tier` pins its sample budget to the lowest tier from its next
+    step on."""
+    if "lowest_tier" in faults:
+        trainer._tier = 0
+        trainer._adapt_tier = lambda *a, **k: None

@@ -34,6 +34,14 @@ def build_trainer(cfg: dict, data, num_rays: int, weights: dict, seed: int, devi
                           resolution1=cfg["resolution1"], device=device)
 
 
+def tiny(cfg: dict) -> None:
+    """Cut the configuration to a size the CPU runs in seconds, for the
+    harness's tests: low resolutions and ranks, a narrow MLP, the upsamples
+    inside a tiny mix's set-up."""
+    cfg.update(resolution0=16, resolution1=24, sigma_rank=[4, 4, 4], color_rank=[8, 8, 8],
+               color_feat_dim=6, hidden_dim=16, upsample_model_steps=[4, 6])
+
+
 def _geometry(trainer) -> dict:
     return {"weights": {k: p.detach().clone() for k, p in leaves(trainer).items()},
             "resolution": [int(r) for r in trainer.model.resolution],

@@ -181,11 +181,22 @@ class Field:
         return self.q16(sigma), self.q16(rgb)
 
 
+def budget_tiers(n_rays: int, cfg: dict) -> list:
+    """The sample budgets of the adaptive budget of an instant-NGP training
+    step, ascending: a quarter, a half, once and twice (at most 0.9) the
+    configured compact_fraction, each `volume.train_budget`."""
+    f = cfg["render"]["compact_fraction"]
+    return sorted({volume.train_budget(n_rays, cfg, g)
+                   for g in (f / 4.0, f / 2.0, f, min(2.0 * f, 0.9))})
+
+
 def train_steps(start: dict, batches: list, bitfields: list, cfg: dict,
                 precision: str = "f32") -> dict:
-    """`volume.train_steps` with this configuration's field."""
+    """`volume.train_steps` with this configuration's field and budget
+    tiers."""
+    tiers = budget_tiers(batches[0]["rays_o"].shape[0], cfg)
     return volume.train_steps(lambda w: Field(cfg, w, precision), start, batches, bitfields,
-                              cfg)
+                              cfg, tiers=tiers)
 
 
 def render_frame(weights: dict, bitfield: torch.Tensor, cfg: dict, pose, intr, H: int, W: int,

@@ -149,34 +149,60 @@ def composite(sigma, rgb, dt, t_rel, mask, T_thresh):
 
 
 # ------------------------------------------------------------------ training
-def train_budget(n_rays: int, cfg: dict) -> int:
-    """Samples a training step may query: n_rays K compact_fraction, rounded
-    up to a multiple of 128 (at least 128, at most every rung)."""
+def train_budget(n_rays: int, cfg: dict, fraction: float | None = None) -> int:
+    """Samples a training step may query: n_rays K compact_fraction (or
+    `fraction`), rounded up to a multiple of 128 (at least 128, at most
+    every rung)."""
     r = cfg["render"]
-    m = -(-int(n_rays * r["K"] * r["compact_fraction"]) // 128) * 128
+    f = r["compact_fraction"] if fraction is None else fraction
+    m = -(-int(n_rays * r["K"] * f) // 128) * 128
     return min(n_rays * r["max_steps"], max(128, m))
 
 
-def march_train(batch, bitfield, cfg):
+def adapted_budgets(demand: int, kept_share, tiers: list) -> set:
+    """Of the sample budgets `tiers` (ascending) of an adaptive sample
+    budget, those that a step whose valid rungs number `demand` may run at
+    once its tier has adapted: a tier up as soon as fewer than 98% of the
+    rays are kept (`kept_share(budget)`), a tier down where the demand
+    leaves 1.6x headroom below the next tier down.  A single tier is always
+    the one."""
+    top = len(tiers) - 1
+    return {m for i, m in enumerate(tiers)
+            if (i == top or kept_share(m) >= 0.98) and (i == 0 or demand * 1.6 >= tiers[i - 1])}
+
+
+def march_train(batch, bitfield, cfg, budget: int | None = None, tiers: list | None = None):
     """The samples a training step composites: every valid rung (occupied,
-    t < far) in ray order, cut after the first `train_budget` of them; a
-    ray stays in the loss where none of its rungs was cut.  Returns dict(t0,
-    t, valid [n, S], sel (flat indices ray * S + rung of the kept prefix),
-    m_eff, kept [n])."""
+    t < far) in ray order, cut after the first `budget` of them
+    (`train_budget` where None); a ray stays in the loss where none of its
+    rungs was cut.  With `tiers`, the budgets of an adaptive sample budget,
+    also the set of them the step may run at (`adapted_budgets`; `budget`
+    is marched at where it is one of them, else the least of them).
+    Returns dict(t0, t, valid [n, S], sel (flat indices ray * S + rung of
+    the kept prefix), m_eff, kept [n], and with tiers, budget_off (1 where
+    `budget` is not allowed))."""
     o, d = batch["rays_o"].float(), batch["rays_d"].float()
     r = cfg["render"]
+    n = o.shape[0]
     near, far = near_far(o, d, cfg["bound"], r["min_near"])
     t0, t, occ = rungs(o, d, near, batch["noise"].float(), bitfield, cfg)
     valid = occ & (t < far[:, None])
     flat = torch.nonzero(valid.reshape(-1)).reshape(-1)
-    M = train_budget(o.shape[0], cfg)
+
+    def first_cut(m: int) -> int:  # the first ray with a rung past the budget (n: none)
+        return n if m >= flat.numel() else int(flat[m]) // r["max_steps"]
+
+    M = train_budget(n, cfg) if budget is None else budget
+    out = {}
+    if tiers is not None:
+        allowed = adapted_budgets(flat.numel(), lambda m: first_cut(m) / n, tiers)
+        out = {"budget_off": int(M not in allowed)}
+        M = M if M in allowed else min(allowed)
     m_eff = min(M, flat.numel())
-    kept = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
-    if m_eff < flat.numel():
-        first_cut_ray = int(flat[m_eff]) // r["max_steps"]
-        kept[first_cut_ray:] = False
+    kept = torch.ones(n, dtype=torch.bool, device=o.device)
+    kept[first_cut(M):] = False
     return {"t0": t0, "t": t, "valid": valid, "sel": flat[:m_eff], "m_eff": m_eff,
-            "kept": kept}
+            "kept": kept, **out}
 
 
 def render_train(field, batch, march, cfg):
@@ -227,17 +253,21 @@ def adam_step(w: dict, g: dict, state: dict, step: int, cfg: dict) -> None:
 
 
 def train_steps(make_field, start: dict, batches: list, bitfields: list, cfg: dict,
-                extra_loss=None) -> dict:
+                extra_loss=None, tiers: list | None = None) -> dict:
     """Follow len(batches) training steps from `start` on the given batches,
     step i marching through bitfields[i]; `make_field(leaves)` is the field
     over a dict of leaves, `extra_loss(leaves)` a term added to the
     photometric loss.  `start` holds `weights` (a dict of leaves), and
     where the steps do not start from fresh moments, `adam` ({leaf: (first,
-    second moment)}) and `adam_step` (the steps those moments have taken).
-    Returns dict(marches (each step's selection, kept rays and colours),
-    losses [steps], grad_norms {leaf: norm of the first step's gradient},
-    grads (that gradient), change_norms {leaf: norm of the weights' change
-    over all steps})."""
+    second moment)}) and `adam_step` (the steps those moments have taken),
+    and where the steps do not start from the configured budget, `budget`:
+    the samples the program's steps queried, held to the budgets `tiers`
+    of the configuration's adaptive sample budget (`adapted_budgets`, at
+    each step's batch) or, without tiers, to the configured one.  Returns
+    dict(marches (each step's selection, kept rays and colours), losses
+    [steps], grad_norms {leaf: norm of the first step's gradient}, grads
+    (that gradient), change_norms {leaf: norm of the weights' change over
+    all steps}, budget_off (the steps whose budget was not allowed))."""
     no_tf32()
     weights0 = start["weights"]
     w = {k: v.detach().float().clone() for k, v in weights0.items()}
@@ -245,10 +275,15 @@ def train_steps(make_field, start: dict, batches: list, bitfields: list, cfg: di
     state = {k: (m.float().clone(), v.float().clone())
              for k, (m, v) in start.get("adam", {}).items()}
     step0 = int(start.get("adam_step", 0))
-    out = {"marches": [], "losses": [], "grad_norms": None, "change_norms": None}
+    budget = start.get("budget")
+    if budget is not None and tiers is None:
+        tiers = [train_budget(batches[0]["rays_o"].shape[0], cfg)]
+    out = {"marches": [], "losses": [], "grad_norms": None, "change_norms": None,
+           "budget_off": 0}
     for step, (batch, bitfield) in enumerate(zip(batches, bitfields)):
         with torch.no_grad():
-            march = march_train(batch, bitfield, cfg)
+            march = march_train(batch, bitfield, cfg, budget, tiers if budget else None)
+        out["budget_off"] += march.get("budget_off", 0)
         leaves = {k: v.clone().requires_grad_(True) for k, v in w.items()}
         loss, color = step_loss(make_field(leaves), batch, march, cfg)
         if extra_loss is not None:

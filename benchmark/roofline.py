@@ -5,15 +5,16 @@ Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at the 700 W
 power limit): 989 TFLOP/s in bf16, 3.35 TB/s of HBM3.  A share of a peak
 is stated with the card's power limit beside it.
 
-`encoder_bytes` is a frozen copy of `tngp_torch/diagnostics/kernel_times.py`
-`encoder_bytes`, with the corner addressing of the window layout written
-out here (`reference.ngp.levels` gives the geometry)."""
+`encoder_bytes` and `encoder_bwd_bytes` are frozen copies of
+`tngp_torch/diagnostics/kernel_times.py` `encoder_bytes` ("fwd", "bwd"),
+with the corner addressing of the window layout written out here
+(`reference.ngp.levels` gives the geometry)."""
 
 from __future__ import annotations
 
 import torch
 
-from .reference.ngp import P1, P2, WIN_LANES, WIN_ROWS, levels
+from .reference.ngp import P1, P2, WIN_LANES, WIN_ROWS, levels, n_windows
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -63,6 +64,15 @@ def encoder_bytes(xyz4: torch.Tensor, wob: torch.Tensor, cfg: dict, block: int) 
         addr, w = corner_addresses(xyz4, wob, cfg, block, lv)
         entries += int(torch.unique(addr[w.ne(0)]).numel()) * C
     return xyz4.shape[0] * (16 + 4 * L * C) + wob.numel() * 4 + entries * 4
+
+
+def encoder_bwd_bytes(m_pad: int, wob_entries: int, cfg: dict) -> int:
+    """Bytes an encoder table-gradient call must move, from its input sizes
+    (`util.encoder_bwd_calls`).  Per sample: its xyz4 row (16 B) and its
+    L * C cotangents read; `wob` once; the whole window-layout table
+    gradient written once."""
+    L, C = cfg["num_levels"], cfg["level_dim"]
+    return m_pad * (16 + 4 * L * C) + wob_entries * 4 + n_windows(cfg) * C * WIN_ROWS * 4
 
 
 def add_bytes(m: int, c: int, rows_out: int) -> int:

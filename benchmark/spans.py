@@ -12,15 +12,11 @@ No span name nests inside itself, which `launched_in` needs.  `by_span`
 counts a span's launches whatever spans it holds; `own` gives each launch to
 its innermost span alone, a partition of the device time.
 
-`readings` turns them into the per-layer numbers of the two cells:
-
-| reading | from |
-|---|---|
-| `march_ms_per_step.train`, `field_ms_per_step.train`, `composite_ms_per_step.train`, `backward_ms_per_step.train` | device ms of `tngp.render.march` / `.field` / `.composite`, `tngp.train.backward` a profiled step |
-| `dispatch_ms_per_step.train` | host ms of `tngp.train.step` a step, aggregate |
-| `march_ms_per_frame.eval`, `field_ms_per_frame.eval`, `composite_ms_per_frame.eval` | device ms of the same render spans a profiled frame |
-| `read_wait_ms_per_frame.eval` | host ms of `tngp.frame.read` and `tngp.frame.to_host` a frame, aggregate |
-| `dispatch_ms_per_frame.eval` | host ms of `tngp.frame` less those waits a frame, aggregate |
+`by_name` puts both into the record of a traced run (`record["spans"]`): for
+every program span, a step or a frame, its device ms, own device ms, idle ms
+and device operations from the profiled span, and its host ms and count
+from the aggregate.  The per-layer readers (`benchmark/metrics/`) read it by
+span name (`value`).
 """
 
 from __future__ import annotations
@@ -32,18 +28,6 @@ from . import trace
 PREFIX = "tngp."
 OUTSIDE = "(outside program spans)"
 SCAN = 4000  # ranges looked back at for the one that holds a point
-TOP_KERNELS = 40  # entries of `own_kernels`
-
-DEVICE = {
-    "train": {"march_ms_per_step.train": "tngp.render.march",
-              "field_ms_per_step.train": "tngp.render.field",
-              "composite_ms_per_step.train": "tngp.render.composite",
-              "backward_ms_per_step.train": "tngp.train.backward"},
-    "eval": {"march_ms_per_frame.eval": "tngp.render.march",
-             "field_ms_per_frame.eval": "tngp.render.field",
-             "composite_ms_per_frame.eval": "tngp.render.composite"},
-}
-WAITS = ("tngp.frame.read", "tngp.frame.to_host")
 
 
 def program_ranges(events) -> list:
@@ -70,8 +54,8 @@ def _is_launch(e) -> bool:
 
 def reduce(events) -> dict:
     """The program's spans in the profiled span (`trace.SPAN`): `by_span`
-    and `own` (device seconds by span name, module docstring), `own_kernels`
-    (the largest [span, operation, seconds] of `own` by operation), `ranges`
+    and `own` (device seconds by span name, module docstring), `ops` (the
+    device operations counted in `by_span`, by span name), `ranges`
     (ranges by name), `idle` (idle seconds by the innermost span at each
     gap's midpoint, OUTSIDE where none holds it), `device_s` (device seconds
     of the span's work), `covered` (the share of it launched inside some
@@ -86,17 +70,16 @@ def reduce(events) -> dict:
     device_s = sum(e.dur for e in work) / 1e9
     names = sorted({r[2] for r in ranges})
     sub = [e for e in events if e.device or _is_launch(e)]  # what launched_in reads
-    by_span = {n: sum(e.dur for e in trace.launched_in(sub, [(a, b) for a, b, m in ranges
-                                                             if m == n])) / 1e9
-               for n in names}
+    by_span, ops = {}, {}
+    for n in names:
+        launched = trace.launched_in(sub, [(a, b) for a, b, m in ranges if m == n])
+        by_span[n], ops[n] = sum(e.dur for e in launched) / 1e9, len(launched)
     starts = [r[0] for r in ranges]
     owner = {e.corr: innermost(ranges, starts, e.start) for e in sub if not e.device}
     own: dict = {}
-    kernels: dict = {}
     for e in work:
         n = owner.get(e.corr, OUTSIDE)
         own[n] = own.get(n, 0.0) + e.dur / 1e9
-        kernels[n, e.name] = kernels.get((n, e.name), 0.0) + e.dur / 1e9
     _, merged = trace.union_ns((e.start, min(e.start + e.dur, hi)) for e in work)
     gaps, prev = [], lo
     for a, b in merged:  # the gaps of `trace.reduce_span`
@@ -112,10 +95,8 @@ def reduce(events) -> dict:
     idle_s = sum(idle.values())
     _, top = trace.union_ns((a, b) for a, b, _ in ranges)
     covered = trace.launched_in(sub, [tuple(r) for r in top])
-    top_kernels = sorted(kernels.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return {
-        "by_span": by_span, "own": own, "idle": idle,
-        "own_kernels": [[n, k[:120], s] for (n, k), s in top_kernels],
+        "by_span": by_span, "ops": ops, "own": own, "idle": idle,
         "ranges": {n: sum(r[2] == n for r in ranges) for n in names},
         "device_s": device_s,
         "covered": sum(e.dur for e in covered) / 1e9 / device_s if device_s else 0.0,
@@ -141,22 +122,33 @@ def host_window(totals: dict, profiled: dict) -> dict:
     return out
 
 
-def readings(kind: str, red: dict, units: int, host: dict) -> dict:
-    """The per-layer readings of a cell of `kind` ("train" or "eval"):
-    device ms a step or frame from `red` (`reduce`) over the profiled span's
-    `units`, host ms from `host` (`host_window`) over its own count of steps
-    or frames; a reading that has nothing to read is left out."""
+def by_name(red: dict, units: int, host: dict, unit: str) -> dict:
+    """`record["spans"]`: for every program span of `red` (`reduce`) or
+    `host` (`host_window`), a step or a frame: `device_ms`, `own_ms`,
+    `idle_ms` and `device_ops` over the profiled span's `units`, where the
+    span ran in it; `host_ms` and `count` over the aggregate's count of
+    `unit` (the step's or the frame's span), where it ran outside it."""
+    n_host = host.get(unit, (0, 0))[0]
+    ran = red.get("ranges", {}) if units else {}
     out = {}
-    if red and units:
-        for metric, name in DEVICE[kind].items():
-            if red["ranges"].get(name):
-                out[metric] = 1e3 * red["by_span"][name] / units
-    if kind == "train" and host.get("tngp.train.step"):
-        c, ns = host["tngp.train.step"]
-        out["dispatch_ms_per_step.train"] = ns / c / 1e6
-    if kind == "eval" and host.get("tngp.frame"):
-        c, ns = host["tngp.frame"]
-        wait = sum(host.get(n, (0, 0))[1] for n in WAITS)
-        out["read_wait_ms_per_frame.eval"] = wait / c / 1e6
-        out["dispatch_ms_per_frame.eval"] = (ns - wait) / c / 1e6
+    for n in sorted(set(ran) | set(host)):
+        e = out[n] = {}
+        if n in ran:
+            e.update(device_ms=1e3 * red["by_span"][n] / units,
+                     own_ms=1e3 * red["own"].get(n, 0.0) / units,
+                     idle_ms=1e3 * red["idle"].get(n, 0.0) / units,
+                     device_ops=red["ops"][n] / units)
+        if n_host and n in host:
+            c, ns = host[n]
+            e.update(host_ms=ns / 1e6 / n_host, count=c / n_host)
     return out
+
+
+def value(rec: dict, kind: str, name: str, key: str):
+    """`rec["spans"][name][key]` of a record of `kind` ("train" or "eval"),
+    None where the run read nothing there: no such span, or no device time
+    (a device reading of a run without a device trace)."""
+    if rec.get("kind") != kind:
+        return None
+    v = rec.get("spans", {}).get(name, {}).get(key)
+    return v if v else None

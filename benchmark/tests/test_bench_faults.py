@@ -5,17 +5,10 @@ read against the cell's limits."""
 
 import pytest
 
-from benchmark import harness
-from benchmark.tests.tiny_cells import BENCH, CELLS, run_tiny
+from benchmark.tests.tiny_cells import CELLS, driver, program, run_tiny
 
-# each fault a cell can have: in a training cell's steps; in the eval
-# cell's frames, and in the training that its set-up runs
-FAULTS = {"train_loop": ["frozen_state", "half_batch", "altered_answer"],
-          "frame_loop": ["frozen_state", "half_batch", "altered_answer"]}
-TRAFFIC = {w["name"]: w["traffic"] for w in BENCH["workloads"]}
-CASES = [(cell, f) for cell in CELLS
-         for f in FAULTS[harness.load_json(harness.BENCH_DIR / "traffic"
-                                           / f"{TRAFFIC[cell]}.json")["driver"]]]
+# each fault a cell can have, as its mix's driver module gives them (`faults`)
+CASES = [(cell, f) for cell in CELLS for f in driver(cell).faults(program(cell))]
 
 
 @pytest.mark.parametrize("cell,fault", CASES, ids=[f"{c}-{f}" for c, f in CASES])

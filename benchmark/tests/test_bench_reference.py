@@ -73,3 +73,24 @@ def test_compositing_stops_after_opacity():
     mask = torch.tensor([[True, True, True, True]])
     ws, _, color = volume.composite(sigma, rgb, 0.2, torch.ones((1, 4)), mask, 1e-4)
     assert 0.9999 < float(ws) <= 1.0 and torch.allclose(color, ws[:, None].expand(1, 3))
+
+
+def test_budgets_a_step_may_run_at_follow_its_demand():
+    """instant-NGP's tiers, and which of them a step of a given demand (its
+    valid rungs) may run at once its tier has adapted; a configuration
+    without tiers runs at its one budget."""
+    cfg = _cfg("instant-ngp")
+    tiers = ngp.budget_tiers(16384, cfg)
+    assert tiers == [131072, 262144, 524288, 1048576]
+
+    def allowed(demand):  # rays cut in proportion to the samples past the budget
+        return volume.adapted_budgets(demand, lambda m: min(1.0, m / demand), tiers)
+
+    assert allowed(330_000) == {524288, 1048576}  # the top tier within 1.6x headroom
+    assert allowed(320_000) == {524288}
+    assert allowed(100_000) == {131072, 262144}
+    assert allowed(80_000) == {131072}
+    assert allowed(2_000_000) == {1048576}  # rays dropped at every tier: the top one
+    one = [volume.train_budget(16384, _cfg("tensorf-vm192"))]
+    assert volume.adapted_budgets(80_000, lambda m: 1.0, one) == set(one)
+    assert volume.adapted_budgets(2_000_000, lambda m: 0.1, one) == set(one)

@@ -42,6 +42,15 @@ def test_encoder_bytes_match_the_ports():
         encoder_bytes("fwd", xyz4, wob, spec, kw.DEFAULT_BLOCK)
 
 
+def test_encoder_bwd_bytes_match_the_ports():
+    from tngp_torch.diagnostics.kernel_times import encoder_bytes
+
+    cfg = _small_cfg()
+    spec, xyz4, wob, kw = _encoder_inputs(cfg, seed=2)
+    assert roofline.encoder_bwd_bytes(xyz4.shape[0], wob.numel(), cfg) == \
+        encoder_bytes("bwd", xyz4, wob, spec, kw.DEFAULT_BLOCK)
+
+
 def test_corner_addresses_match_the_ports():
     cfg = _small_cfg()
     spec, xyz4, wob, kw = _encoder_inputs(cfg, seed=1)

@@ -1,11 +1,16 @@
 """Cells of BENCHMARK.json cut to a size the CPU runs in seconds, for the
 benchmark's own tests: a few views of the hard scene at 24x24, narrow
-fields and short marches.  The program runs its plain versions there."""
+fields and short marches.  The program runs its plain versions there.
+
+Each configuration's program module (`benchmark/models/<arch>.py`) gives
+its cut as `tiny(cfg)`, and each mix's driver module
+(`benchmark/drivers/<driver>.py`) its own as `tiny(traffic, limits)`."""
 
 from __future__ import annotations
 
 import copy
 import hashlib
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -29,26 +34,36 @@ BENCH = harness.load_json(harness.ROOT / "BENCHMARK.json")
 CELLS = sorted(w["name"] for w in BENCH["workloads"])
 
 
+def driver(cell: str):
+    """The driver module of the cell's traffic mix."""
+    tf = harness.cell_spec(cell)["traffic"]
+    return importlib.import_module(f"benchmark.drivers.{tf['driver']}")
+
+
+def program(cell: str):
+    """The program module of the cell's configuration."""
+    arch = harness.cell_spec(cell)["cfg"]["arch"]
+    return importlib.import_module(f"benchmark.models.{arch}")
+
+
+def tiny_cut(module, *args) -> None:
+    """`module.tiny(*args)`, refused where the module gives no tiny cut:
+    a configuration of a new arch, or a mix of a new driver, brings its own."""
+    cut = getattr(module, "tiny", None)
+    if not callable(cut):
+        raise LookupError(f"{module.__name__} gives no tiny cut (`tiny`)")
+    cut(*args)
+
+
 def tiny_spec(cell: str, tmp: Path) -> dict:
     """`harness.cell_spec(cell)` with its configuration and traffic cut down."""
     spec = copy.deepcopy(harness.cell_spec(cell))
     cfg, tf = spec["cfg"], spec["traffic"]
     scene = tmp / "scene.npz"
     cfg["scene"] = {"file": str(scene), "sha256": tiny_scene(scene), "n_val": 2}
-    if cfg["arch"] == "ngp":
-        cfg.update(num_levels=4, log2_hashmap_size=14, hidden_dim=16, hidden_dim_color=16)
-    else:
-        cfg.update(resolution0=16, resolution1=24, sigma_rank=[4, 4, 4], color_rank=[8, 8, 8],
-                   color_feat_dim=6, hidden_dim=16, upsample_model_steps=[4, 6])
+    tiny_cut(program(cell), cfg)
     cfg["render"].update(grid_size=16, density_thresh=0.01)  # the ladder stays the cell's
-    if tf["driver"] == "train_loop":
-        tf.update(num_rays=128, warmup_steps=8, chunk_steps=16, profile_steps=16)
-    else:
-        tf.update(setup_num_rays=256, setup_steps=200, width=20, height=16, chunk=128,
-                  warmup_frames=1, profile_frames=1)
-        # 200 steps of a narrow field on six 24x24 views read ~17 dB on a
-        # held-out view, where the cell's field reads ~37 dB
-        spec["limits"]["val_mse"] = 0.05
+    tiny_cut(driver(cell), tf, spec["limits"])
     return spec
 
 

@@ -1,5 +1,6 @@
 """Helpers the drivers share: the scene, the device's clock and memory, and
-the profiled span of a traced run."""
+what a traced run reads besides the device trace: the program's host time
+by span over the window, and the kernel calls of the profiled span."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import time
 import numpy as np
 import torch
 
-from . import trace
+from . import spans, trace
 from .harness import ROOT
 
 
@@ -76,6 +77,40 @@ def profiled(device):
     out["events"] = trace.read_events(prof)
 
 
+class HostSpans:
+    """The program's aggregate of host time by span
+    (`tngp_torch.utils.profiling`) over a traced run's window: entered at
+    the window's start and left at its end (or on an error), it turns the
+    spans on and off again, and leaves in `totals` what they read over the
+    window less the profiled chunk (`left_out`).  With `on` false (an
+    untraced run) it touches nothing and `totals` stays empty."""
+
+    def __init__(self, on: bool):
+        self.on, self.profiled, self.totals = bool(on), {}, {}
+
+    def __enter__(self):
+        if self.on:
+            from tngp_torch.utils import profiling
+
+            self.prof = profiling
+            profiling.enable_spans(True)
+            profiling.reset_spans()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.on:
+            self.totals = spans.host_window(self.prof.span_totals(), self.profiled)
+            self.prof.enable_spans(False)
+        return False
+
+    @contextlib.contextmanager
+    def left_out(self):
+        """Inside: the totals that `totals` leaves out."""
+        before = self.prof.span_totals()
+        yield
+        self.profiled = spans.host_window(self.prof.span_totals(), before)
+
+
 @contextlib.contextmanager
 def spans_around(obj, attr: str, name: str):
     """Inside: calls of `obj.<attr>` run inside a `record_function(name)`
@@ -100,18 +135,24 @@ def spans_around(obj, attr: str, name: str):
 
 
 @contextlib.contextmanager
-def encoder_calls():
-    """Inside: the inputs (xyz4, wob) of each window-encoder forward launch
-    are appended to the yielded dict's `fwd`; the calls go through
-    unchanged."""
+def encoder_calls(limit: int):
+    """Inside: the inputs (xyz4, wob) of the first `limit` window-encoder
+    forward launches are appended to the yielded dict's `fwd`, each of
+    those calls inside a `record_function("bench.encoder_fwd")` range, so
+    that their kernels' time is read beside them (the inputs are kept, so
+    a few calls); the calls go through unchanged."""
+    from torch.autograd.profiler import record_function
     from tngp_torch.kernels import window_encoder as kw
 
     seen: dict = {"fwd": [], "block": kw.DEFAULT_BLOCK}
     real = kw.window_encode_fwd
 
     def call(xyz4, wob, *a, **k):
+        if len(seen["fwd"]) >= limit:
+            return real(xyz4, wob, *a, **k)
         seen["fwd"].append((xyz4, wob))
-        return real(xyz4, wob, *a, **k)
+        with record_function("bench.encoder_fwd"):
+            return real(xyz4, wob, *a, **k)
 
     kw.window_encode_fwd = call
     try:
@@ -145,3 +186,47 @@ def scatter_any_calls():
     finally:
         grid_sample.scatter_add = real
 
+
+@contextlib.contextmanager
+def encoder_bwd_calls():
+    """Inside: the sizes (M_pad, wob entries) of each window-encoder table
+    gradient call (`window_encode_bwd`: the zeroing and table-gradient
+    kernels) are appended to the yielded list, for `roofline.
+    encoder_bwd_bytes`; the calls go through unchanged."""
+    from tngp_torch.kernels import window_encoder as kw
+
+    seen: list = []
+    real = kw.window_encode_bwd
+
+    def call(xyz4, wob, *a, **k):
+        seen.append((int(xyz4.shape[0]), int(wob.numel())))
+        return real(xyz4, wob, *a, **k)
+
+    kw.window_encode_bwd = call
+    try:
+        yield seen
+    finally:
+        kw.window_encode_bwd = real
+
+
+@contextlib.contextmanager
+def any_kernel_calls():
+    """Inside: the shape (m, c, rows) of each launch of the general
+    scatter-add's kernel (`tngp_torch.kernels.scatter`'s any form, at its
+    launch, so every caller's) is appended to the yielded list, for
+    `roofline.add_bytes`; the launches go through unchanged.  CPU tensors
+    take the plain version and launch nothing."""
+    from tngp_torch.kernels import scatter
+
+    seen: list = []
+    real = scatter._launch_any
+
+    def launch(idx, vals, num_rows, *a, **k):
+        seen.append((int(vals.shape[0]), int(vals.shape[1]), int(num_rows)))
+        return real(idx, vals, num_rows, *a, **k)
+
+    scatter._launch_any = launch
+    try:
+        yield seen
+    finally:
+        scatter._launch_any = real
